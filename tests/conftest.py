@@ -28,6 +28,8 @@ _have_timeout_plugin = False
 
 def pytest_configure(config):
     global _have_timeout_plugin
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped where there is none")
     _have_timeout_plugin = config.pluginmanager.hasplugin("timeout")
     if _have_timeout_plugin and getattr(config.option, "timeout", None) is None:
         config.option.timeout = TIMEOUT_S
