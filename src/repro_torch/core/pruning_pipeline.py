@@ -11,8 +11,8 @@ ranks and orders equal the unbucketed ``pruning_order_batch``'s; errors
 agree to fp32 rounding (the Eq. 8 one-hot product's summation order
 depends on the bucket width).
 Buckets are enqueued back to back; nothing syncs the host between them.
-
-``pool_tokens`` is not ported yet.
+:func:`pool_tokens` (near-duplicate token pooling after pruning) runs on
+the host in numpy, as in the reference.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ __all__ = [
     "Bucket",
     "bucket_plan",
     "effective_lengths",
+    "pool_tokens",
     "prune_corpus",
     "pruning_order_bucketed",
 ]
@@ -109,6 +110,44 @@ def pruning_order_bucketed(d_embs, d_masks, samples, *, step_size: int = 1,
         errs[idx, :w] = er
         orders[idx, :o.shape[1]] = o
     return ranks, errs, orders
+
+
+def pool_tokens(d_embs, keep, threshold: float):
+    """Greedy within-document token pooling (Clavie-style): each
+    unclaimed kept token, in original order, opens a pool, absorbs every
+    later unclaimed kept token whose cosine similarity to it reaches
+    ``threshold``, and its slot takes the pool mean; absorbed slots
+    leave ``keep``.  Host-side (which tokens merge is data-dependent).
+    Takes numpy arrays or tensors; returns ``(pooled_embs (n_docs, m,
+    dim) f32, new_keep (n_docs, m) bool)`` as numpy, with slots outside
+    ``new_keep`` zeroed."""
+    if not 0.0 < threshold <= 1.0:
+        raise ValueError(f"threshold must be in (0, 1], got {threshold}")
+    if isinstance(d_embs, torch.Tensor):
+        d_embs = d_embs.detach().float().cpu().numpy()
+    if isinstance(keep, torch.Tensor):
+        keep = keep.cpu().numpy()
+    embs = np.array(d_embs, np.float32)
+    kp = np.array(keep, bool)
+    for i in range(kp.shape[0]):
+        idx = np.flatnonzero(kp[i])
+        if idx.size < 2:
+            continue
+        e = embs[i, idx]
+        nrm = np.maximum(np.linalg.norm(e, axis=-1, keepdims=True), 1e-12)
+        cos = (e / nrm) @ (e / nrm).T
+        claimed = np.zeros(idx.size, bool)
+        for a in range(idx.size):
+            if claimed[a]:
+                continue
+            absorbed = np.flatnonzero(~claimed & (cos[a] >= threshold))
+            absorbed = absorbed[absorbed > a]   # the seed joins regardless
+            pool = np.concatenate([[a], absorbed])
+            claimed[pool] = True
+            embs[i, idx[a]] = e[pool].mean(0)
+            kp[i, idx[absorbed]] = False
+    embs[~kp] = 0.0
+    return embs, kp
 
 
 def prune_corpus(d_embs, d_masks, samples, keep_fraction: float, *,

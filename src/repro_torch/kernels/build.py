@@ -41,9 +41,14 @@ SIGNATURES = {
                                            _P, _P, _P]},
     "colbert_maxsim": {
         "colbert_maxsim_multi_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        _P, _P],
+                                        _I, _P, _P],
         "colbert_maxsim_rerank_launch": [_P, _P, _P, _P, _I, _I, _I, _I,
-                                         _I, _P, _P],
+                                         _I, _I, _P, _P],
+        "colbert_maxsim_residual_multi_launch": [
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+        "colbert_maxsim_residual_rerank_launch": [
+            _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+            _P, _P],
     },
 }
 

@@ -8,11 +8,16 @@ Counterpart of ``repro.kernels.colbert_maxsim.ops``:
 * :func:`colbert_maxsim_rerank_op` — each query vs its OWN candidate
   block (two-stage rerank), one launch over (candidates x queries);
 * :func:`colbert_maxsim_op` — one query vs a doc batch, the
-  ``n_q = 1`` case of the rerank kernel.
+  ``n_q = 1`` case of the rerank kernel;
+* :func:`colbert_maxsim_residual_multi_op` and
+  :func:`colbert_maxsim_residual_rerank_op` — the same two sweeps over
+  residual-codec docs, decoded inside the kernel tile by tile.
 
-A CPU tensor runs the plain version (``ref.py``); a CUDA tensor
-launches the kernel.  ``.launches`` on the two launching wrappers
-counts their launches.
+Queries are fp32; dense docs are fp32 or bf16.  A CPU tensor runs the
+plain version (``ref.py``); a CUDA tensor launches the kernel.
+``.launches`` on each launching wrapper counts its launches, and
+``.bf16_launches`` on the two dense ones the share of them on bf16
+docs.
 """
 
 from __future__ import annotations
@@ -21,9 +26,11 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.colbert_maxsim.ref import (
-    colbert_maxsim_multi_ref, colbert_maxsim_rerank_ref)
+    colbert_maxsim_multi_ref, colbert_maxsim_rerank_ref,
+    colbert_maxsim_residual_multi_ref, colbert_maxsim_residual_rerank_ref)
 
 L_MAX = 64   # query tokens per query the kernel takes (csrc RT)
+DOC_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _device_of(t):
@@ -33,9 +40,9 @@ def _device_of(t):
     return t.device
 
 
-def _launch(entry, q_embs, d_embs, d_masks, q_masks, n_docs):
+def _queries(q_embs, q_masks):
+    """Check the fp32 query side; default mask all-true."""
     n_q, l, dim = q_embs.shape
-    m = d_embs.shape[-2]
     dev = q_embs.device
     if l > L_MAX:
         raise ValueError(f"query length {l} exceeds the kernel's {L_MAX}")
@@ -43,16 +50,33 @@ def _launch(entry, q_embs, d_embs, d_masks, q_masks, n_docs):
         q_masks = torch.ones((n_q, l), dtype=torch.bool, device=dev)
     build.require(q_embs, "q_embs", torch.float32, (n_q, l, dim), dev)
     build.require(q_masks, "q_masks", torch.bool, (n_q, l), dev)
-    build.require(d_embs, "d_embs", torch.float32,
+    return q_masks
+
+
+def _launch(entry, q_embs, d_embs, d_masks, q_masks, n_docs):
+    q_masks = _queries(q_embs, q_masks)
+    n_q, l, dim = q_embs.shape
+    m = d_embs.shape[-2]
+    dev = q_embs.device
+    if d_embs.dtype not in DOC_DTYPES:
+        raise ValueError(f"d_embs has dtype {d_embs.dtype}, expected one "
+                         f"of {DOC_DTYPES}")
+    build.require(d_embs, "d_embs", d_embs.dtype,
                   d_masks.shape + (dim,), dev)
     build.require(d_masks, "d_masks", torch.bool, d_masks.shape, dev)
     out = torch.empty((n_q, n_docs), dtype=torch.float32, device=dev)
     lib = build.library("colbert_maxsim")
     build.check("colbert_maxsim", getattr(lib, entry)(
         q_embs.data_ptr(), q_masks.data_ptr(), d_embs.data_ptr(),
-        d_masks.data_ptr(), n_q, l, n_docs, m, dim, out.data_ptr(),
+        d_masks.data_ptr(), n_q, l, n_docs, m, dim,
+        int(d_embs.dtype == torch.bfloat16), out.data_ptr(),
         build.stream_ptr(q_embs)))
     return out
+
+
+def _count(fn, d_embs):
+    fn.launches += 1
+    fn.bf16_launches += d_embs.dtype == torch.bfloat16
 
 
 def colbert_maxsim_multi_op(q_embs, d_embs, d_masks, q_masks=None):
@@ -63,11 +87,12 @@ def colbert_maxsim_multi_op(q_embs, d_embs, d_masks, q_masks=None):
         raise ValueError("d_masks must be (n_docs, m)")
     out = _launch("colbert_maxsim_multi_launch", q_embs, d_embs, d_masks,
                   q_masks, d_masks.shape[0])
-    colbert_maxsim_multi_op.launches += 1
+    _count(colbert_maxsim_multi_op, d_embs)
     return out
 
 
 colbert_maxsim_multi_op.launches = 0
+colbert_maxsim_multi_op.bf16_launches = 0
 
 
 def colbert_maxsim_rerank_op(q_embs, d_subs, m_subs, q_masks=None):
@@ -80,11 +105,12 @@ def colbert_maxsim_rerank_op(q_embs, d_subs, m_subs, q_masks=None):
         raise ValueError("m_subs must be (n_q, n_cand, m)")
     out = _launch("colbert_maxsim_rerank_launch", q_embs, d_subs, m_subs,
                   q_masks, m_subs.shape[1])
-    colbert_maxsim_rerank_op.launches += 1
+    _count(colbert_maxsim_rerank_op, d_subs)
     return out
 
 
 colbert_maxsim_rerank_op.launches = 0
+colbert_maxsim_rerank_op.bf16_launches = 0
 
 
 def colbert_maxsim_op(q_emb, d_embs, d_masks, q_mask=None):
@@ -92,3 +118,88 @@ def colbert_maxsim_op(q_emb, d_embs, d_masks, q_mask=None):
     return colbert_maxsim_rerank_op(
         q_emb[None], d_embs[None], d_masks[None],
         None if q_mask is None else q_mask[None])[0]
+
+
+def _residual_launch(entry, q_embs, q_masks, codes, resq, rscale, tables,
+                     bucket_of, d_masks, bits):
+    """Check and launch one residual kernel; ``codes`` (..., n_docs, m)
+    with leading query axis on the rerank, ``tables`` (C, dim) or
+    (n_buckets, C, dim).  Codes and ``bucket_of`` are not range-checked
+    here (that would sync the host); the kernel clamps them into their
+    tables, so a malformed index scores garbage but reads no memory
+    outside them."""
+    q_masks = _queries(q_embs, q_masks)
+    n_q, l, dim = q_embs.shape
+    dev = q_embs.device
+    if bits not in (2, 4) or dim % (8 // bits):
+        raise ValueError(f"bits={bits} with dim={dim}: bits in (2, 4) "
+                         f"and dim a multiple of {8 // max(bits, 1)}")
+    shape = tuple(codes.shape)
+    n_docs, m = shape[-2:]
+    build.require(codes, "codes", torch.int8, shape, dev)
+    build.require(resq, "resq", torch.uint8, shape + (dim * bits // 8,),
+                  dev)
+    build.require(rscale, "rscale", torch.float32, shape + (1,), dev)
+    build.require(d_masks, "d_masks", torch.bool, shape, dev)
+    build.require(tables, "codebook", torch.float32,
+                  tables.shape[:-1] + (dim,), dev)
+    args = [t.data_ptr() for t in (codes, resq, rscale, tables)]
+    if bucket_of is not None:
+        build.require(bucket_of, "bucket_of", torch.int32, shape[:-1], dev)
+        args += [bucket_of.data_ptr(), tables.shape[0]]
+    out = torch.empty((n_q, n_docs), dtype=torch.float32, device=dev)
+    lib = build.library("colbert_maxsim")
+    build.check("colbert_maxsim", getattr(lib, entry)(
+        q_embs.data_ptr(), q_masks.data_ptr(), *args, d_masks.data_ptr(),
+        n_q, l, n_docs, m, dim, tables.shape[-2], bits, out.data_ptr(),
+        build.stream_ptr(q_embs)))
+    return out
+
+
+def colbert_maxsim_residual_multi_op(q_embs, codes, resq, rscale, codebook,
+                                     d_masks, q_masks=None, *, bits: int):
+    """A query batch vs ONE residual bucket, decoded in the kernel:
+    q_embs (n_q, l, dim) x [codes (n_docs, m) int8, resq (n_docs, m,
+    dim*bits//8) uint8, rscale (n_docs, m, 1) f32, codebook (C, dim)
+    f32] -> (n_q, n_docs).  Pad rows (code 0, residual 0) decode to
+    garbage and must arrive all-masked."""
+    if _device_of(codes).type == "cpu":
+        return colbert_maxsim_residual_multi_ref(
+            q_embs, codes, resq, rscale, codebook, d_masks, q_masks,
+            bits=bits)
+    if codes.dim() != 2:
+        raise ValueError("codes must be (n_docs, m)")
+    out = _residual_launch("colbert_maxsim_residual_multi_launch", q_embs,
+                           q_masks, codes, resq, rscale, codebook, None,
+                           d_masks, bits)
+    colbert_maxsim_residual_multi_op.launches += 1
+    return out
+
+
+colbert_maxsim_residual_multi_op.launches = 0
+
+
+def colbert_maxsim_residual_rerank_op(q_embs, code_subs, resq_subs,
+                                      scale_subs, codebooks, bucket_of,
+                                      m_subs, q_masks=None, *, bits: int):
+    """Query i vs its own residual candidates, candidate (i, j) decoding
+    against ``codebooks[bucket_of[i, j]]``: code_subs (n_q, n_cand, m)
+    int8; resq_subs (n_q, n_cand, m, pb) uint8; scale_subs (n_q, n_cand,
+    m, 1) f32; codebooks (n_buckets, C, dim) f32; bucket_of (n_q,
+    n_cand) int32; m_subs (n_q, n_cand, m) -> (n_q, n_cand).  The
+    reference gathers a (n_q, n_cand, C, dim) codebook tensor; this
+    reads each row's table in the kernel instead."""
+    if _device_of(code_subs).type == "cpu":
+        return colbert_maxsim_residual_rerank_ref(
+            q_embs, code_subs, resq_subs, scale_subs, codebooks, bucket_of,
+            m_subs, q_masks, bits=bits)
+    if code_subs.dim() != 3 or code_subs.shape[0] != q_embs.shape[0]:
+        raise ValueError("code_subs must be (n_q, n_cand, m)")
+    out = _residual_launch("colbert_maxsim_residual_rerank_launch", q_embs,
+                           q_masks, code_subs, resq_subs, scale_subs,
+                           codebooks, bucket_of, m_subs, bits)
+    colbert_maxsim_residual_rerank_op.launches += 1
+    return out
+
+
+colbert_maxsim_residual_rerank_op.launches = 0

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the ColBERT MaxSim kernels.
 
 Counterpart of ``repro.kernels.colbert_maxsim.ref``; each materializes
-the score tensor the kernels exist to avoid.
+the score tensor the kernels exist to avoid, and the residual versions
+also the decoded fp32 docs (``train.compress`` decode, then the dense
+version).
 """
 
 from __future__ import annotations
@@ -9,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.scoring import NEG_INF
+from repro_torch.train.compress import dequantize_residual, residual_values
 
 
 def _reduce(s, d_masks, q_masks):
@@ -42,3 +45,24 @@ def colbert_maxsim_rerank_ref(q_embs, d_subs, m_subs, q_masks=None):
     s = torch.einsum("qld,qnmd->qnlm", q_embs.float(), d_subs.float())
     return _reduce(s, m_subs,
                    None if q_masks is None else q_masks[:, None, :])
+
+
+def colbert_maxsim_residual_multi_ref(q_embs, codes, resq, rscale, codebook,
+                                      d_masks, q_masks=None, *, bits: int):
+    """A query batch vs one residual bucket: codes (n_docs, m) int8,
+    resq (n_docs, m, dim*bits//8) uint8, rscale (n_docs, m, 1) f32,
+    codebook (C, dim) f32 -> (n_q, n_docs)."""
+    d = dequantize_residual(resq, rscale, codes, codebook, bits)
+    return colbert_maxsim_multi_ref(q_embs, d, d_masks, q_masks)
+
+
+def colbert_maxsim_residual_rerank_ref(q_embs, code_subs, resq_subs,
+                                       scale_subs, codebooks, bucket_of,
+                                       m_subs, q_masks=None, *, bits: int):
+    """Query i vs its own residual candidates, candidate (i, j) decoding
+    against codebook ``bucket_of[i, j]`` of the (n_buckets, C, dim)
+    table: code_subs (n_q, n_cand, m); resq_subs (n_q, n_cand, m, pb);
+    scale_subs (n_q, n_cand, m, 1) -> (n_q, n_cand)."""
+    cent = codebooks[bucket_of.long()[..., None], code_subs.long()]
+    d = cent + residual_values(resq_subs, scale_subs, bits)
+    return colbert_maxsim_rerank_ref(q_embs, d, m_subs, q_masks)

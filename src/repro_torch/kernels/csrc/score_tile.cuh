@@ -1,4 +1,4 @@
-// Shared fp32 score-tile engine of the four retrieval kernels.
+// Shared fp32 score-tile engine of the six retrieval kernels.
 //
 // Every kernel of this slice computes a small dense product
 // S = A . B^T (A: rows x dim, B: cols x dim, fp32) and reduces each row
@@ -15,9 +15,17 @@
 // no tensor cores (fp32 on Hopper's tensor cores exists only as TF32).
 // Rows past `nrows` and columns past `ncols` read as 0 and must be
 // ignored by the epilogue.
+//
+// The B side comes through a loader, `B(c, k)` = element k of column c
+// as fp32, so one engine serves every storage format of the doc
+// tokens: fp32 and bf16 (DenseCols, widened exactly), and the residual
+// codec (ResidualCols), whose decode runs here, while the tile is
+// staged into shared memory — a decoded doc never reaches device
+// memory.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,13 +43,56 @@ struct TileSmem {
   float s[RT][CT + 1];
 };
 
-// S[r][c] = dot(A[r], B[c]) for r < RT, c < CT into sm.s.  A and B point
-// at the tile's first row / column; both are row-major with row length
-// `dim`.  Ends with a __syncthreads(): sm.s is readable by every thread.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// Dense doc tokens, row-major (cols, dim), fp32 or bf16.
+template <class T>
+struct DenseCols {
+  const T* p;
+  int dim;
+  __device__ __forceinline__ float operator()(int c, int k) const {
+    return to_f32(p[(size_t)c * dim + k]);
+  }
+};
+
+// Residual-codec doc tokens (train/compress.py layout): token c is
+// codebook[codes[c]] + (u - 2^(BITS-1)) * scale[c], u the BITS-bit value
+// k of its packed row — byte k / vpb, shift (k % vpb) * BITS, vpb =
+// 8 / BITS.  The product and the add are rounded separately
+// (__fmul_rn, __fadd_rn: no fma contraction), as the eager decode
+// rounds them, so the decoded tile equals dequantize_residual bit for
+// bit.  The codebook (at most 127 x dim fp32) goes through the
+// read-only cache.  A code outside [0, n_centroids) is clamped into it,
+// as XLA's gather clamps: a malformed code scores garbage but never
+// reads outside the codebook.
+template <int BITS>
+struct ResidualCols {
+  const int8_t* codes;      // (cols,)
+  const uint8_t* resq;      // (cols, dim * BITS / 8)
+  const float* scale;       // (cols,)
+  const float* codebook;    // (n_centroids, dim)
+  int dim, n_centroids;
+  __device__ __forceinline__ float operator()(int c, int k) const {
+    constexpr int VPB = 8 / BITS;
+    const int code = min(max((int)codes[c], 0), n_centroids - 1);
+    const float cent = __ldg(codebook + (size_t)code * dim + k);
+    const int u = (resq[(size_t)c * (dim / VPB) + k / VPB] >>
+                   ((k % VPB) * BITS)) & ((1 << BITS) - 1);
+    return __fadd_rn(cent,
+                     __fmul_rn((float)(u - (1 << (BITS - 1))), scale[c]));
+  }
+};
+
+// S[r][c] = dot(A[r], B(c0 + c, .)) for r < RT, c < CT into sm.s.  A
+// points at the tile's first row, row-major with row length `dim`.
+// Ends with a __syncthreads(): sm.s is readable by every thread.
+template <class Cols>
 __device__ __forceinline__ void score_tile(const float* __restrict__ A,
-                                           int nrows,
-                                           const float* __restrict__ B,
-                                           int ncols, int dim,
+                                           int nrows, const Cols& B,
+                                           int c0, int ncols, int dim,
                                            TileSmem& sm) {
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
@@ -59,8 +110,7 @@ __device__ __forceinline__ void score_tile(const float* __restrict__ A,
     }
     for (int e = tid; e < CT * DK; e += NT) {
       const int c = e / DK, k = e % DK;
-      sm.b[k][c] = (c < ncols && k0 + k < dim)
-                       ? B[(size_t)c * dim + k0 + k] : 0.f;
+      sm.b[k][c] = (c < ncols && k0 + k < dim) ? B(c0 + c, k0 + k) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -82,6 +132,15 @@ __device__ __forceinline__ void score_tile(const float* __restrict__ A,
 #pragma unroll
     for (int j = 0; j < 4; ++j) sm.s[ty * 4 + i][tx * 4 + j] = acc[i][j];
   __syncthreads();
+}
+
+// fp32 doc tile starting at B (the pruning kernels' call).
+__device__ __forceinline__ void score_tile(const float* __restrict__ A,
+                                           int nrows,
+                                           const float* __restrict__ B,
+                                           int ncols, int dim,
+                                           TileSmem& sm) {
+  score_tile(A, nrows, DenseCols<float>{B, dim}, 0, ncols, dim, sm);
 }
 
 }  // namespace repro

@@ -1,12 +1,17 @@
 """Serving driver: encode corpus -> Voronoi-prune -> pack -> serve.
 
-Counterpart of the default path of ``repro.launch.serve.serve_retrieval``
-(exhaustive route, one device, no index directory, no mutation,
-``compress="none"``).  The encoder is randomly initialised from
-``seed``, as in the reference.  The configuration is a parameter, so the
-same function runs the smoke config in the CPU tests and the full
-``colbert`` config on the card.  The reference's command-line flags are
-not ported yet.
+Counterpart of ``repro.launch.serve.serve_retrieval`` on one device,
+without an index directory or mutation: encode, prune, optionally pool
+near-duplicate tokens (``pool_threshold``), pack with ``compress``
+(``"none"`` keeps the encoder's dtype, bf16 at the full config, as the
+reference stores it; ``"int8"``; ``"residual"`` at ``residual_bits``),
+then serve.  The encoder is randomly initialised from ``seed``, as in
+the reference.  The configuration is a parameter, so the same function
+runs the smoke config in the CPU tests and the full ``colbert`` config
+on the card.  Candidate routing is a library call here
+(``RetrievalServer(route=..., routing=RoutingIndex.build(packed))``):
+the reference ties ``--route`` to ``--index-dir``, which is not ported.
+The reference's command-line flags are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from repro_torch.core import pruning_pipeline
 from repro_torch.core.sampling import sample_sphere
 from repro_torch.data import synthetic
 from repro_torch.models.colbert import ColBERTConfig, init_params
-from repro_torch.serve.index import PackedIndex
+from repro_torch.serve.index import COMPRESSIONS, PackedIndex
 from repro_torch.serve.retrieval import RetrievalServer, TokenIndex
 
 ENCODE_BATCH = 512   # docs per encoder forward (bounds attention memory)
@@ -32,7 +37,8 @@ N_SAMPLES = 2048     # Monte-Carlo sphere samples, as the reference
 @dataclasses.dataclass
 class ServeResult:
     """What one ``serve_retrieval`` run produced: the served top-k; the
-    encoded corpus, sphere samples, packed index, server and encoded
+    encoded corpus (in the encoder's dtype, pooled when pooling ran),
+    the keep mask, sphere samples, packed index, server and encoded
     queries (for further serving and checks); and the wall seconds of
     each stage (synchronized on the card)."""
 
@@ -40,6 +46,7 @@ class ServeResult:
     scores: object              # (n_q, k) float32 numpy
     d_emb: torch.Tensor
     d_mask: torch.Tensor
+    keep: torch.Tensor
     samples: torch.Tensor
     packed: PackedIndex
     server: RetrievalServer
@@ -55,16 +62,29 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _report_bytes(packed) -> None:
+    """One grep-able storage line per run, as the reference prints."""
+    st = packed.storage()
+    ratio = st["bytes_stored"] / max(st["bytes_dense_fp32"], 1)
+    print(f"[serve] storage: codec={packed.codec_tag() or 'fp32'} "
+          f"bytes_stored={st['bytes_stored']} "
+          f"ratio={ratio:.4f} of dense fp32")
+
+
 @torch.no_grad()
 def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
                     keep_fraction: float = 0.5, n_queries: int = 32,
                     seed: int = 0, backend: str | None = None,
                     n_first: int = 64, *, n_docs: int = 256,
-                    device=None, model=None, samples=None) -> ServeResult:
-    """The reference's default serving run on ``device`` (``cuda``
-    unless the caller passes another; raises without a GPU).  ``model``
-    and ``samples`` replace the seeded encoder and sphere samples when
+                    compress: str = "none", residual_bits: int = 4,
+                    pool_threshold: float = 0.0, device=None, model=None,
+                    samples=None) -> ServeResult:
+    """The reference's serving run on ``device`` (``cuda`` unless the
+    caller passes another; raises without a GPU).  ``model`` and
+    ``samples`` replace the seeded encoder and sphere samples when
     given (the parity tests carry the reference's across)."""
+    if compress not in COMPRESSIONS:
+        raise ValueError(f"compress={compress!r}; one of {COMPRESSIONS}")
     device = backend_lib.resolve_device(device)
     timings = {}
     t = time.perf_counter()
@@ -78,7 +98,7 @@ def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
     embs, masks = [], []
     for a in range(0, n_docs, ENCODE_BATCH):
         e, mk = model.encode_docs(doc_ids[a:a + ENCODE_BATCH])
-        embs.append(e.float())     # the fp32 index the kernels score
+        embs.append(e)
         masks.append(mk)
     d_emb, d_mask = torch.cat(embs), torch.cat(masks)
     if samples is None:
@@ -89,19 +109,31 @@ def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
     timings["encode_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    keep, _, _ = pruning_pipeline.prune_corpus(d_emb, d_mask, samples,
-                                               keep_fraction,
+    # the pruning kernels take fp32; widening bf16 is exact
+    keep, _, _ = pruning_pipeline.prune_corpus(d_emb.float(), d_mask,
+                                               samples, keep_fraction,
                                                backend=backend)
     _sync(device)
     timings["prune_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
+    if pool_threshold:
+        # Token pooling: merge near-duplicate kept tokens per doc before
+        # packing; the pooled corpus is fp32, as in the reference.
+        before = int((keep & d_mask).sum())
+        pooled, kp = pruning_pipeline.pool_tokens(d_emb, keep & d_mask,
+                                                  pool_threshold)
+        d_emb = torch.as_tensor(pooled, device=device)
+        keep = torch.as_tensor(kp, device=device)
+        print(f"[serve] pooled tokens at cos>={pool_threshold}: "
+              f"{before} -> {int(keep.sum())} kept")
     pruned = TokenIndex.build(d_emb, d_mask).with_keep(keep)
     print(f"[serve] masked (reported): {pruned.storage()}")
-    packed = pruned.pack()
+    packed = pruned.pack(compression=compress, residual_bits=residual_bits)
     _sync(device)
     timings["pack_s"] = time.perf_counter() - t
     print(f"[serve] packed (measured): {packed.storage()}")
+    _report_bytes(packed)
 
     serve_backend = backend if backend in backend_lib.SERVING else None
     if n_first <= 0:
@@ -121,5 +153,5 @@ def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
     print(f"[serve] {n_queries} queries in {timings['serve_s'] * 1e3:.1f} "
           f"ms ({timings['serve_s'] / n_queries * 1e3:.2f} ms/q)")
     return ServeResult(idx=idx, scores=scores, d_emb=d_emb, d_mask=d_mask,
-                       samples=samples, packed=packed, server=server,
+                       keep=keep, samples=samples, packed=packed, server=server,
                        q_emb=q_emb, timings=timings)

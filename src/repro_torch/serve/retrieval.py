@@ -18,9 +18,18 @@ descending score, ties to the lowest doc id, ``lax.top_k``'s contract —
 because ``torch.topk`` promises no order among ties.  Sentinels are the
 reference's: masked scores -1e30, pad ids -1 or >= ``pad_from``.
 
+Compressed indexes: ``int8`` buckets dequantize to fp32 and go through
+the dense scorers; ``residual`` buckets travel as
+:class:`~repro_torch.serve.index.ResidualView` and, on ``fused``, reach
+the residual kernels still compressed (the ``reference`` backend
+decodes them eagerly — it is the materializing oracle).
+
+Candidate routing (``topk_search(route=...)``, ``serve/routing.py``)
+restricts the streaming sweep to the buckets a centroid pass selects.
+
 Not ported yet: sharded and grid serving, placement, health monitoring,
-candidate routing, mutation serving (the reference's imports of
-``health``, ``sharding`` and ``placement``).
+mutation serving (the reference's imports of ``health``, ``sharding``
+and ``placement``).
 """
 
 from __future__ import annotations
@@ -32,16 +41,18 @@ import dataclasses
 import functools
 import threading
 
+import numpy as np
 import torch
 
 from repro_torch.core import backend as backend_lib
 from repro_torch.core.backend import _pow2_at_least
 from repro_torch.core.scoring import NEG_INF
-from repro_torch.kernels.colbert_maxsim.ops import (colbert_maxsim_multi_op,
-                                                    colbert_maxsim_rerank_op)
+from repro_torch.kernels.colbert_maxsim.ops import (
+    colbert_maxsim_multi_op, colbert_maxsim_rerank_op,
+    colbert_maxsim_residual_multi_op, colbert_maxsim_residual_rerank_op)
 from repro_torch.kernels.colbert_maxsim.ref import colbert_maxsim_rerank_ref
 from repro_torch.kernels.maxsim_topk.ref import topk_lowest_index
-from repro_torch.serve.index import PackedIndex
+from repro_torch.serve.index import PackedIndex, ResidualView
 
 
 class TopKResult(tuple):
@@ -117,8 +128,12 @@ def _n_docs(index) -> int:
 
 
 def _maxsim_scores_reference(d_embs, active_mask, q_embs, q_masks):
-    """Materializing 4-D einsum path — the parity oracle."""
-    s = torch.einsum("qld,nmd->qnlm", q_embs, d_embs)
+    """Materializing 4-D einsum path — the parity oracle.  A
+    :class:`ResidualView` decodes eagerly here; bf16 docs widen to the
+    queries' fp32."""
+    if isinstance(d_embs, ResidualView):
+        d_embs = d_embs.dense()
+    s = torch.einsum("qld,nmd->qnlm", q_embs, d_embs.to(q_embs.dtype))
     s = torch.where(active_mask[None, :, None, :], s, NEG_INF)
     best = s.amax(-1)
     if q_masks is not None:
@@ -127,11 +142,33 @@ def _maxsim_scores_reference(d_embs, active_mask, q_embs, q_masks):
 
 
 def _score_block(d_embs, active_mask, q_embs, q_masks, *, backend):
-    """Score one doc array on the resolved backend -> (n_q, n_docs)."""
+    """Score one doc array (dense, or a compressed :class:`ResidualView`)
+    on the resolved backend -> (n_q, n_docs)."""
     if backend == backend_lib.FUSED:
+        if isinstance(d_embs, ResidualView):
+            return colbert_maxsim_residual_multi_op(
+                q_embs, d_embs.codes, d_embs.resq, d_embs.scale,
+                d_embs.codebook, active_mask.contiguous(), q_masks,
+                bits=d_embs.bits)
         return colbert_maxsim_multi_op(q_embs, d_embs.contiguous(),
                                        active_mask.contiguous(), q_masks)
     return _maxsim_scores_reference(d_embs, active_mask, q_embs, q_masks)
+
+
+def _decodes_in_kernel(index, backend) -> bool:
+    """A residual index on ``fused`` stays compressed up to the kernels,
+    which decode per tile; everywhere else buckets are read dense."""
+    return (isinstance(index, PackedIndex) and index.compression == "residual"
+            and backend == backend_lib.FUSED)
+
+
+def _bucket_array(index: PackedIndex, b, backend):
+    """The doc array the scorers consume for bucket ``b``: compressed
+    (a :class:`ResidualView`) where the kernel decodes, else the
+    bucket's dense view (int8 and residual decoded to fp32)."""
+    if _decodes_in_kernel(index, backend):
+        return b.residual_view(index.dim)
+    return b.dense_embs(index.dim)
 
 
 def maxsim_scores(index, q_embs, q_masks=None, *,
@@ -146,8 +183,9 @@ def maxsim_scores(index, q_embs, q_masks=None, *,
     out = torch.zeros((q_embs.shape[0], index.n_docs), dtype=torch.float32,
                       device=q_embs.device)
     for b in index.buckets:
-        out[:, b.doc_ids.long()] = _score_block(b.embs, b.masks, q_embs,
-                                                q_masks, backend=backend)
+        out[:, b.doc_ids.long()] = _score_block(
+            _bucket_array(index, b, backend), b.masks, q_embs, q_masks,
+            backend=backend)
     return out
 
 
@@ -199,12 +237,13 @@ def _chunk_candidates(embs, masks, doc_ids, q_embs, q_masks, k: int, *,
                               doc_ids=doc_ids)
 
 
-def _index_views(index):
+def _index_views(index, backend):
     """Per-bucket (embs, masks, doc_ids) views; ``doc_ids=None`` means
     the axis is already in global doc order (dense layout)."""
     if not isinstance(index, PackedIndex):
         return [(index.d_embs, index.active_mask, None)]
-    return [(b.embs, b.masks, b.doc_ids) for b in index.buckets]
+    return [(_bucket_array(index, b, backend), b.masks, b.doc_ids)
+            for b in index.buckets]
 
 
 def _real_docs(index) -> int:
@@ -213,22 +252,34 @@ def _real_docs(index) -> int:
     return index.d_masks.shape[0]
 
 
-def topk_search(index, q_embs, *, k: int = 10, q_masks=None,
-                backend: str | None = None, chunk_docs: int | None = None):
-    """Streaming exact top-k MaxSim: ``(top_idx, top_scores)``, each
-    (n_q, min(k, n_docs)), equal to the (-score, id)-ordered top-k of
-    :func:`maxsim_scores` without ever holding an (n_q, n_docs) score
-    matrix.  ``chunk_docs`` defaults to ``backend.STREAM_CHUNK_DOCS``."""
-    backend = backend_lib.resolve_backend(backend, allow=backend_lib.SERVING,
-                                          device=q_embs.device)
-    chunk_docs = chunk_docs or backend_lib.STREAM_CHUNK_DOCS
+def _empty_topk(q_embs):
     n_q = q_embs.shape[0]
-    if _n_docs(index) == 0:
-        return (torch.zeros((n_q, 0), dtype=torch.int32,
-                            device=q_embs.device),
-                torch.zeros((n_q, 0), device=q_embs.device))
+    return (torch.zeros((n_q, 0), dtype=torch.int32, device=q_embs.device),
+            torch.zeros((n_q, 0), device=q_embs.device))
+
+
+def _bucket_view(index, bucket_ids):
+    """The slice of ``index`` holding exactly ``bucket_ids`` (ascending):
+    a PackedIndex of those buckets (doc ids and ``n_docs`` stay
+    corpus-global), the whole index for the dense layout's single
+    bucket, or ``None`` for an empty selection."""
+    if isinstance(index, PackedIndex):
+        picked = [index.buckets[i] for i in bucket_ids]
+        if not picked:
+            return None
+        return PackedIndex(n_docs=index.n_docs, m=index.m, dim=index.dim,
+                           tokens_total=index.tokens_total,
+                           compression=index.compression, buckets=picked,
+                           epoch=index.epoch,
+                           residual_bits=index.residual_bits)
+    return index if bucket_ids else None
+
+
+def _topk_local(index, q_embs, q_masks, k: int, *, backend, chunk_docs):
+    """Every bucket's streaming candidates, root-merged; capped at the
+    real documents of ``index`` so no sentinel fills a column."""
     vals, ids = [], []
-    for e, mk, di in _index_views(index):
+    for e, mk, di in _index_views(index, backend):
         v, i = _chunk_candidates(e, mk, di, q_embs, q_masks, k,
                                  backend=backend, chunk_docs=chunk_docs)
         vals.append(v)
@@ -236,6 +287,85 @@ def topk_search(index, q_embs, *, k: int = 10, q_masks=None,
     vals = torch.cat(vals, dim=1)
     ids = torch.cat(ids, dim=1)
     return _merge_topk(vals, ids, min(k, _real_docs(index), vals.shape[1]))
+
+
+def _topk_search_routed(index, q_embs, q_masks, k: int, *, backend,
+                        chunk_docs, route, routing, n_probe,
+                        route_threshold, route_stats):
+    """The candidate-routing tier in front of the merge (see
+    :func:`topk_search`).  The centroid pass runs on the device in one
+    sweep; the (n_q, n_buckets) scores and bounds come to the host,
+    where the shortlist is chosen before any bucket is scored."""
+    from repro_torch.serve import routing as routing_lib
+
+    routing_lib.check_route(route, routing, index, n_probe)
+    probe = 1 if n_probe is None else int(n_probe)
+    s, u = routing_lib.centroid_scores(routing, q_embs, q_masks,
+                                       backend=backend)
+    s_host, u_host = s.cpu().numpy(), u.cpu().numpy()
+
+    def run(bucket_ids):
+        view = _bucket_view(index, tuple(bucket_ids))
+        if view is None:
+            return _empty_topk(q_embs)
+        return _topk_local(view, q_embs, q_masks, k, backend=backend,
+                           chunk_docs=chunk_docs)
+
+    if route == "nprobe":
+        selected, _ = routing_lib.select_nprobe(s_host, probe,
+                                                route_threshold)
+    else:               # bounded: seed search -> admissible-bound filter
+        seeds, _ = routing_lib.select_nprobe(s_host, probe)
+        sv = run(seeds)[1].cpu().numpy()
+        # each query's k-th seed score is a valid bar only when the
+        # seeds held k candidates; -inf (keep everything) otherwise
+        tau = (sv[:, k - 1] if sv.shape[1] >= k
+               else np.full((sv.shape[0],), -np.inf, np.float32))
+        selected = routing_lib.select_bounded(u_host, tau, seeds)
+    out = run(selected)
+    if route_stats is not None:
+        nb = routing.n_buckets
+        route_stats.update(route=route, n_buckets=nb,
+                           buckets_scored=len(selected),
+                           fraction=len(selected) / max(nb, 1))
+    return out
+
+
+def topk_search(index, q_embs, *, k: int = 10, q_masks=None,
+                backend: str | None = None, chunk_docs: int | None = None,
+                route: str = "exhaustive", routing=None,
+                n_probe: int | None = None,
+                route_threshold: float | None = None,
+                route_stats: dict | None = None):
+    """Streaming exact top-k MaxSim: ``(top_idx, top_scores)``, each
+    (n_q, min(k, n_docs)), equal to the (-score, id)-ordered top-k of
+    :func:`maxsim_scores` without ever holding an (n_q, n_docs) score
+    matrix.  ``chunk_docs`` defaults to ``backend.STREAM_CHUNK_DOCS``.
+
+    ``route`` is the candidate-routing tier (``serve/routing.py``):
+    ``"exhaustive"`` (default) sweeps every bucket; ``"nprobe"`` and
+    ``"bounded"`` score ``routing`` (a ``RoutingIndex`` built for THIS
+    index epoch) against the queries first and sweep only the
+    shortlisted buckets.  ``"nprobe"`` keeps each query's ``n_probe``
+    (default 1) best centroid-MaxSim buckets, optionally trimmed by the
+    ``route_threshold`` score gap; ``"bounded"`` scores the ``n_probe``
+    seed buckets, then keeps every bucket whose upper bound still
+    reaches some query's k-th seed score — the same ids and scores as
+    the exhaustive sweep.  ``route_stats`` (a dict) receives the
+    buckets scored against the total."""
+    backend = backend_lib.resolve_backend(backend, allow=backend_lib.SERVING,
+                                          device=q_embs.device)
+    chunk_docs = chunk_docs or backend_lib.STREAM_CHUNK_DOCS
+    if _n_docs(index) == 0:
+        return _empty_topk(q_embs)
+    if route != "exhaustive":
+        return _topk_search_routed(
+            index, q_embs, q_masks, k, backend=backend,
+            chunk_docs=chunk_docs, route=route, routing=routing,
+            n_probe=n_probe, route_threshold=route_threshold,
+            route_stats=route_stats)
+    return _topk_local(index, q_embs, q_masks, k, backend=backend,
+                       chunk_docs=chunk_docs)
 
 
 def _streaming_first_stage(index, q_embs, n_first: int):
@@ -261,9 +391,18 @@ def _gather_view(index):
 def _rerank_candidates(index, q_embs, q_masks, cand, *, backend):
     """Exact MaxSim of each query against its own candidates; the gather
     is the index lookup, only the scoring differs per backend (one
-    rerank-kernel launch for all queries on ``fused``)."""
-    g_embs, g_masks = _gather_view(index)
+    rerank-kernel launch for all queries on ``fused``).  A residual
+    index on ``fused`` gathers COMPRESSED rows and each row's bucket
+    number; the residual rerank kernel decodes per tile against the
+    codebook table, and the fp32 ``padded()`` scratch is never built."""
     c = cand.long()
+    if _decodes_in_kernel(index, backend):
+        codes, resq, bucket_of, g_masks, cbs, scales = (
+            index.padded_residual())
+        return colbert_maxsim_residual_rerank_op(
+            q_embs, codes[c], resq[c], scales[c], cbs, bucket_of[c],
+            g_masks[c], q_masks, bits=index.residual_bits)
+    g_embs, g_masks = _gather_view(index)
     d_sub = g_embs[c]                                 # (n_q, n_first, m, dim)
     m_sub = g_masks[c]
     if backend == backend_lib.FUSED:
@@ -274,20 +413,38 @@ def _rerank_candidates(index, q_embs, q_masks, cand, *, backend):
 def search(index, q_embs, *, k: int = 10, n_first: int = 64,
            end_to_end: bool = False, q_masks=None,
            backend: str | None = None, chunk_docs: int | None = None,
-           return_full: bool = True):
+           return_full: bool = True, route: str = "exhaustive",
+           routing=None, n_probe: int | None = None,
+           route_threshold: float | None = None,
+           route_stats: dict | None = None):
     """Two-stage (or e2e) retrieval.  ``return_full=True`` returns
     (top_idx, top_scores, full) with the densified (n_q, n_docs) score
     matrix (the metrics contract: non-candidates score -1e30);
     ``return_full=False`` (the serving default) returns (top_idx,
     top_scores) and streams — e2e through :func:`topk_search`, two-stage
-    through the chunked first stage.  Results are identical."""
+    through the chunked first stage.  Results are identical.  A routed
+    ``route`` (see :func:`topk_search`) applies to the streaming e2e
+    route only."""
     backend = backend_lib.resolve_backend(backend, allow=backend_lib.SERVING,
                                           device=q_embs.device)
     n_docs = _n_docs(index)
+    if route != "exhaustive":
+        if return_full:
+            raise ValueError("routed serving is streaming-only; "
+                             "return_full=False required")
+        if not (end_to_end or n_first >= n_docs):
+            raise ValueError(
+                "candidate routing applies to the streaming e2e route "
+                "only (the two-stage pooled first stage is its own "
+                "shortlist); pass end_to_end=True")
     if end_to_end or n_first >= n_docs:
         if not return_full:
             return topk_search(index, q_embs, k=k, q_masks=q_masks,
-                               backend=backend, chunk_docs=chunk_docs)
+                               backend=backend, chunk_docs=chunk_docs,
+                               route=route, routing=routing,
+                               n_probe=n_probe,
+                               route_threshold=route_threshold,
+                               route_stats=route_stats)
         scores = maxsim_scores(index, q_embs, q_masks, backend=backend)
         top_scores, top_idx = topk_lowest_index(scores, k)
         return top_idx, top_scores, scores
@@ -320,11 +477,25 @@ class RetrievalServer:
     in-flight queries, bumps the generation and drops every closure, so
     each answer is attributable to one ``epoch_key`` snapshot
     ``(generation, mutation_gen, index.epoch)``.
+
+    ``route``/``routing``/``n_probe``/``route_threshold`` serve through
+    the candidate-routing tier (see :func:`topk_search`); a routed
+    server always takes the streaming e2e sweep.  The table is checked
+    against the index here, and :meth:`swap_index` needs the new
+    epoch's table.
     """
 
     def __init__(self, index, *, k: int = 10, n_first: int = 64,
                  backend: str | None = None, chunk_docs: int | None = None,
-                 max_cached_closures: int = 32):
+                 max_cached_closures: int = 32, route: str = "exhaustive",
+                 routing=None, n_probe: int | None = None,
+                 route_threshold: float | None = None):
+        from repro_torch.serve import routing as routing_lib
+        routing_lib.check_route(route, routing, index, n_probe)
+        self.route = route
+        self.routing = routing
+        self.n_probe = n_probe
+        self.route_threshold = route_threshold
         self.index = index
         self.k = k
         self.n_first = n_first
@@ -377,22 +548,33 @@ class RetrievalServer:
                 self._writers_waiting -= 1
                 self._gate.notify_all()
 
-    def swap_index(self, index):
+    def swap_index(self, index, *, routing=None):
         """Serve a new index epoch: drains in-flight queries, bumps the
-        generation and drops every cached closure."""
+        generation and drops every cached closure.  A routed server
+        needs the new epoch's ``routing`` table (the old one is stale
+        by definition)."""
+        if self.route != "exhaustive":
+            from repro_torch.serve import routing as routing_lib
+            routing_lib.check_route(self.route, routing, index, self.n_probe)
         with self._write_gate():
             self.index = index
+            if routing is not None:
+                self.routing = routing
             self._generation += 1
             self._mutation_gen += 1
             self._search.clear()
 
     def _warm_index(self):
         """Build the packed index's derived views (pooled vectors, the
-        cap_max-wide gather view) once, before serving."""
-        if (isinstance(self.index, PackedIndex)
+        cap_max-wide gather view, compressed for a residual index on
+        ``fused``) once, before two-stage serving."""
+        if (isinstance(self.index, PackedIndex) and self.route == "exhaustive"
                 and self.n_first < self.index.n_docs):
             self.index.pooled()
-            self.index.padded()
+            if _decodes_in_kernel(self.index, self.backend):
+                self.index.padded_residual()
+            else:
+                self.index.padded()
 
     def _closure_for(self, q_embs):
         key = tuple(q_embs.shape[:2]) + self.epoch_key
@@ -424,7 +606,10 @@ class RetrievalServer:
         self._warm_index()
         return functools.partial(
             self._run, self.index, k=self.k, n_first=self.n_first,
-            backend=self.backend, chunk_docs=self._chunk_docs)
+            backend=self.backend, chunk_docs=self._chunk_docs,
+            end_to_end=self.route != "exhaustive", route=self.route,
+            routing=self.routing, n_probe=self.n_probe,
+            route_threshold=self.route_threshold)
 
     def query_batch(self, q_embs):
         """Serve one query batch: a :class:`TopKResult` of host (numpy)

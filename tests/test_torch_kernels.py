@@ -5,28 +5,36 @@ inputs go through the JAX op (Pallas in interpret mode, as the JAX
 package's own tests run it) or its jnp oracle.  Quantized inputs make
 scores exact in both frameworks, so ties are real ties and ids must
 agree exactly.  The ``cuda``-marked tests hold the CUDA kernels against
-the plain versions and run only where there is a GPU.
+the plain versions and run only where there is a GPU; they need no JAX,
+so a GPU host without it runs them with ``-m cuda``.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.colbert_maxsim.ops import (
-    colbert_maxsim_multi_op as j_multi, colbert_maxsim_op as j_single,
-    colbert_maxsim_rerank_op as j_rerank)
-from repro.kernels.maxsim_top2.ops import (maxsim_top2_op as j_top2,
-                                           maxsim_top2_update_op as j_update,
-                                           voronoi_errors_fused as j_errs)
-from repro.kernels.maxsim_top2.ref import maxsim_top2_ref as j_top2_ref
-from repro.kernels.maxsim_topk.ref import maxsim_topk_ref as j_topk_ref
+try:
+    import jax.numpy as jnp
+
+    from repro.kernels.colbert_maxsim.ops import (
+        colbert_maxsim_multi_op as j_multi, colbert_maxsim_op as j_single,
+        colbert_maxsim_rerank_op as j_rerank)
+    from repro.kernels.maxsim_top2.ops import (
+        maxsim_top2_op as j_top2, maxsim_top2_update_op as j_update,
+        voronoi_errors_fused as j_errs)
+    from repro.kernels.maxsim_top2.ref import maxsim_top2_ref as j_top2_ref
+    from repro.kernels.maxsim_topk.ref import maxsim_topk_ref as j_topk_ref
+except ImportError:     # a GPU host without JAX: the cuda tests still run
+    jnp = None
 from repro_torch.kernels.colbert_maxsim import ops as cm
 from repro_torch.kernels.colbert_maxsim import ref as cm_ref
 from repro_torch.kernels.maxsim_top2 import ops as t2
 from repro_torch.kernels.maxsim_top2.ref import maxsim_top2_ref
 from repro_torch.kernels.maxsim_topk import ops as tk
 from repro_torch.kernels.maxsim_topk.ref import maxsim_topk_ref
+from repro_torch.serve import retrieval
+from repro_torch.serve.index import PackedIndex
+from repro_torch.train import compress
 
 ATOL = 1e-5
 
@@ -242,3 +250,128 @@ class TestKernelsOnCard:
                                           dm[None].expand(5, -1, -1)
                                           .contiguous(), qm)
         assert (got - want)[real].abs().max() <= ATOL
+
+    def test_bf16_docs_match_plain(self):
+        """bf16 docs widen exactly in the loader: kernel and plain
+        version score the same fp32 values."""
+        dev = _cuda()
+        q, d, dm, qm = (_t(x).to(dev) for x in _colbert_case(
+            4, n_q=5, l=32, n_docs=40, m=130, dim=128))
+        d = d.to(torch.bfloat16)
+        before = cm.colbert_maxsim_multi_op.bf16_launches
+        got = cm.colbert_maxsim_multi_op(q, d, dm, qm)
+        want = cm_ref.colbert_maxsim_multi_ref(q, d, dm, qm)
+        assert cm.colbert_maxsim_multi_op.bf16_launches == before + 1
+        real = want > -1e29
+        assert (got - want)[real].abs().max() <= ATOL
+        assert torch.allclose(got[~real], want[~real], rtol=1e-6)
+        ds = d[None].expand(5, -1, -1, -1).contiguous()
+        ms = dm[None].expand(5, -1, -1).contiguous()
+        got = cm.colbert_maxsim_rerank_op(q, ds, ms, qm)
+        assert (got - want)[real].abs().max() <= ATOL
+
+
+def _residual_case(dev, lead, m, dim, bits, C, seed=0):
+    """Codes, packed residuals, scales and codebook on ``dev`` through
+    the port's codec; doc masks with one empty doc."""
+    g = torch.Generator().manual_seed(seed)
+    cb = torch.randn(C, dim, generator=g)
+    codes = torch.randint(0, C, lead + (m,), generator=g, dtype=torch.int8)
+    d = cb[codes.long()] + 0.3 * torch.randn(lead + (m, dim), generator=g)
+    resq, scale = compress.quantize_residual(d - cb[codes.long()], bits)
+    dm = torch.rand(lead + (m,), generator=g) < 0.8
+    dm.view(-1, m)[1] = False
+    return [t.to(dev) for t in (codes, resq, scale, cb, dm)]
+
+
+@pytest.mark.cuda
+class TestResidualKernelsOnCard:
+    @pytest.mark.parametrize("bits", [2, 4])
+    @pytest.mark.parametrize("C", [1, 8, 127])
+    def test_multi_matches_plain(self, bits, C):
+        dev = _cuda()
+        codes, resq, scale, cb, dm = _residual_case(dev, (37,), 130, 128,
+                                                    bits, C)
+        q, _, _, qm = (_t(x).to(dev) for x in _colbert_case(
+            5, n_q=6, l=32, n_docs=3, m=1, dim=128))
+        before = cm.colbert_maxsim_residual_multi_op.launches
+        got = cm.colbert_maxsim_residual_multi_op(q, codes, resq, scale, cb,
+                                                  dm, qm, bits=bits)
+        assert cm.colbert_maxsim_residual_multi_op.launches == before + 1
+        want = cm_ref.colbert_maxsim_residual_multi_ref(
+            q, codes, resq, scale, cb, dm, qm, bits=bits)
+        real = want > -1e29
+        assert (~real).any() and torch.isfinite(got).all()
+        assert (got - want)[real].abs().max() <= ATOL
+        assert torch.allclose(got[~real], want[~real], rtol=1e-6)
+
+    @pytest.mark.parametrize("bits", [2, 4])
+    @pytest.mark.parametrize("C", [1, 127])
+    def test_rerank_matches_plain(self, bits, C):
+        dev = _cuda()
+        n_q, n_cand, n_b = 4, 33, 3
+        codes, resq, scale, _, dm = _residual_case(dev, (n_q, n_cand), 70,
+                                                   128, bits, C, seed=1)
+        g = torch.Generator().manual_seed(2)
+        table = torch.randn(n_b, C, 128, generator=g).to(dev)
+        bucket_of = torch.randint(0, n_b, (n_q, n_cand), generator=g,
+                                  dtype=torch.int32).to(dev)
+        q, _, _, qm = (_t(x).to(dev) for x in _colbert_case(
+            6, n_q=n_q, l=32, n_docs=3, m=1, dim=128))
+        got = cm.colbert_maxsim_residual_rerank_op(
+            q, codes, resq, scale, table, bucket_of, dm, qm, bits=bits)
+        want = cm_ref.colbert_maxsim_residual_rerank_ref(
+            q, codes, resq, scale, table, bucket_of, dm, qm, bits=bits)
+        real = want > -1e29
+        assert (~real).any()
+        assert (got - want)[real].abs().max() <= ATOL
+        assert torch.allclose(got[~real], want[~real], rtol=1e-6)
+
+    def test_out_of_range_indices_are_clamped(self):
+        """A malformed code or bucket id reads inside its table (the
+        kernel clamps, as XLA's gather does) instead of faulting."""
+        dev = _cuda()
+        codes, resq, scale, _, dm = _residual_case(dev, (2, 5), 40, 128, 4,
+                                                   8, seed=3)
+        table = torch.randn(3, 8, 128, device=dev)
+        bucket_of = torch.tensor([[0, 1, 2, 9, -4]] * 2, dtype=torch.int32,
+                                 device=dev)
+        bad = codes.clone()
+        bad[:, :, 0] = 127
+        q, _, _, _ = (_t(x).to(dev) for x in _colbert_case(
+            8, n_q=2, l=32, n_docs=3, m=1, dim=128))
+        got = cm.colbert_maxsim_residual_rerank_op(
+            q, bad, resq, scale, table, bucket_of, dm, bits=4)
+        clamped = bad.clone()
+        clamped[:, :, 0] = 7
+        want = cm_ref.colbert_maxsim_residual_rerank_ref(
+            q, clamped, resq, scale, table, bucket_of.clamp(0, 2), dm,
+            bits=4)
+        torch.cuda.synchronize()
+        real = want > -1e29
+        assert (got - want)[real].abs().max() <= ATOL
+
+    @pytest.mark.parametrize("compression", ["int8", "residual"])
+    def test_compressed_serving_matches_reference_backend(self, compression):
+        dev = _cuda()
+        q, d, dm, _ = (_t(x).to(dev) for x in _colbert_case(
+            7, n_q=8, l=32, n_docs=300, m=100, dim=128))
+        keep = torch.rand(dm.shape, generator=torch.Generator().manual_seed(
+            3)).to(dev) < 0.6
+        packed = retrieval.TokenIndex.build(d, torch.ones_like(dm)
+                                            ).with_keep(keep).pack(
+            compression=compression)
+        assert isinstance(packed, PackedIndex)
+        for n_first in (16, packed.n_docs):
+            ri, rs = retrieval.search(packed, q, k=11, n_first=n_first,
+                                      backend="reference",
+                                      return_full=False)
+            fi, fs = retrieval.search(packed, q, k=10, n_first=n_first,
+                                      backend="fused", return_full=False)
+            assert (fs - rs[:, :10]).abs().max() <= ATOL
+            # ids equal wherever the reference's gap to a neighbour
+            # exceeds the tolerance
+            prev = torch.full_like(fs, torch.inf)
+            prev[:, 1:] = rs[:, :9] - rs[:, 1:10]
+            tie = (prev <= ATOL) | (rs[:, :10] - rs[:, 1:] <= ATOL)
+            assert ((fi == ri[:, :10]) | tie).all()

@@ -78,9 +78,9 @@ class TestPackedIndex:
 
     def test_unknown_compression_rejected(self):
         e, mask, keep, _ = _case()
-        with pytest.raises(ValueError, match="not ported"):
+        with pytest.raises(ValueError, match="one of"):
             PackedIndex.pack(torch.tensor(e), torch.tensor(mask),
-                             compression="int8")
+                             compression="zstd")
 
 
 class TestScoring:
