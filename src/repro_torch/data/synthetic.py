@@ -1,10 +1,16 @@
-"""Synthetic token-level corpus with planted relevance.
+"""Synthetic data: a token-level corpus with planted relevance, and LM
+prompt batches.
 
-Copy of ``repro.data.synthetic.token_corpus`` (pure numpy; the port
-keeps its own copy rather than importing the reference): a Zipfian
-vocabulary with topic-clustered content tokens and high-frequency
-stopwords.  Deterministic in ``seed`` — the same seed gives the same
-arrays as the reference.
+``token_corpus`` is a copy of ``repro.data.synthetic.token_corpus``
+(pure numpy; the port keeps its own copy rather than importing the
+reference): a Zipfian vocabulary with topic-clustered content tokens
+and high-frequency stopwords.  Deterministic in ``seed`` — the same seed
+gives the same arrays as the reference.
+
+``lm_batch`` is the counterpart of the reference's ``lm_batch``: uniform
+token ids from a numpy generator seeded with (seed, step).  The
+reference draws from ``jax.random``, so the ids differ from its; tests
+feed the same numpy ids to both packages.
 """
 
 from __future__ import annotations
@@ -69,3 +75,11 @@ def token_corpus(seed: int = 0, *, n_docs: int = 512, n_q: int = 128,
     return TokenCorpus(doc_ids=docs, q_ids=qs, q_topics=q_topics,
                        d_topics=d_topics, rel=rel, stopword_set=stop_set,
                        idf=idf.astype(np.float32), vocab=vocab)
+
+
+def lm_batch(seed: int, step: int, batch: int, seq: int, vocab: int):
+    """{"tokens": (batch, seq) int32 ids in [0, vocab)}, deterministic
+    in (seed, step)."""
+    rng = np.random.default_rng((seed, step))
+    return {"tokens": rng.integers(0, vocab, size=(batch, seq),
+                                   dtype=np.int32)}

@@ -12,6 +12,12 @@ on the card.  Candidate routing is a library call here
 (``RetrievalServer(route=..., routing=RoutingIndex.build(packed))``):
 the reference ties ``--route`` to ``--index-dir``, which is not ported.
 The reference's command-line flags are not ported yet.
+
+The dense LM serving path: :func:`serve_lm` decodes greedily through
+the KV cache (counterpart of the reference's ``serve_lm``) and
+:func:`prefill_lm` is the reference's prefill step (``launch/steps.py``,
+the last position's logits of ``hidden_states``), whose attention runs
+the flash-attention kernel on the ``fused`` backend.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from repro_torch.core import backend as backend_lib
 from repro_torch.core import pruning_pipeline
 from repro_torch.core.sampling import sample_sphere
 from repro_torch.data import synthetic
+from repro_torch.models import transformer as tfm
 from repro_torch.models.colbert import ColBERTConfig, init_params
 from repro_torch.serve.index import COMPRESSIONS, PackedIndex
 from repro_torch.serve.retrieval import RetrievalServer, TokenIndex
@@ -155,3 +162,62 @@ def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
     return ServeResult(idx=idx, scores=scores, d_emb=d_emb, d_mask=d_mask,
                        keep=keep, samples=samples, packed=packed, server=server,
                        q_emb=q_emb, timings=timings)
+
+
+@torch.no_grad()
+def serve_lm(cfg: tfm.LMConfig, n_tokens: int = 32, batch: int = 2, *,
+             device=None, seed: int = 0, model: tfm.Transformer | None = None):
+    """Greedy decode of ``n_tokens`` tokens for ``batch`` sequences from
+    token 0 with an empty cache, on ``device`` (``cuda`` unless the
+    caller names another; raises without a GPU).  The LM is randomly
+    initialised from ``seed`` on the device unless ``model`` is given.
+    Unlike the reference (which always decodes its smoke config) the
+    config is a parameter.  Returns (ids (batch, n_tokens) int32, the
+    synchronized stage seconds)."""
+    device = backend_lib.resolve_device(device)
+    timings = {}
+    t = time.perf_counter()
+    if model is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        model = tfm.init_params(gen, cfg, device)
+    cache = model.init_cache(batch, n_tokens)
+    _sync(device)
+    timings["init_s"] = time.perf_counter() - t
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
+    outs = []
+    t = time.perf_counter()
+    for s in range(n_tokens):
+        logits, cache = model.decode_step(cache, tok, s)
+        tok = logits.argmax(-1).to(torch.int32)
+        outs.append(tok[:, 0])
+    _sync(device)
+    dt = time.perf_counter() - t
+    timings["decode_s"] = dt
+    timings["ms_per_token"] = dt / n_tokens * 1e3
+    print(f"[serve] decoded {n_tokens} tokens x {batch} seqs "
+          f"in {dt:.2f}s ({dt / n_tokens * 1e3:.1f} ms/token)")
+    return torch.stack(outs, dim=1), timings
+
+
+@torch.no_grad()
+def prefill_lm(model: tfm.Transformer, tokens, *, backend: str | None = None,
+               device=None):
+    """The last position's logits (B, vocab) of a prompt batch tokens
+    (B, S) — ``hidden_states`` then the LM head, the reference's prefill
+    step — on ``device`` (``cuda`` unless the caller names another;
+    raises without a GPU, and when ``model`` lives elsewhere).
+    ``backend`` selects the attention path (``fused``: the
+    flash-attention kernel; ``reference``: the reference's arithmetic).
+    Returns (logits, the synchronized stage seconds)."""
+    device = backend_lib.resolve_device(device)
+    w = model.embed.weight.device
+    if w.type != device.type or device.index not in (None, w.index):
+        raise ValueError(f"the model lives on {w}, not on {device}: move "
+                         f"it there or pass device={str(w)!r}")
+    device = w
+    tokens = torch.as_tensor(tokens, device=device)
+    t = time.perf_counter()
+    x = model.hidden_states(tokens, backend=backend)
+    logits = model.logits(x[:, -1, :])
+    _sync(device)
+    return logits, {"prefill_s": time.perf_counter() - t}

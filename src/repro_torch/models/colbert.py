@@ -38,9 +38,10 @@ class ColBERTConfig:
     def lm_config(self) -> LMConfig:
         return LMConfig(name=self.name + "-core", n_layers=self.n_layers,
                         d_model=self.d_model, n_heads=self.n_heads,
-                        d_ff=self.d_ff, vocab=self.vocab,
+                        n_kv_heads=self.n_heads, d_ff=self.d_ff,
+                        vocab=self.vocab, causal=False, tie_embeddings=True,
                         param_dtype=self.param_dtype,
-                        compute_dtype=self.compute_dtype)
+                        compute_dtype=self.compute_dtype, remat=False)
 
 
 def ball_projection(raw):

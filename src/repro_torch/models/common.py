@@ -35,7 +35,8 @@ def rms_norm(x, gamma, eps=1e-6):
 
 def rope(x, positions, theta: float = 1e4):
     """Rotary position embedding. x: (..., seq, heads, head_dim);
-    positions: (..., seq)."""
+    positions: (..., seq) — (1, S) for a prefill, (B, 1) per row for a
+    decode step."""
     half = x.shape[-1] // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                     device=x.device) / half)

@@ -1,23 +1,27 @@
-"""Carry the JAX reference's ColBERT weights into the port.
+"""Carry the JAX reference's weights into the port.
 
-``params_from_jax(tree)`` takes the tree ``repro.models.colbert.
-init_params`` returns — nested dicts of arrays, converted to numpy by
-the caller — and returns a ``state_dict`` for
+``lm_params_from_jax(tree)`` takes the tree ``repro.models.transformer.
+init_params`` returns, and ``params_from_jax(tree)`` the tree of
+``repro.models.colbert.init_params`` — nested dicts of arrays, converted
+to numpy by the caller — and each returns a ``state_dict`` for
+``repro_torch.models.transformer.Transformer`` or
 ``repro_torch.models.colbert.ColBERT``.  Layouts:
 
-* ``backbone.embed`` (vocab, d_model) -> ``backbone.embed.weight``,
-  unchanged.  The reference ties its LM head to this table; the encoder
-  never uses the head, so nothing else reads it.
-* ``backbone.layers`` is stacked on a leading (n_layers,) axis for
-  ``lax.scan``; layer i becomes ``backbone.layers.{i}``.
+* ``embed`` (vocab, d_model) -> ``embed.weight``, unchanged.
+* ``layers`` is stacked on a leading (n_layers,) axis for ``lax.scan``;
+  layer i becomes ``layers.{i}``.
 * Every matrix is (in, out) in the reference (``x @ W``) and
   (out, in) in ``nn.Linear``, so each is transposed:
   ``attn.{wq,wk,wv}`` (d_model, heads*head_dim), ``attn.wo``
   (heads*head_dim, d_model), ``ffn.{w_gate,w_up}`` (d_model, d_ff) ->
   ``w_gate``/``w_up``, ``ffn.w_down`` (d_ff, d_model) -> ``w_down``,
-  ``proj`` (d_model, out_dim) -> ``proj.weight`` (out_dim, d_model).
+  ``lm_head`` (d_model, vocab) -> ``lm_head.weight``, ColBERT's ``proj``
+  (d_model, out_dim) -> ``proj.weight``.
+* The q/k/v biases ``attn.{bq,bk,bv}`` -> ``attn.{wq,wk,wv}.bias`` when
+  present; ``None`` leaves (no QKV bias) are skipped.
+* ``lm_head`` is absent when the embeddings are tied: the head is then
+  ``embed.T`` in both packages.
 * ``ln1``/``ln2`` (d_model,) per layer and ``ln_f`` stay vectors.
-* ``None`` leaves (the absent q/k/v biases) are skipped.
 """
 
 from __future__ import annotations
@@ -33,22 +37,32 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def params_from_jax(tree) -> dict[str, torch.Tensor]:
-    bb = tree["backbone"]
-    layers = bb["layers"]
+def lm_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    layers = tree["layers"]
     attn, ffn = layers["attn"], layers["ffn"]
-    sd = {"backbone.embed.weight": _tensor(bb["embed"]),
-          "backbone.ln_f": _tensor(bb["ln_f"]),
-          "proj.weight": _tensor(tree["proj"]).T.contiguous()}
+    sd = {"embed.weight": _tensor(tree["embed"]),
+          "ln_f": _tensor(tree["ln_f"])}
+    if tree.get("lm_head") is not None:
+        sd["lm_head.weight"] = _tensor(tree["lm_head"]).T.contiguous()
     n_layers = np.asarray(layers["ln1"]).shape[0]
     for i in range(n_layers):
-        p = f"backbone.layers.{i}."
+        p = f"layers.{i}."
         sd[p + "ln1"] = _tensor(np.asarray(layers["ln1"])[i])
         sd[p + "ln2"] = _tensor(np.asarray(layers["ln2"])[i])
         for name in ("wq", "wk", "wv", "wo"):
             sd[p + f"attn.{name}.weight"] = _tensor(
                 np.asarray(attn[name])[i]).T.contiguous()
+        for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")):
+            if attn.get(b) is not None:
+                sd[p + f"attn.{w}.bias"] = _tensor(np.asarray(attn[b])[i])
         for name in ("w_gate", "w_up", "w_down"):
             sd[p + f"{name}.weight"] = _tensor(
                 np.asarray(ffn[name])[i]).T.contiguous()
+    return sd
+
+
+def params_from_jax(tree) -> dict[str, torch.Tensor]:
+    sd = {f"backbone.{k}": t
+          for k, t in lm_params_from_jax(tree["backbone"]).items()}
+    sd["proj.weight"] = _tensor(tree["proj"]).T.contiguous()
     return sd
