@@ -7,7 +7,7 @@ Phases (each prints on its own lines; the last line is the JSON
 passed — any failure exits non-zero):
 
 1. Device: the card's name and power limit from ``nvidia-smi``.
-2. Build: compile the seven kernels (four sources) from
+2. Build: compile the eight kernels (five sources) from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one
    process per source, all started together), timed.
 3. Main path at the full ``colbert`` config (12 layers, width 768,
@@ -55,15 +55,45 @@ passed — any failure exits non-zero):
    exact products) at the bf16 tensor-core rate and P·V (fp32 p) at the
    fp32 rate; the all-fp32 CUDA-core time is logged as the kernel's
    design figure.
-9. The ``kernels`` JSON line.
+9. Recsys CTR path (``[recsys]``), after the LM's tensors are freed:
+   dlrm-rm2 at its full ``CONFIG`` (26 tables of 1,048,576 x 64 fp32,
+   6.98 GB, stacked into one (F·V, 64) matrix; random weights from seed
+   0 drawn on the card): ``serve_ctr`` at ``serve_p99`` (512) and
+   ``serve_bulk`` (262,144) on ``fused`` and ``reference``, three timed
+   runs each in turns after a warm-up, with B8's launch count zeroed
+   just before each run and read just after (1 per ``fused`` forward, 0
+   on ``reference``) and the two backends' probabilities equal bit for
+   bit; the ``serve_bulk`` forward by stage (CUDA events);
+   ``retrieve_cand`` (one user against
+   table 0's 1,048,576 rows, top-100) on both backends; a batch whose
+   ids sit at the last rows of every feature (the end of the 6.98 GB
+   stacked table, past 2^32 bytes) read back against the table; a batch
+   with ids out of range (-1, -V, V, -V-1), wrapped or NaN by
+   ``jnp.take``'s rule on both backends with no device assert.  Then
+   dcn-v2 and wide-deep at their full configs, each built after the
+   previous model is freed: ``serve_ctr`` at ``serve_p99`` on both
+   backends, bit for bit, 1 and 2 B8 launches a ``fused`` forward.
+10. B8 (``embedding_bag``) against its plain version at three of the
+   paths' own shapes: dlrm-rm2's ``serve_bulk`` lookup (6,815,744 bags
+   of one id, D 64), the user-tower mean at batch 262,144 (26 ids, D
+   64) and wide-deep's wide sum (262,144 bags of 40 ids, D 1), timed
+   beside the plain version and ``torch.nn.functional.embedding_bag``
+   (the library yardstick, which the port never calls).  Bound: the
+   gathered rows, the ids and the output once each at 3.35 TB/s.
+11. The ``kernels`` JSON line.
 
 Tolerances: retrieval values within 1e-5 abs (unit-norm fp32 inputs,
 dim 128); token/doc ids equal wherever the gap to the runner-up exceeds
 1e-5.  Empty-doc sentinel scores (l x -1e30) are compared relatively
 (1e-6).  LM logits (bf16) within ``LOGIT_TOL`` = 0.25 abs, and argmax
 equal wherever the reference's top-2 gap exceeds it.  B7 in bf16 within
-one output rounding (2^-7 |plain| + 1e-5), in fp32 within 2e-4.  A
-kernel row's ``max_abs_err`` is the largest over the variants held.
+one output rounding (2^-7 |plain| + 1e-5), in fp32 within 2e-4.  Recsys:
+the two backends' probabilities equal bit for bit (the lookups are
+gathers and bags added in one order on both; the rest is the same
+code); top-100 ids equal wherever the gap to a neighbour exceeds 1e-6,
+scores within 1e-6; B8 within 1e-6 of its plain version (it adds in the
+plain version's order, so it is expected to be equal).  A kernel row's
+``max_abs_err`` is the largest over the variants held.
 """
 
 from __future__ import annotations
@@ -134,15 +164,15 @@ def score_err(out, ref):
     return abs_err, (rel.max().item() if rel.numel() else 0.0)
 
 
-def ids_ok(ids, ref_ids, ref_sorted):
+def ids_ok(ids, ref_ids, ref_sorted, tol=ATOL):
     """Position-wise id agreement of a top-k list; a mismatch passes
-    when the reference value there is within ATOL of a neighbour
+    when the reference value there is within ``tol`` of a neighbour
     (``ref_sorted`` holds k + 1 reference values, descending)."""
     k = ids.shape[-1]
     gap_prev = torch.full_like(ref_sorted[..., :k], float("inf"))
     gap_prev[..., 1:] = ref_sorted[..., 1:k] - ref_sorted[..., :k - 1]
     gap_next = ref_sorted[..., :k] - ref_sorted[..., 1:k + 1]
-    tie = (gap_prev.abs() <= ATOL) | (gap_next.abs() <= ATOL)
+    tie = (gap_prev.abs() <= tol) | (gap_next.abs() <= tol)
     bad = (ids != ref_ids) & ~tie
     return (ids == ref_ids).float().mean().item(), int(bad.sum())
 
@@ -165,11 +195,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.configs import colbert_base, minitron_4b
+    from repro_torch.configs import (colbert_base, dcn_v2, dlrm_rm2,
+                                     minitron_4b, wide_deep)
     from repro_torch.core import pruning_pipeline
     from repro_torch.kernels import build
     from repro_torch.kernels.colbert_maxsim import ops as cm_ops
     from repro_torch.kernels.colbert_maxsim import ref as cm_ref
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_op
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -177,8 +210,11 @@ def main() -> int:
     from repro_torch.kernels.maxsim_top2.ref import maxsim_top2_ref
     from repro_torch.kernels.maxsim_topk.ops import maxsim_topk_op
     from repro_torch.kernels.maxsim_topk.ref import maxsim_topk_ref
-    from repro_torch.data.synthetic import lm_batch
-    from repro_torch.launch.serve import prefill_lm, serve_lm, serve_retrieval
+    from repro_torch.data.synthetic import ctr_batch, lm_batch
+    from repro_torch.launch.serve import (prefill_lm, retrieve_cand,
+                                          serve_ctr, serve_lm,
+                                          serve_retrieval)
+    from repro_torch.models import recsys
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.retrieval import (RetrievalServer, TokenIndex,
                                              _streaming_first_stage, search,
@@ -204,7 +240,7 @@ def main() -> int:
 
     # 2. build
     secs = build.build_all(force=True)
-    log(f"[build] 4 sources (7 kernels) built in {secs:.2f} s")
+    log(f"[build] 5 sources (8 kernels) built in {secs:.2f} s")
 
     rows = []
 
@@ -723,12 +759,248 @@ def main() -> int:
             plain_ms, flops, nb, lib_ms, tc_flops=flops / 2)
         rows[-1]["launches"] = n_fa["fused"]
 
+    @torch.no_grad()
+    def recsys_phase():
+        """Phases 9 and 10, ``[recsys]``: dlrm-rm2, dcn-v2 and wide-deep
+        at their full configs on the card, one at a time, and the B8
+        rows."""
+        def build(cfg):
+            t = time.perf_counter()
+            model = recsys.init_model(
+                torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+            torch.cuda.synchronize()
+            n = sum(p.numel() for p in model.parameters())
+            log(f"[recsys] {cfg.name}: {n} params "
+                f"({n * 4 / 1e9:.3f} GB fp32), tables "
+                f"{tuple(model.tables.shape)}, drawn on the card in "
+                f"{time.perf_counter() - t:.3f} s")
+            return model
+
+        def serve_both(cfg, model, shape, want_launches):
+            """serve_ctr on both backends, three timed runs each in turns
+            (fused, reference, reference, fused, fused, reference) after
+            a warm-up at the same batch; the launch count is zeroed just
+            before each run and read just after; probabilities held bit
+            for bit.  Returns the fused runs' launch count."""
+            batch = dlrm_rm2.RECSYS_SHAPES[shape].dims["batch"]
+            for backend in ("fused", "reference"):       # warm-up
+                serve_ctr(cfg, batch, backend=backend, model=model)
+            probs, n = {}, {"fused": set(), "reference": set()}
+            fwd = {"fused": [], "reference": []}
+            made = []
+            for backend in ("fused", "reference", "reference", "fused",
+                            "fused", "reference"):
+                embedding_bag_op.launches = 0
+                probs[backend], tm = serve_ctr(cfg, batch, backend=backend,
+                                               model=model)
+                n[backend].add(embedding_bag_op.launches)
+                fwd[backend].append(tm["forward_s"] * 1e3)
+                made.append(tm["batch_s"] * 1e3)
+            for backend, ms in fwd.items():
+                med = sorted(ms)[1]
+                log(f"[recsys] {cfg.name} {shape} batch {batch} {backend}: "
+                    f"forward {med:.3f} ms median of "
+                    f"{[round(x, 3) for x in ms]} "
+                    f"({batch / med * 1e3:.0f} samples/s), embedding_bag "
+                    f"launches a run {sorted(n[backend])}")
+            log(f"[recsys] {cfg.name} {shape}: batch made on the host and "
+                f"copied in {sorted(made)[len(made) // 2]:.3f} ms (median)")
+            p = probs["fused"]
+            equal = torch.equal(p, probs["reference"])
+            ok = bool(torch.isfinite(p).all() and ((p >= 0) & (p <= 1)).all())
+            log(f"[recsys] {cfg.name} {shape}: fused equals reference bit for "
+                f"bit: {equal}; probabilities finite in [0, 1]: {ok} (mean "
+                f"{p.mean().item():.6f})")
+            expect(n["fused"] == {want_launches} and n["reference"] == {0},
+                   f"{cfg.name} {shape}: embedding_bag launches {n}, "
+                   f"expected {want_launches} on fused and 0 on reference")
+            expect(equal and ok and p.shape == (batch,),
+                   f"{cfg.name} {shape}: probabilities differ or malformed")
+            return max(n["fused"])
+
+        def breakdown(cfg, model, batch):
+            """dlrm-rm2's forward by stage at ``batch`` (CUDA events): the
+            bottom MLP, the lookup on each backend, the interaction and
+            the top MLP, with the MLPs' fp32 flops."""
+            b = ctr_batch(0, 0, batch, cfg.n_dense, cfg.n_sparse,
+                          cfg.table_rows, device="cuda")
+            dense, ids = b["dense"], b["sparse_ids"]
+            x0 = model.bot(dense, final_act=True)
+            emb = recsys._table_lookup(model.tables, ids, backend="fused")
+            z = model.interact(x0, emb)
+
+            def mlp_flops(mlp):
+                return sum(2.0 * batch * lin.in_features * lin.out_features
+                           for lin in mlp)
+
+            n_f = cfg.n_sparse + 1
+            stages = {
+                "bot MLP": (lambda: model.bot(dense, final_act=True),
+                            mlp_flops(model.bot)),
+                "lookup fused (B8)": (lambda: recsys._table_lookup(
+                    model.tables, ids, backend="fused"), 0.0),
+                "lookup reference": (lambda: recsys._table_lookup(
+                    model.tables, ids, backend="reference"), 0.0),
+                "interaction": (lambda: model.interact(x0, emb),
+                                2.0 * batch * n_f * n_f * cfg.embed_dim),
+                "top MLP": (lambda: model.top(z), mlp_flops(model.top)),
+            }
+            parts = []
+            for name, (fn, flops) in stages.items():
+                ms = cuda_ms(fn)
+                rate = f", {flops / ms / 1e9:.1f} TFLOP/s" if flops else ""
+                parts.append(f"{name} {ms:.3f} ms{rate}")
+            log(f"[recsys] dlrm-rm2 batch {batch} by stage (CUDA events, "
+                f"mean of 5): " + "; ".join(parts))
+
+        def b8_case(tag, table, ids, mode):
+            """B8 against its plain version and F.embedding_bag on one of
+            the paths' own id sets; returns the row's numbers."""
+            o = embedding_bag_op(table, ids, mode=mode)
+            r = embedding_bag_ref(table, ids, mode)
+            lib = F.embedding_bag(ids, table, mode=mode)
+            err = (o - r).abs().max().item()
+            lib_err = (lib - r).abs().max().item()
+            bitwise = torch.equal(o, r)
+            del o, r, lib
+            ms = cuda_ms(lambda: embedding_bag_op(table, ids, mode=mode))
+            plain_ms = cuda_ms(lambda: embedding_bag_ref(table, ids, mode),
+                               reps=2)
+            lib_ms = cuda_ms(lambda: F.embedding_bag(ids, table, mode=mode))
+            n_bags, nnz = ids.shape
+            D = table.shape[1]
+            nb = n_bags * nnz * D * 4 + nbytes(ids) + n_bags * D * 4
+            flops = n_bags * nnz * D + (n_bags * D if mode == "mean" else 0)
+            b_ms, b_by = bound(flops, nb)
+            log(f"[kernel] embedding_bag {tag}: {n_bags} bags x {nnz} ids, "
+                f"D {D}, {mode}: max_abs_err {err:.3e} (bit for bit: "
+                f"{bitwise}; F.embedding_bag vs plain {lib_err:.3e}) kernel "
+                f"{ms:.3f} ms plain {plain_ms:.3f} ms library "
+                f"(F.embedding_bag) {lib_ms:.3f} ms bound {b_ms:.3f} ms "
+                f"({b_by}; {nb} bytes)")
+            expect(err <= 1e-6, f"embedding_bag {tag} disagrees with plain")
+            return err, ms, plain_ms, flops, nb, lib_ms
+
+        held = []
+        # 9a. dlrm-rm2
+        cfg = dlrm_rm2.CONFIG
+        V, n_f, D = cfg.table_rows, cfg.n_sparse, cfg.embed_dim
+        model = build(cfg)
+        expect(sum(p.numel() for p in model.parameters())
+               == cfg.param_count(), "dlrm-rm2 parameter count")
+        serve_both(cfg, model, "serve_p99", 1)
+        bulk_launches = serve_both(cfg, model, "serve_bulk", 1)
+        bulk = dlrm_rm2.RECSYS_SHAPES["serve_bulk"].dims["batch"]
+        breakdown(cfg, model, bulk)
+
+        # retrieval_cand: one user against table 0's rows, top-100
+        tops, n = {}, {}
+        for backend in ("fused", "reference"):
+            embedding_bag_op.launches = 0
+            tops[backend], tm = retrieve_cand(cfg, k=100, backend=backend,
+                                              model=model)
+            n[backend] = embedding_bag_op.launches
+            log(f"[recsys] dlrm-rm2 retrieval_cand {backend}: 1 user vs {V} "
+                f"items, top-100 in {tm['retrieve_s'] * 1e3:.3f} ms, "
+                f"embedding_bag launches {n[backend]}")
+        (fv, fi), _ = retrieve_cand(cfg, k=101, backend="reference",
+                                    model=model)
+        agree, bad = ids_ok(tops["fused"][1], fi[:, :100], fv, tol=1e-6)
+        err = (tops["fused"][0] - fv[:, :100]).abs().max().item()
+        log(f"[recsys] retrieval_cand fused vs reference: ids equal "
+            f"{agree:.4f}, untied mismatches {bad}, max |score err| "
+            f"{err:.3e}; best ids {tops['fused'][1][0, :5].tolist()}")
+        expect(n["fused"] == 1 and n["reference"] == 0,
+               f"retrieval_cand embedding_bag launches {n}")
+        expect(bad == 0 and err <= 1e-6
+               and tops["fused"][1].shape == (1, 100),
+               "retrieval_cand disagrees with the reference backend")
+
+        # the end of the stacked table: every feature's last 64 rows
+        B = 1024
+        t3 = model.tables.view(n_f, V, D)
+        end = (V - 1 - torch.arange(B, device="cuda") % 64).to(torch.int32)
+        ids = end[:, None].expand(B, n_f).contiguous()
+        emb = recsys._table_lookup(model.tables, ids, backend="fused")
+        want = t3[torch.arange(n_f, device="cuda")[None, :], ids.long()]
+        ok = torch.equal(emb, want) and torch.equal(emb[:, -1],
+                                                     t3[-1][end.long()])
+        top_byte = (n_f * V - 1) * D * 4
+        dense = torch.randn((B, cfg.n_dense), device="cuda")
+        same = torch.equal(model(dense, ids, backend="fused"),
+                           model(dense, ids, backend="reference"))
+        log(f"[recsys] end of table: ids V-64..V-1 of all {n_f} features "
+            f"(last row at byte {top_byte}, past 2^32: {top_byte >= 2 ** 32})"
+            f" read back equal: {ok}; logits fused == reference: {same}")
+        expect(ok and same, "rows at the end of the stacked table")
+
+        # ids out of range: jnp.take's rule per feature, no device assert
+        ids = torch.randint(0, V, (8, n_f), device="cuda", dtype=torch.int32)
+        ids[0, :4] = torch.tensor([-1, -V, V, -V - 1])
+        ids[1, -1] = V
+        got = recsys._table_lookup(model.tables, ids, backend="fused")
+        ref = recsys._table_lookup(model.tables, ids, backend="reference")
+        torch.cuda.synchronize()
+        nan = torch.isnan(got).all(-1)
+        ok = (torch.equal(nan, torch.isnan(ref).all(-1))
+              and torch.equal(got[~nan], ref[~nan])
+              and torch.equal(got[0, 0], t3[0, V - 1])
+              and torch.equal(got[0, 1], t3[1, 0])
+              and nan.sum().item() == 3 and bool(nan[0, 2] & nan[0, 3]
+                                                  & nan[1, -1]))
+        logits = model(torch.randn((8, cfg.n_dense), device="cuda"), ids,
+                       backend="fused")
+        torch.cuda.synchronize()
+        nan_rows = torch.isnan(logits).nonzero().flatten().tolist()
+        log(f"[recsys] ids out of range (-1, -V, V, -V-1): wrapped and NaN "
+            f"rows as the rule says on both backends: {ok}; NaN logits in "
+            f"rows {nan_rows}")
+        expect(ok and nan_rows == [0, 1], "ids out of range")
+
+        # 10. B8 rows on dlrm-rm2's tensors
+        sparse = ctr_batch(0, 0, bulk, cfg.n_dense, n_f, V,
+                           device="cuda")["sparse_ids"]
+        g = recsys.stacked_ids(sparse, V)
+        held.append(b8_case("dlrm-rm2 serve_bulk lookup", model.tables,
+                            g.reshape(-1, 1), "sum"))
+        held.append(b8_case("dlrm-rm2 user tower mean", model.tables, g,
+                            "mean"))
+        del model, t3, emb, want, got, ref, sparse, g
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 9b. dcn-v2, then wide-deep (the wide sum is B8 at D = 1)
+        for mod, want_launches in ((dcn_v2, 1), (wide_deep, 2)):
+            model = build(mod.CONFIG)
+            serve_both(mod.CONFIG, model, "serve_p99", want_launches)
+            if mod is wide_deep:
+                c = mod.CONFIG
+                sparse = ctr_batch(0, 0, bulk, 0, c.n_sparse, c.table_rows,
+                                   device="cuda")["sparse_ids"]
+                held.append(b8_case("wide-deep wide sum", model.wide,
+                                    recsys.stacked_ids(sparse, c.table_rows),
+                                    "sum"))
+                del sparse
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        err = max(h[0] for h in held)
+        _, ms, plain_ms, flops, nb, lib_ms = held[0]
+        row("embedding_bag", "src/repro_torch/kernels/csrc/embedding_bag.cu",
+            "src/repro/kernels/embedding_bag/embedding_bag.py:36", err, ms,
+            plain_ms, flops, nb, lib_ms)
+        rows[-1]["launches"] = bulk_launches
+
     retrieval_phases()
     gc.collect()
     torch.cuda.empty_cache()
     lm_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    recsys_phase()
 
-    # 9. kernels line
+    # 11. kernels line
     log(json.dumps({"kernels": rows}))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -1,7 +1,10 @@
 """Architecture registry: full configs, reduced smoke configs, shapes.
 
-Counterpart of ``repro.configs.base``.  Every architecture module of
-the port exports
+Counterpart of ``repro.configs.base``.  Ported families: ``retrieval``
+(colbert), ``lm`` (minitron-4b, stablelm-3b, qwen2.5-32b) and
+``recsys`` (dlrm-rm2, dcn-v2, wide-deep; bert4rec is not ported yet);
+the MoE and GNN families are not ported yet.  Every architecture module
+of the port exports
   CONFIG  — the exact public-literature configuration;
   SMOKE   — a reduced same-family config for CPU tests;
   SHAPES  — {shape_id: ShapeSpec} (the arch's own input-shape set);

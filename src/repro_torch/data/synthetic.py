@@ -1,5 +1,5 @@
-"""Synthetic data: a token-level corpus with planted relevance, and LM
-prompt batches.
+"""Synthetic data: a token-level corpus with planted relevance, LM
+prompt batches and CTR batches.
 
 ``token_corpus`` is a copy of ``repro.data.synthetic.token_corpus``
 (pure numpy; the port keeps its own copy rather than importing the
@@ -10,7 +10,8 @@ gives the same arrays as the reference.
 ``lm_batch`` is the counterpart of the reference's ``lm_batch``: uniform
 token ids from a numpy generator seeded with (seed, step).  The
 reference draws from ``jax.random``, so the ids differ from its; tests
-feed the same numpy ids to both packages.
+feed the same numpy ids to both packages.  ``ctr_batch`` is the
+counterpart of the reference's ``ctr_batch`` in the same way.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,3 +85,19 @@ def lm_batch(seed: int, step: int, batch: int, seq: int, vocab: int):
     rng = np.random.default_rng((seed, step))
     return {"tokens": rng.integers(0, vocab, size=(batch, seq),
                                    dtype=np.int32)}
+
+
+def ctr_batch(seed: int, step: int, batch: int, n_dense: int, n_sparse: int,
+              table_rows: int, *, device="cpu"):
+    """{"dense": (batch, n_dense) f32 N(0, 1), "sparse_ids": (batch,
+    n_sparse) int32 uniform in [0, table_rows), "labels": (batch,) f32
+    Bernoulli(0.3)} as tensors on ``device``, deterministic in
+    (seed, step)."""
+    rng = np.random.default_rng((seed, step))
+    arrays = {
+        "dense": rng.standard_normal((batch, n_dense), dtype=np.float32),
+        "sparse_ids": rng.integers(0, table_rows, size=(batch, n_sparse),
+                                   dtype=np.int32),
+        "labels": (rng.random(batch) < 0.3).astype(np.float32),
+    }
+    return {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}

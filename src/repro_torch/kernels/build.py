@@ -28,15 +28,16 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("maxsim_top2", "maxsim_topk", "colbert_maxsim",
-           "flash_attention")
+           "flash_attention", "embedding_bag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
-# C signatures: every pointer and the stream as c_void_p, ints as c_int,
-# floats as c_float.
+# C signatures: every pointer and the stream as c_void_p, ints as c_int
+# (c_longlong where the C side takes a long long), floats as c_float.
 SIGNATURES = {
     "maxsim_top2": {"maxsim_top2_launch": [_P, _P, _P, _I, _I, _I, _I,
                                            _P, _P, _P, _P, _P]},
@@ -55,6 +56,8 @@ SIGNATURES = {
     },
     "flash_attention": {"flash_attention_launch": [
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]},
+    "embedding_bag": {
+        "embedding_bag_launch": [_P, _P, _L, _I, _I, _I, _I, _P, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -18,6 +18,13 @@ the KV cache (counterpart of the reference's ``serve_lm``) and
 :func:`prefill_lm` is the reference's prefill step (``launch/steps.py``,
 the last position's logits of ``hidden_states``), whose attention runs
 the flash-attention kernel on the ``fused`` backend.
+
+The recsys CTR path: :func:`serve_ctr` is the reference's ``serve``
+cell of ``launch/steps.py`` (``ctr_serve_step``: sigmoid of the
+forward on a CTR batch) for dlrm-rm2, dcn-v2 and wide-deep, and
+:func:`retrieve_cand` its ``retrieval_cand`` cell (the two-tower user
+vector scored against table 0's rows, top-k).  Their lookups run the
+EmbeddingBag kernel on the ``fused`` backend.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from repro_torch.core import backend as backend_lib
 from repro_torch.core import pruning_pipeline
 from repro_torch.core.sampling import sample_sphere
 from repro_torch.data import synthetic
+from repro_torch.models import recsys
 from repro_torch.models import transformer as tfm
 from repro_torch.models.colbert import ColBERTConfig, init_params
 from repro_torch.serve.index import COMPRESSIONS, PackedIndex
@@ -67,6 +75,17 @@ class ServeResult:
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _model_device(model, device):
+    """``device``, resolved, where ``model`` lives there; raises where
+    it lives elsewhere."""
+    device = backend_lib.resolve_device(device)
+    w = next(model.parameters()).device
+    if w.type != device.type or device.index not in (None, w.index):
+        raise ValueError(f"the model lives on {w}, not on {device}: move "
+                         f"it there or pass device={str(w)!r}")
+    return w
 
 
 def _report_bytes(packed) -> None:
@@ -209,15 +228,75 @@ def prefill_lm(model: tfm.Transformer, tokens, *, backend: str | None = None,
     ``backend`` selects the attention path (``fused``: the
     flash-attention kernel; ``reference``: the reference's arithmetic).
     Returns (logits, the synchronized stage seconds)."""
-    device = backend_lib.resolve_device(device)
-    w = model.embed.weight.device
-    if w.type != device.type or device.index not in (None, w.index):
-        raise ValueError(f"the model lives on {w}, not on {device}: move "
-                         f"it there or pass device={str(w)!r}")
-    device = w
+    device = _model_device(model, device)
     tokens = torch.as_tensor(tokens, device=device)
     t = time.perf_counter()
     x = model.hidden_states(tokens, backend=backend)
     logits = model.logits(x[:, -1, :])
     _sync(device)
     return logits, {"prefill_s": time.perf_counter() - t}
+
+
+def _recsys_model(cfg, model, device, seed, timings):
+    """``model`` checked against ``device``, or a model of ``cfg`` drawn
+    from ``seed`` on it; the init's synchronized seconds in
+    ``timings``."""
+    if model is not None:
+        return model, _model_device(model, device)
+    device = backend_lib.resolve_device(device)
+    t = time.perf_counter()
+    model = recsys.init_model(torch.Generator(device=device).manual_seed(seed),
+                              cfg, device)
+    _sync(device)
+    timings["init_s"] = time.perf_counter() - t
+    return model, device
+
+
+@torch.no_grad()
+def serve_ctr(cfg, batch: int = 512, *, backend: str | None = None,
+              device=None, seed: int = 0, model=None):
+    """Click probabilities sigmoid(forward) (batch,) f32 for one
+    ``ctr_batch(seed, 0, batch, ...)`` of a dlrm-rm2, dcn-v2 or
+    wide-deep config, on ``device`` (``cuda`` unless the caller names
+    another; raises without a GPU, and when ``model`` lives elsewhere).
+    The model is drawn from ``seed`` on the device unless ``model`` is
+    given.  ``backend`` selects the lookups' path (``fused``: B8).
+    Returns (probabilities, the synchronized stage seconds)."""
+    timings = {}
+    model, device = _recsys_model(cfg, model, device, seed, timings)
+    t = time.perf_counter()
+    b = synthetic.ctr_batch(seed, 0, batch, getattr(cfg, "n_dense", 0),
+                            cfg.n_sparse, cfg.table_rows, device=device)
+    _sync(device)
+    timings["batch_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    if isinstance(model, recsys.WideDeep):
+        logits = model(b["sparse_ids"], backend=backend)
+    else:
+        logits = model(b["dense"], b["sparse_ids"], backend=backend)
+    probs = torch.sigmoid(logits)
+    _sync(device)
+    timings["forward_s"] = time.perf_counter() - t
+    return probs, timings
+
+
+@torch.no_grad()
+def retrieve_cand(cfg, *, k: int = 100, backend: str | None = None,
+                  device=None, seed: int = 0, model=None):
+    """The reference's ``retrieval_cand`` cell: the one user of
+    ``ctr_batch(seed, 0, 1, ...)`` through the user tower (the dense
+    features only where the model has a dense tower), scored against
+    all of table 0's rows, top ``k`` (ties to the lowest id).  Device,
+    model and backend as in :func:`serve_ctr`.  Returns ((values (1, k),
+    int32 ids (1, k)), the synchronized stage seconds)."""
+    timings = {}
+    model, device = _recsys_model(cfg, model, device, seed, timings)
+    b = synthetic.ctr_batch(seed, 0, 1, getattr(cfg, "n_dense", 0),
+                            cfg.n_sparse, cfg.table_rows, device=device)
+    dense = None if isinstance(model, recsys.WideDeep) else b["dense"]
+    t = time.perf_counter()
+    out = recsys.retrieve_topk(model, dense, b["sparse_ids"], k=k,
+                               backend=backend)
+    _sync(device)
+    timings["retrieve_s"] = time.perf_counter() - t
+    return out, timings

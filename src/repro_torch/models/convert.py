@@ -22,6 +22,19 @@ to numpy by the caller — and each returns a ``state_dict`` for
 * ``lm_head`` is absent when the embeddings are tied: the head is then
   ``embed.T`` in both packages.
 * ``ln1``/``ln2`` (d_model,) per layer and ``ln_f`` stay vectors.
+
+``recsys_params_from_jax(tree, arch_id)`` takes the tree of
+``repro.models.recsys.dlrm_init``, ``dcn_init`` or ``widedeep_init``
+(``arch_id`` "dlrm-rm2", "dcn-v2" or "wide-deep") and returns a
+``state_dict`` for ``repro_torch.models.recsys.DLRM``, ``DCN`` or
+``WideDeep``:
+
+* ``tables`` (F, V, D) -> the stacked (F·V, D); W&D's ``wide`` (F, V)
+  -> (F·V, 1).
+* MLP layer i of ``bot``/``top``/``mlp`` (``ws[i]`` (in, out), ``bs[i]``)
+  -> ``{bot,top,mlp}.{i}.weight`` (out, in) and ``.bias``; DCN's cross
+  layer i (``w`` (d, d), ``b``) -> ``cross.{i}.weight`` (transposed)
+  and ``.bias``; W&D's scalar ``bias`` stays a scalar.
 """
 
 from __future__ import annotations
@@ -65,4 +78,27 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
     sd = {f"backbone.{k}": t
           for k, t in lm_params_from_jax(tree["backbone"]).items()}
     sd["proj.weight"] = _tensor(tree["proj"]).T.contiguous()
+    return sd
+
+
+_RECSYS_MLPS = {"dlrm-rm2": ("bot", "top"), "dcn-v2": ("mlp",),
+                "wide-deep": ("mlp",)}
+
+
+def recsys_params_from_jax(tree, arch_id: str) -> dict[str, torch.Tensor]:
+    if arch_id not in _RECSYS_MLPS:
+        raise KeyError(f"no recsys model for arch {arch_id!r}; have "
+                       f"{sorted(_RECSYS_MLPS)}")
+    tables = np.asarray(tree["tables"])
+    sd = {"tables": _tensor(tables.reshape(-1, tables.shape[-1]))}
+    for name in _RECSYS_MLPS[arch_id]:
+        for i, (w, b) in enumerate(zip(tree[name]["ws"], tree[name]["bs"])):
+            sd[f"{name}.{i}.weight"] = _tensor(w).T.contiguous()
+            sd[f"{name}.{i}.bias"] = _tensor(b)
+    for i, layer in enumerate(tree.get("cross", ())):
+        sd[f"cross.{i}.weight"] = _tensor(layer["w"]).T.contiguous()
+        sd[f"cross.{i}.bias"] = _tensor(layer["b"])
+    if arch_id == "wide-deep":
+        sd["wide"] = _tensor(np.asarray(tree["wide"]).reshape(-1, 1))
+        sd["bias"] = _tensor(tree["bias"])
     return sd

@@ -40,6 +40,19 @@ res = serve_retrieval(colbert_base.SMOKE, n_queries=2, n_docs=8,
                       device="cpu")
 assert res.idx.shape == (2, 8), res.idx.shape
 print("cpu ok")
+
+from repro_torch.configs import dlrm_rm2
+from repro_torch.launch.serve import serve_ctr
+try:
+    serve_ctr(dlrm_rm2.SMOKE, 4)
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+    print("serve_ctr raised without cuda")
+else:
+    raise SystemExit("serve_ctr ran without CUDA and without device='cpu'")
+probs, _ = serve_ctr(dlrm_rm2.SMOKE, 4, device="cpu")
+assert probs.shape == (4,), probs.shape
+print("serve_ctr cpu ok")
 """
 
 
@@ -61,20 +74,25 @@ def test_port_imports_and_runs_with_jax_blocked():
     assert out.returncode == 0, out.stdout + out.stderr
     assert "raised without cuda" in out.stdout
     assert "cpu ok" in out.stdout
+    assert "serve_ctr raised without cuda" in out.stdout
+    assert "serve_ctr cpu ok" in out.stdout
 
 
 def test_kernel_wrappers_take_plain_version_on_cpu():
     import torch
     from repro_torch.kernels.colbert_maxsim.ops import (
         colbert_maxsim_multi_op)
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_op
     from repro_torch.kernels.maxsim_top2.ops import maxsim_top2_op
     from repro_torch.kernels.maxsim_topk.ops import maxsim_topk_op
     before = (maxsim_top2_op.launches, maxsim_topk_op.launches,
-              colbert_maxsim_multi_op.launches)
+              colbert_maxsim_multi_op.launches, embedding_bag_op.launches)
     s, t = torch.randn(8, 4), torch.randn(2, 6, 4)
     a = torch.ones(2, 6, dtype=torch.bool)
     maxsim_top2_op(s, t, a)
     maxsim_topk_op(s, t, a, k=3)
     colbert_maxsim_multi_op(torch.randn(2, 3, 4), t, a)
+    embedding_bag_op(torch.randn(8, 4), torch.zeros(3, 2, dtype=torch.int32))
     assert (maxsim_top2_op.launches, maxsim_topk_op.launches,
-            colbert_maxsim_multi_op.launches) == before
+            colbert_maxsim_multi_op.launches,
+            embedding_bag_op.launches) == before
