@@ -48,13 +48,15 @@ passed — any failure exits non-zero):
    the weight-read bound; the last greedy id must be the prefill argmax
    of its own prefix.
 8. B7 (``flash_attention``) against its plain version at the prefill
-   shape, stablelm-3b's (32 heads, head_dim 80) and a 512 sliding
-   window, causal, bf16 and widened to fp32, timed beside the plain
-   version and ``scaled_dot_product_attention`` (the library yardstick,
-   which the port never calls).  The bound counts Q·Kᵀ (bf16 operands,
-   exact products) at the bf16 tensor-core rate and P·V (fp32 p) at the
-   fp32 rate; the all-fp32 CUDA-core time is logged as the kernel's
-   design figure.
+   shape, stablelm-3b's (32 heads, head_dim 80), a 512 sliding window
+   and qwen2.5-32b's (40 heads / 8 KV, head_dim 128), causal, bf16 (the
+   sm90 kernel) and widened to fp32 (the CUDA-core kernel), timed beside
+   the plain version and ``scaled_dot_product_attention`` (the library
+   yardstick, which the port never calls); the kernel's ptxas report
+   (registers, spills, shared memory).  The bound counts 6·d flops per
+   visible pair on the bf16 tensor cores (Q·Kᵀ, P_hi·V and P_lo·V); the
+   earlier bound (P·V at the fp32 rate) and a single bf16 P·V's are
+   logged beside it.
 9. Recsys CTR path (``[recsys]``), after the LM's tensors are freed:
    dlrm-rm2 at its full ``CONFIG`` (26 tables of 1,048,576 x 64 fp32,
    6.98 GB, stacked into one (F·V, 64) matrix; random weights from seed
@@ -685,17 +687,24 @@ def main() -> int:
         del model, logits, fused, ref, got, want, last
         torch.cuda.empty_cache()
 
-        # 8. B7 against its plain version at three shapes (bf16): the
-        # prefill's, stablelm-3b's (MHA, head_dim 80) and a sliding
-        # window; the row is the prefill's, the others are held and
-        # logged.  A bf16 output may differ from the plain one by one
-        # rounding of the same fp32 value: |err| <= 2^-7 |plain| + 1e-5.
+        # 8. B7 against its plain version at four shapes (bf16): the
+        # prefill's, stablelm-3b's (MHA, head_dim 80), a sliding window
+        # and qwen2.5-32b's (40 heads / 8 KV); the row is the prefill's,
+        # the others are held and logged.  A bf16 output may differ from
+        # the plain one by one rounding of the same fp32 value:
+        # |err| <= 2^-7 |plain| + 1e-5.
+        fa_lib = build.library("flash_attention")
+        log(f"[kernel] flash_attention ptxas: "
+            f"{build.ptxas_report('flash_attention')}; sm90 dynamic shared "
+            f"memory {fa_lib.flash_attention_sm90_smem(cfg.hd)} bytes a "
+            f"block at d {cfg.hd}")
         gen = torch.Generator(device="cuda").manual_seed(1)
         held = []
         for tag, H, KV, d, window in (
                 ("prefill", cfg.n_heads, cfg.n_kv_heads, cfg.hd, None),
                 ("stablelm-3b", 32, 32, 80, None),
-                ("window 512", cfg.n_heads, cfg.n_kv_heads, cfg.hd, 512)):
+                ("window 512", cfg.n_heads, cfg.n_kv_heads, cfg.hd, 512),
+                ("qwen2.5-32b", 40, 8, 128, None)):
             q, k, v = (torch.randn((LM_BATCH, h, LM_SEQ, d), generator=gen,
                                    device="cuda").to(torch.bfloat16)
                        for h in (H, KV, KV))
@@ -721,7 +730,8 @@ def main() -> int:
             err = diff.max().item()
             ok = bool((diff <= 2 ** -7 * r.abs() + 1e-5).all())
             lib_err = (library().float() - r).abs().max().item()
-            # fp32: the same inputs widened, within 2e-4 of the plain fp32
+            # fp32 (the CUDA-core route): the same inputs widened, within
+            # 2e-4 of the plain fp32
             qf, kf, vf = q.float(), k.float(), v.float()
             err32 = (fa_ops.flash_attention_op(qf, kf, vf, **kw)
                      - flash_attention_ref(qf, kf.repeat_interleave(rep, 1),
@@ -731,23 +741,25 @@ def main() -> int:
             ms = cuda_ms(lambda: fa_ops.flash_attention_op(q, k, v, **kw))
             plain_ms = cuda_ms(plain, reps=2)
             lib_ms = cuda_ms(library)
-            # 4·d flops per visible (row, key) pair: Q·Kᵀ on bf16 q and k
-            # (exact products: the bf16 tensor-core rate) and P·V on the
-            # fp32 p (the fp32 rate).  The all-fp32 CUDA-core time is this
-            # kernel's design figure, not the function's bound.
+            # 6·d flops per visible (row, key) pair, all on the bf16
+            # tensor cores: Q·Kᵀ on bf16 q and k and P·V as P_hi·V + P_lo·V
+            # (exact products, fp32 sums).  Beside it: the function's
+            # 4·d flops with P·V at the fp32 rate (the earlier bound), and
+            # a single bf16 P·V as SDPA computes it.
             pairs = int(mask.sum())
-            flops = 4.0 * d * pairs * LM_BATCH * H
+            flops = 6.0 * d * pairs * LM_BATCH * H
             nb = nbytes(q, k, v) + nbytes(q)
-            b_ms, b_by = bound(flops, nb, tc_flops=flops / 2)
+            b_ms, b_by = bound(flops, nb, tc_flops=flops)
+            f4 = flops * 4 / 6
             log(f"[kernel] flash_attention {tag}: B={LM_BATCH} H={H} KV={KV} "
                 f"S={LM_SEQ} d={d} causal window={window} bf16: max_abs_err "
                 f"{err:.3e} (fp32 inputs {err32:.3e}; SDPA vs plain "
                 f"{lib_err:.3e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
                 f"library (SDPA) {lib_ms:.3f} ms bound {b_ms:.3f} ms "
-                f"({b_by}; {flops:.4g} visible flops, half on bf16 tensor "
-                f"cores; {nb} bytes; design figure of the fp32 CUDA-core "
-                f"kernel {bound(flops, nb)[0]:.3f} ms; all on bf16 tensor "
-                f"cores {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms)")
+                f"({b_by}; {flops:.4g} flops on bf16 tensor cores, "
+                f"{100 * b_ms / ms:.1f} % of it; {nb} bytes; with P·V at "
+                f"the fp32 rate {bound(f4, nb, tc_flops=f4 / 2)[0]:.3f} ms; "
+                f"one bf16 P·V {bound(f4, nb, tc_flops=f4)[0]:.3f} ms)")
             expect(ok and err32 <= 2e-4,
                    f"flash_attention {tag} disagrees with plain")
             held.append((err, ms, plain_ms, flops, nb, lib_ms))
@@ -756,7 +768,7 @@ def main() -> int:
         row("flash_attention",
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:84", err, ms,
-            plain_ms, flops, nb, lib_ms, tc_flops=flops / 2)
+            plain_ms, flops, nb, lib_ms, tc_flops=flops)
         rows[-1]["launches"] = n_fa["fused"]
 
     @torch.no_grad()

@@ -7,7 +7,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles with
 the first launch of a kernel builds its library, and :func:`build_all`
 compiles every source at once with one ``nvcc`` process per source.
 ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills) is
-kept beside each library as ``<name>.log``.
+kept beside each library as ``<name>.log``.  ``flash_attention`` also
+links the CUDA driver library (``-lcuda``, through the toolkit's stub
+directory where it has one): its host side encodes TMA tensor maps
+with ``cuTensorMapEncodeTiled``, a driver-API call.
 
 Every C entry returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code.
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,6 +35,7 @@ SOURCES = ("maxsim_top2", "maxsim_topk", "colbert_maxsim",
            "flash_attention", "embedding_bag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+DRIVER_API = ("flash_attention",)   # sources that link libcuda
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,8 +59,10 @@ SIGNATURES = {
             _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
             _P, _P],
     },
-    "flash_attention": {"flash_attention_launch": [
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]},
+    "flash_attention": {
+        "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _F, _I, _P],
+        "flash_attention_sm90_smem": [_I]},
     "embedding_bag": {
         "embedding_bag_launch": [_P, _P, _L, _I, _I, _I, _I, _P, _P]},
 }
@@ -75,6 +82,15 @@ def _nvcc() -> str:
             return str(cand)
     raise RuntimeError("nvcc not found: the CUDA kernels build only where "
                        "the CUDA toolkit is installed")
+
+
+def _driver_link(nvcc: str) -> list[str]:
+    """``-lcuda``, after ``-L`` for the toolkit's stub libcuda where it has
+    one (the library loaded at run time is the driver's own)."""
+    root = Path(nvcc).resolve().parents[1]
+    stubs = [root / "lib64" / "stubs",
+             root / "targets" / "x86_64-linux" / "lib" / "stubs"]
+    return [f"-L{p}" for p in stubs if p.is_dir()] + ["-lcuda"]
 
 
 def _lib_path(name: str) -> Path:
@@ -103,7 +119,8 @@ def build_all(names=SOURCES, *, force: bool = False) -> float:
     procs = {}
     for n in todo:
         tmp = BUILD_DIR / f"lib{n}.so.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu"),
+               *(_driver_link(nvcc) if n in DRIVER_API else [])]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
                                           text=True))
@@ -136,6 +153,37 @@ def library(name: str) -> ctypes.CDLL:
             err.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def _kernel_name(mangled: str) -> str:
+    """``ns::kernel<arg>`` from an Itanium-mangled nested name, without
+    the anonymous namespace."""
+    m = re.match(r"_ZN(.*)", mangled)
+    if not m:
+        return mangled
+    rest, parts = m.group(1), []
+    while (n := re.match(r"\d+", rest)):
+        size, rest = int(n.group()), rest[n.end():]
+        ident, rest = rest[:size], rest[size:]
+        if not ident.startswith("_GLOBAL__N"):
+            parts.append(ident)
+    arg = re.match(r"I(?:Li(\d+)E|(f))E", rest)
+    return "::".join(parts) + (f"<{arg.group(1) or 'float'}>" if arg else "")
+
+
+def ptxas_report(name: str) -> str:
+    """Each kernel's registers, stack and spills from ``nvcc -Xptxas -v``
+    (``<name>.log``), one ``kernel: ...`` clause each."""
+    out, entry, frame = [], None, ""
+    for line in (BUILD_DIR / f"{name}.log").read_text().splitlines():
+        if (m := re.search(r"Compiling entry function '(\S+)'", line)):
+            entry, frame = _kernel_name(m.group(1)), ""
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif entry and (m := re.search(r"Used \d+ registers.*", line)):
+            out.append(f"{entry}: {m.group(0).strip()}; {frame}")
+            entry = None
+    return " | ".join(out)
 
 
 def check(name: str, err: int) -> None:

@@ -5,11 +5,15 @@ On the CPU the wrapper runs its plain PyTorch version; the same numpy
 inputs go through the JAX oracle (``flash_attention_ref``) and the JAX op
 (Pallas in interpret mode, as the JAX package's own tests run it).
 Tolerance 2e-4 abs and rel, the JAX test's: the kernel and the oracle
-sum the softmax in different orders.  The ``cuda``-marked tests hold the
-CUDA kernel against the plain version on the card; they need no JAX.
+sum the softmax in different orders.  ``TestSm90Arithmetic`` emulates
+the bf16 CUDA route's arithmetic (split p, 128-key tiles) and holds it
+to both under chip_smoke.py's bf16 gate.  The ``cuda``-marked tests hold
+the CUDA kernel against the plain version on the card; they need no
+JAX.
 """
 
 import itertools
+import math
 
 import numpy as np
 import pytest
@@ -125,6 +129,23 @@ class TestWrapper:
         ops.flash_attention_op(_t(q), _t(k), _t(v))
         assert ops.flash_attention_op.launches == before
 
+    def test_ptxas_report_names_each_kernel(self, tmp_path, monkeypatch):
+        """chip_smoke.py prints each kernel's registers and spills from
+        the build's ``-Xptxas -v`` log, the anonymous namespace dropped."""
+        from repro_torch.kernels import build
+        entry = ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_23f0aea7"
+                 "4sm9020flash_attention_sm90ILi128EEEv14CUtensorMap_st")
+        (tmp_path / "fa.log").write_text(
+            f"ptxas info    : Compiling entry function '{entry}' for "
+            f"'sm_90a'\n    24 bytes stack frame, 32 bytes spill stores, 32 "
+            f"bytes spill loads\nptxas info    : Used 168 registers, used 1 "
+            f"barriers\n")
+        monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+        assert build.ptxas_report("fa") == (
+            "sm90::flash_attention_sm90<128>: Used 168 registers, used 1 "
+            "barriers; 24 bytes stack frame, 32 bytes spill stores, 32 "
+            "bytes spill loads")
+
     @pytest.mark.parametrize("shape_k,kw,match", [
         ((3, 16, 8), {}, "multiple"),
         ((2, 16, 8), {"window": 0}, "no visible key"),
@@ -140,6 +161,114 @@ class TestWrapper:
             ops.flash_attention_op(q, k, k.clone(), **kw)
 
 
+# The bf16 route of the CUDA kernel (csrc/flash_attention.cu, sm90):
+# 128-key tiles, each 64-row warpgroup visiting the tiles its rows can
+# see, S from bf16 q and k in fp32, an online softmax on the fp32 p, P·V
+# as P_hi·V + P_lo·V (two bf16 terms of p, fp32 sums), one bf16 rounding
+# of the output.  The gate is chip_smoke.py's: one output rounding.
+BK_SM90, ROWS_SM90 = 128, 64
+
+
+def _gate(got, want):
+    """|got - want| <= 2^-7 |want| + 1e-5, chip_smoke.py's bf16 gate;
+    returns the max abs error."""
+    got, want = (torch.from_numpy(np.array(x, dtype=np.float32))
+                 for x in (got, want))
+    diff = (got - want).abs()
+    assert bool((diff <= 2.0 ** -7 * want.abs() + 1e-5).all()), \
+        f"max abs err {diff.max().item():.3e} past the gate"
+    return diff.max().item()
+
+
+def _emulate_sm90(q, k, v, *, causal, window, split=True):
+    """q (H, Sq, d), k and v (KV, Sk, d), bf16 values in fp32 tensors ->
+    (H, Sq, d) bf16, as the sm90 kernel computes it; ``split=False``
+    rounds p to one bf16 term instead (what a single bf16 P·V gives)."""
+    H, sq, d = q.shape
+    sk = k.shape[1]
+    k = k.repeat_interleave(H // k.shape[0], dim=0)
+    v = v.repeat_interleave(H // v.shape[0], dim=0)
+    scale = 1.0 / math.sqrt(d)
+    neg = torch.tensor(-1e30)
+    out = torch.empty(H, sq, d)
+    for r0 in range(0, sq, ROWS_SM90):
+        rows = torch.arange(r0, min(r0 + ROWS_SM90, sq))
+        hi = min(sk, r0 + ROWS_SM90) if causal else sk
+        lo = max(0, r0 - window + 1) if window else 0
+        m = torch.full((H, len(rows)), -math.inf)
+        l = torch.zeros(H, len(rows))
+        acc = torch.zeros(H, len(rows), d)
+        for k0 in range(lo // BK_SM90 * BK_SM90, hi, BK_SM90):
+            cols = torch.arange(k0, min(k0 + BK_SM90, sk))
+            s = q[:, rows] @ k[:, cols].transpose(1, 2) * scale
+            vis = torch.ones(len(rows), len(cols), dtype=torch.bool)
+            if causal:
+                vis &= cols[None, :] <= rows[:, None]
+            if window:
+                vis &= cols[None, :] > rows[:, None] - window
+            s = torch.where(vis, s, neg)
+            mn = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - mn)
+            p = torch.exp(s - mn[..., None])
+            l = l * alpha + p.sum(-1)
+            p_hi = p.bfloat16().float()
+            if split:
+                p_lo = (p - p_hi).bfloat16().float()
+                pv = p_hi @ v[:, cols] + p_lo @ v[:, cols]
+            else:
+                pv = p_hi @ v[:, cols]
+            acc = acc * alpha[..., None] + pv
+            m = mn
+        out[:, rows] = acc / l.clamp_min(1e-30)[..., None]
+    return out.bfloat16()
+
+
+SM90_CASES = [
+    # (H, KV, S, d, causal, window): GQA 1, 3 and 5; S 200 and 257 are no
+    # multiple of the 128-key tile or the 64-row warpgroup
+    *[(kv * r, kv, 200, 32, c, w) for (r, kv), c, w in itertools.product(
+        [(1, 2), (3, 1), (5, 1)], [False, True], [None, 40])],
+    (6, 2, 257, 80, True, None),
+    (6, 2, 257, 80, False, 100),
+]
+
+
+class TestSm90Arithmetic:
+    @pytest.mark.parametrize("H,KV,S,d,causal,window", SM90_CASES)
+    def test_split_p_within_one_output_rounding(self, H, KV, S, d, causal,
+                                                window):
+        """The sm90 kernel's arithmetic, emulated in torch fp32, against
+        the JAX op (Pallas in interpret mode) and the plain version on
+        the same bf16 inputs, under chip_smoke.py's gate.  The error of a
+        single bf16 p is printed beside it (information, not a gate)."""
+        q, k, v = (_t(x).bfloat16().float()
+                   for x in _qkv(S * H + d, H, KV, S, S, d))
+        kw = dict(causal=causal, window=window)
+        got = _emulate_sm90(q, k, v, **kw).float()
+        want_op = j_flash_op(*(jnp.asarray(x.numpy()).astype(jnp.bfloat16)
+                               for x in (q, k, v)), **kw)
+        want_op = np.asarray(want_op.astype(jnp.float32))
+        want_plain = ops.flash_attention_op(q.bfloat16(), k.bfloat16(),
+                                            v.bfloat16(), **kw).float()
+        err_op = _gate(got, want_op)
+        err_plain = _gate(got, want_plain)
+        one = _emulate_sm90(q, k, v, split=False, **kw).float()
+        err_one = (one - want_plain).abs().max().item()
+        print(f"H{H} KV{KV} S{S} d{d} {kw}: split p vs Pallas "
+              f"{err_op:.3e}, vs plain {err_plain:.3e}; one bf16 p vs "
+              f"plain {err_one:.3e}")
+
+    def test_split_residual_is_below_two_to_the_minus_17(self):
+        """p - p_hi - p_lo over p in (0, 1]: at most ~2^-17 relative, the
+        bound the kernel's note states."""
+        p = torch.from_numpy(np.random.default_rng(13).random(
+            100_000).astype(np.float32)).clamp_min(1e-30)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float()
+        assert ((p - hi - lo).abs() <= 2.0 ** -17 * p).all()
+        assert ((p - hi).abs() > 2.0 ** -12 * p).any()
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
@@ -148,27 +277,36 @@ def _cuda():
 
 
 CARD_CASES = [
-    # (H, KV, S, d, causal, window, dtype)
-    (8, 2, 300, 128, True, None, torch.float32),
-    (8, 2, 300, 128, True, None, torch.bfloat16),
-    (4, 4, 300, 80, True, None, torch.float32),
-    (4, 4, 300, 80, False, None, torch.bfloat16),
-    (6, 3, 257, 128, True, 100, torch.float32),
-    (6, 3, 257, 64, False, 70, torch.bfloat16),
+    # (H, KV, Sq, Sk, d, causal, window)
+    (8, 2, 300, 300, 128, True, None),
+    (4, 4, 300, 300, 80, True, None),
+    (4, 4, 300, 300, 80, False, None),
+    (6, 3, 257, 257, 128, True, 100),
+    (6, 3, 257, 257, 64, False, 70),
+    (10, 2, 200, 200, 128, True, None),
+    (4, 2, 200, 200, 72, True, None),
+    (4, 2, 100, 333, 128, False, None),
+    (4, 2, 333, 100, 64, True, None),
+    (4, 2, 1, 1, 128, True, None),
+    (4, 2, 1, 50, 16, False, None),
 ]
 
 
 @pytest.mark.cuda
 class TestFlashAttentionOnCard:
-    @pytest.mark.parametrize("H,KV,S,d,causal,window,dtype", CARD_CASES)
-    def test_kernel_matches_plain(self, H, KV, S, d, causal, window, dtype):
-        """S 300 and 257 are no multiple of the 64-row tile.  fp32:
-        within 2e-4 of the plain version; bf16 outputs within one
-        rounding of the output type (the kernel and the plain version
-        round the same fp32 function once)."""
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("H,KV,Sq,Sk,d,causal,window", CARD_CASES)
+    def test_kernel_matches_plain(self, H, KV, Sq, Sk, d, causal, window,
+                                  dtype):
+        """S 300, 257, 200 and 333 are no multiple of either route's
+        tiles; d 72 and 80 no multiple of the 16-deep wgmma.  fp32 (the
+        CUDA-core kernel): within 2e-4 of the plain version.  bf16 (the
+        sm90 kernel): within one output rounding, 2^-7 |plain| + 1e-5,
+        chip_smoke.py's gate (the kernel and the plain version round the
+        same fp32 function once)."""
         dev = _cuda()
-        q, k, v = (_t(x).to(dev, dtype)
-                   for x in _qkv(S + d, H, KV, S, S, d, lead=(2,)))
+        q, k, v = _qkv(Sq * Sk + d, H, KV, Sq, Sk, d, lead=(2,))
+        q, k, v = (_t(x).to(dev, dtype) for x in (q, k, v))
         before = ops.flash_attention_op.launches
         got = ops.flash_attention_op(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -177,9 +315,12 @@ class TestFlashAttentionOnCard:
                                    v.repeat_interleave(H // KV, dim=-3),
                                    causal=causal, window=window)
         assert got.dtype == dtype
-        tol = TOL if dtype == torch.float32 else 1e-2
-        torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                   rtol=tol)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+        else:
+            diff = (got.float() - want.float()).abs()
+            assert bool((diff <= 2.0 ** -7 * want.float().abs() + 1e-5)
+                        .all()), f"max abs err {diff.max().item():.3e}"
 
     def test_rejects_what_the_kernel_does_not_take(self):
         dev = _cuda()
