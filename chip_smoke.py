@@ -9,9 +9,14 @@ passed — any failure exits non-zero):
 1. Device: the card's name and power limit from ``nvidia-smi``.
 2. Build: compile the eight kernels (five sources) from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one
-   process per source, all started together), timed.
+   process per source, all started together), timed.  Every C launch
+   entry is then wrapped so that, while a path runs, CUDA events bracket
+   each launch (no synchronize); the spans are summed per kernel row
+   after the path's final synchronize (``path_ms``).
 3. Main path at the full ``colbert`` config (12 layers, width 768,
-   bf16, random weights from seed 0): encode 4,096 synthetic docs of
+   bf16, random weights from seed 0), after one small launch of each of
+   its kernels (CUDA loads a library's module at its first launch):
+   encode 4,096 synthetic docs of
    length 180 and 64 queries, prune at keep 0.5 on the default
    ``shortlist_topk`` backend (2,048 sphere samples), pack (bf16, as
    the encoder emits it), serve top-10 two-stage (``n_first=64``), then
@@ -30,7 +35,11 @@ passed — any failure exits non-zero):
    paths' own tensors: max abs error, index agreement, kernel and plain
    times (CUDA events), and each kernel's bound.  B3/B4 run on fp32 and
    on bf16 docs; B5/B6 at 4 and 2 bits and at 8 and 127 centroids.
-   These launches do not count.
+   These launches do not count.  The ptxas report of B2's and B3's
+   sources.  One bound rule for B1-B6: an operand takes 1 bf16 term
+   when the run's tensor equals its own bf16 rounding, else 3; products
+   of terms below 2^-24 relative are dropped (3 x 1 terms: 3 products,
+   3 x 3: 6), and every product runs at the bf16 tensor-core rate.
 6. Fused pruning leg: the first 256 docs on ``backend="fused"``
    (``maxsim_top2``) against ``shortlist_topk``; B1's launch count is
    read from this leg.
@@ -82,7 +91,11 @@ passed — any failure exits non-zero):
    beside the plain version and ``torch.nn.functional.embedding_bag``
    (the library yardstick, which the port never calls).  Bound: the
    gathered rows, the ids and the output once each at 3.35 TB/s.
-11. The ``kernels`` JSON line.
+11. The ``kernels`` JSON line; ``path_ms`` is each kernel's summed
+   event time over the launches ``launches`` counts: the main path (B2,
+   bf16 B3/B4), the fused pruning leg (B1), the compressed and routed
+   path (fp32 B3/B4, B5, B6), the fused prefill (B7) and the median of
+   three ``fused`` dlrm-rm2 ``serve_bulk`` forwards (B8).
 
 Tolerances: retrieval values within 1e-5 abs (unit-norm fp32 inputs,
 dim 128); token/doc ids equal wherever the gap to the runner-up exceeds
@@ -157,6 +170,66 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def terms(t):
+    """bf16 terms an operand takes on the tensor cores: 1 where the run's
+    tensor equals its own bf16 rounding, else 3 (hi + mid + lo)."""
+    return 1 if torch.equal(t, t.bfloat16().to(t.dtype)) else 3
+
+
+def split_products(a, b):
+    """bf16 products per scalar product of operands ``a`` and ``b``: the
+    pairs of terms (i, j) with i + j <= 2, i.e. above 2^-24 relative
+    (1 x 1: 1; 3 x 1: 3; 3 x 3: 6)."""
+    ta, tb = terms(a), terms(b)
+    return sum(1 for i in range(ta) for j in range(tb) if i + j <= 2)
+
+
+class PathTimes:
+    """CUDA events around every kernel launch while a path runs: each C
+    entry of the kernels' libraries is wrapped, so a span covers one
+    counted launch (a pre-pass included) on the current stream, with no
+    synchronize; :meth:`stop` synchronizes once and sums the spans by
+    kernel row (dense B3/B4 split by the doc dtype argument)."""
+
+    BF16_ARG = {"colbert_maxsim_multi": 9, "colbert_maxsim_rerank": 9}
+
+    def __init__(self, build):
+        self.on, self.spans = False, []
+        for name, entries in build.SIGNATURES.items():
+            lib = build.library(name)
+            for entry in entries:
+                if entry.endswith("_launch"):
+                    setattr(lib, entry, self._wrap(getattr(lib, entry),
+                                                   entry[:-len("_launch")]))
+
+    def _wrap(self, fn, row):
+        def timed(*args):
+            if not self.on:
+                return fn(*args)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = fn(*args)
+            end.record()
+            i = self.BF16_ARG.get(row)
+            self.spans.append((row + ("_bf16" if i and args[i] else ""),
+                               start, end))
+            return err
+        return timed
+
+    def start(self):
+        self.spans, self.on = [], True
+
+    def stop(self):
+        """Summed ms by kernel row since :meth:`start`."""
+        torch.cuda.synchronize()
+        self.on = False
+        out = {}
+        for row, start, end in self.spans:
+            out[row] = out.get(row, 0.0) + start.elapsed_time(end)
+        return out
+
+
 def score_err(out, ref):
     """Max abs error over real scores; max relative error over the
     empty-doc sentinel scores (l x -1e30)."""
@@ -223,6 +296,7 @@ def main() -> int:
                                              topk_search)
     from repro_torch.serve.routing import RoutingIndex
     from repro_torch.core.backend import shortlist_knobs
+    from repro_torch.train.compress import residual_values
 
     failures = []
 
@@ -243,6 +317,7 @@ def main() -> int:
     # 2. build
     secs = build.build_all(force=True)
     log(f"[build] 5 sources (8 kernels) built in {secs:.2f} s")
+    timer = PathTimes(build)
 
     rows = []
 
@@ -253,7 +328,7 @@ def main() -> int:
                      "replaces": replaces, "launches": None,
                      "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": library_ms})
+                     "library_ms": library_ms, "path_ms": None})
         lib = "" if library_ms is None else f" library {library_ms:.3f} ms"
         log(f"[kernel] {name}: max_abs_err {max_err:.3e} kernel {ms:.3f} ms "
             f"plain {plain_ms:.3f} ms{lib} bound {b_ms:.3f} ms ({b_by})")
@@ -289,7 +364,28 @@ def main() -> int:
                 out[n] -= bf16
             return out
 
+        # The first launch from a kernel library pays CUDA's lazy module
+        # load (~50 ms, not kernel time): one small launch of each kernel
+        # the main path runs, before its counts are zeroed.
+        g = torch.Generator(device="cuda").manual_seed(2)
+        maxsim_topk_op(torch.randn(128, 128, device="cuda", generator=g),
+                       torch.randn(2, 180, 128, device="cuda", generator=g),
+                       torch.ones(2, 180, dtype=torch.bool, device="cuda"),
+                       k=16)
+        wq = torch.randn(2, 32, 128, device="cuda", generator=g)
+        for cap in (64, 128):
+            we = torch.randn(8, cap, 128, device="cuda",
+                             generator=g).bfloat16()
+            wm = torch.ones(8, cap, dtype=torch.bool, device="cuda")
+            cm_ops.colbert_maxsim_multi_op(wq, we, wm)
+            cm_ops.colbert_maxsim_rerank_op(
+                wq, we[None].expand(2, -1, -1, -1).contiguous(),
+                wm[None].expand(2, -1, -1).contiguous())
+        torch.cuda.synchronize()
+        del g, wq, we, wm
+
         zero_counts()
+        timer.start()
         t0 = time.perf_counter()
         res = serve_retrieval(colbert_base.CONFIG, keep_fraction=0.5,
                               n_queries=N_QUERIES, seed=0, n_first=64,
@@ -301,12 +397,15 @@ def main() -> int:
         e2e_s = time.perf_counter() - t
         main_s = time.perf_counter() - t0
         launches = read_counts()
+        path_ms = timer.stop()
         log(f"[main] stages (s): {json.dumps(res.timings)} e2e_serve_s: "
             f"{e2e_s:.4f} total_s: {main_s:.2f}")
         log(f"[main] storage: {json.dumps(packed.storage())}")
         log(f"[main] backends: prune=shortlist_topk serve={res.server.backend}"
             f" index dtype={packed.buckets[0].embs.dtype}")
         log(f"[main] launches: {json.dumps(launches)}")
+        log(f"[main] kernel ms on the path (CUDA events, summed): "
+            f"{json.dumps(path_ms)}")
         for name in ("maxsim_topk", "colbert_maxsim_multi_bf16",
                      "colbert_maxsim_rerank_bf16"):
             expect(launches[name] > 0, f"{name} not launched on the main path")
@@ -340,6 +439,7 @@ def main() -> int:
                   "residual4": {"compression": "residual", "residual_bits": 4},
                   "residual2": {"compression": "residual", "residual_bits": 2}}
         zero_counts()
+        timer.start()
         t0 = time.perf_counter()
         packs, served = {}, {}
         for name, kw in codecs.items():
@@ -388,8 +488,10 @@ def main() -> int:
         log(f"[routing] nprobe=1 serve {time.perf_counter() - t:.4f} s")
         comp_s = time.perf_counter() - t0
         comp_launches = read_counts()
+        comp_ms = timer.stop()
         log(f"[compressed] total_s {comp_s:.2f} launches: "
-            f"{json.dumps(comp_launches)}")
+            f"{json.dumps(comp_launches)}; kernel ms on the path "
+            f"{json.dumps(comp_ms)}")
         for name in ("colbert_maxsim_multi", "colbert_maxsim_rerank",
                      "colbert_maxsim_residual_multi",
                      "colbert_maxsim_residual_rerank"):
@@ -425,8 +527,17 @@ def main() -> int:
         B, m, dim = tok.shape
         N = samples.shape[0]
         K, _ = shortlist_knobs(m)
+        log(f"[kernel] ptxas: maxsim_topk {build.ptxas_report('maxsim_topk')}"
+            f" || colbert_maxsim {build.ptxas_report('colbert_maxsim')}")
 
-        flops = 2.0 * B * N * m * dim
+        # one bound rule for B1-B6: each fp32 operand split into the bf16
+        # terms the run's tensor needs, every product on the bf16 tensor
+        # cores
+        prods = split_products(samples, tok)
+        flops = 2.0 * B * N * m * dim * prods
+        log(f"[kernel] bound rule: samples {terms(samples)} term(s), "
+            f"tokens {terms(tok)}, queries {terms(q_emb)}: {prods} bf16 "
+            f"products a pruning score")
         # B2 maxsim_topk — the first shortlist rescan of the widest bucket
         v, i = maxsim_topk_op(samples, tok, alive, k=K)
         rv, ri = maxsim_topk_ref(samples, tok, alive, K + 1)
@@ -439,8 +550,16 @@ def main() -> int:
             "src/repro/kernels/maxsim_topk/maxsim_topk.py:104", err,
             cuda_ms(lambda: maxsim_topk_op(samples, tok, alive, k=K)),
             cuda_ms(lambda: maxsim_topk_ref(samples, tok, alive, K), reps=2),
-            flops, nbytes(samples, tok, alive) + B * N * K * 8)
+            flops, nbytes(samples, tok, alive) + B * N * K * 8,
+            tc_flops=flops)
         del rv, ri
+        # the register epilogue's share: the same scores kept in lists of
+        # 4 and of 32 entries
+        by_k = {kk: cuda_ms(lambda: maxsim_topk_op(samples, tok, alive,
+                                                    k=kk))
+                for kk in sorted({min(4, m), K, min(32, m)})}
+        log("[kernel] maxsim_topk by k (same scores): " + "; ".join(
+            f"k {kk} {ms:.3f} ms" for kk, ms in by_k.items()))
         # B1 maxsim_top2 — the fused path's first cell assignment
         out = maxsim_top2_op(samples, tok, alive)
         ref = maxsim_top2_ref(samples, tok, alive)
@@ -461,7 +580,7 @@ def main() -> int:
             "src/repro/kernels/maxsim_top2/maxsim_top2.py:109", err,
             cuda_ms(lambda: maxsim_top2_op(samples, tok, alive)),
             cuda_ms(lambda: maxsim_top2_ref(samples, tok, alive), reps=2),
-            flops, nbytes(samples, tok, alive) + B * N * 16)
+            flops, nbytes(samples, tok, alive) + B * N * 16, tc_flops=flops)
         del out, ref
         # B3 colbert_maxsim_multi — the e2e sweep of the widest packed
         # bucket, on the main path's bf16 docs and on the same docs
@@ -476,6 +595,8 @@ def main() -> int:
             log(f"[kernel] {name} n_q={N_QUERIES} l={l} n_docs={pb.n_docs} "
                 f"m={pb.cap} docs {embs.dtype}: sentinel rel err {rel:.2e}")
             expect(err <= ATOL and rel <= 1e-6, f"{name} disagrees with plain")
+            fl = (2.0 * N_QUERIES * l * pb.n_docs * pb.cap * dim
+                  * split_products(q_emb, embs))
             row(name, "src/repro_torch/kernels/csrc/colbert_maxsim.cu",
                 "src/repro/kernels/colbert_maxsim/colbert_maxsim.py:125", err,
                 cuda_ms(lambda: cm_ops.colbert_maxsim_multi_op(q_emb, embs,
@@ -483,8 +604,16 @@ def main() -> int:
                 cuda_ms(lambda: cm_ref.colbert_maxsim_multi_ref(q_emb, embs,
                                                                  pb.masks),
                         reps=2),
-                2.0 * N_QUERIES * l * pb.n_docs * pb.cap * dim,
-                nbytes(q_emb, embs, pb.masks) + N_QUERIES * pb.n_docs * 4)
+                fl, nbytes(q_emb, embs, pb.masks) + N_QUERIES * pb.n_docs * 4,
+                tc_flops=fl)
+        # the queries' split terms: the same bf16 sweep with queries that
+        # are not bf16-exact (three terms)
+        q3 = q_emb * (1 + 2.0 ** -12)
+        ms = cuda_ms(lambda: cm_ops.colbert_maxsim_multi_op(q3, pb.embs,
+                                                             pb.masks))
+        log(f"[kernel] colbert_maxsim_multi_bf16 with fp32 queries "
+            f"({terms(q3)} terms): {ms:.3f} ms")
+        del q3
         # B4 colbert_maxsim rerank — the two-stage rerank's candidate blocks
         cand = _streaming_first_stage(packed, q_emb, 64).long()
         g_embs, g_masks = packed.padded()
@@ -498,6 +627,8 @@ def main() -> int:
                 f"m={g_masks.shape[1]} docs {d_sub.dtype}: sentinel rel err "
                 f"{rel:.2e}")
             expect(err <= ATOL and rel <= 1e-6, f"{name} disagrees with plain")
+            fl = (2.0 * N_QUERIES * l * d_sub.shape[1] * d_sub.shape[2] * dim
+                  * split_products(q_emb, d_sub))
             row(name, "src/repro_torch/kernels/csrc/colbert_maxsim.cu",
                 "src/repro/kernels/colbert_maxsim/colbert_maxsim.py:69", err,
                 cuda_ms(lambda: cm_ops.colbert_maxsim_rerank_op(q_emb, d_sub,
@@ -505,8 +636,9 @@ def main() -> int:
                 cuda_ms(lambda: cm_ref.colbert_maxsim_rerank_ref(q_emb, d_sub,
                                                                   m_sub),
                         reps=2),
-                2.0 * N_QUERIES * l * d_sub.shape[1] * d_sub.shape[2] * dim,
-                nbytes(q_emb, d_sub, m_sub) + N_QUERIES * d_sub.shape[1] * 4)
+                fl,
+                nbytes(q_emb, d_sub, m_sub) + N_QUERIES * d_sub.shape[1] * 4,
+                tc_flops=fl)
         # B5/B6 — the residual sweeps, on the widest bucket (B5) and the
         # two-stage candidates (B6) of each residual index; the row is the
         # path's 4-bit, 8-centroid index, the others are held and logged
@@ -522,15 +654,21 @@ def main() -> int:
             codes, resq, bucket_of, r_masks, cbs, scales = p.padded_residual()
             a6 = (q_emb, codes[cand], resq[cand], scales[cand], cbs,
                   bucket_of[cand], r_masks[cand])
-            for tag, store, op, ref, args, n_docs, m_ in (
+            # the decoded docs are the bound's operand
+            dec5 = v.dense()
+            dec6 = (cbs[bucket_of[cand].long()[..., None], codes[cand].long()]
+                    + residual_values(resq[cand], scales[cand], v.bits))
+            p5, p6 = split_products(q_emb, dec5), split_products(q_emb, dec6)
+            del dec5, dec6
+            for tag, store, op, ref, args, n_docs, m_, prods in (
                     ("colbert_maxsim_residual_multi", b5,
                      cm_ops.colbert_maxsim_residual_multi_op,
                      cm_ref.colbert_maxsim_residual_multi_ref, a5, rb.n_docs,
-                     rb.cap),
+                     rb.cap, p5),
                     ("colbert_maxsim_residual_rerank", b6,
                      cm_ops.colbert_maxsim_residual_rerank_op,
                      cm_ref.colbert_maxsim_residual_rerank_ref, a6, 64,
-                     p.cap_max)):
+                     p.cap_max, p6)):
                 o = op(*args, bits=v.bits)
                 r = ref(*args, bits=v.bits)
                 err, rel = score_err(o, r)
@@ -543,24 +681,27 @@ def main() -> int:
                 expect(err <= ATOL and rel <= 1e-6,
                        f"{tag} {name} disagrees with plain")
                 store[name] = (err, ms, plain,
-                               2.0 * N_QUERIES * l * n_docs * m_ * dim,
+                               2.0 * N_QUERIES * l * n_docs * m_ * dim * prods,
                                nbytes(*args) + N_QUERIES * n_docs * 4)
         for tag, store, line in (("colbert_maxsim_residual_multi", b5, 217),
                                  ("colbert_maxsim_residual_rerank", b6, 294)):
             _, ms, plain, flops, nb = store["residual4"]
             row(tag, "src/repro_torch/kernels/csrc/colbert_maxsim.cu",
                 f"src/repro/kernels/colbert_maxsim/colbert_maxsim.py:{line}",
-                max(v[0] for v in store.values()), ms, plain, flops, nb)
+                max(v[0] for v in store.values()), ms, plain, flops, nb,
+                tc_flops=flops)
 
         # 6. fused pruning leg
         e, mk = d_emb[:FUSED_DOCS], d_mask[:FUSED_DOCS]
         maxsim_top2_op.launches = 0
+        timer.start()
         t = time.perf_counter()
         rf, ef, of = pruning_pipeline.pruning_order_bucketed(
             e, mk, samples, backend="fused")
         torch.cuda.synchronize()
         fused_s = time.perf_counter() - t
         launches["maxsim_top2"] = maxsim_top2_op.launches
+        path_ms["maxsim_top2"] = timer.stop().get("maxsim_top2", 0.0)
         t = time.perf_counter()
         rs_, es_, os_ = pruning_pipeline.pruning_order_bucketed(
             e, mk, samples, backend="shortlist_topk")
@@ -585,11 +726,16 @@ def main() -> int:
         expect(share >= 0.99, f"fused vs shortlist_topk equal ranks {share}")
         expect(launches["maxsim_top2"] > 0, "maxsim_top2 not launched")
 
-        # launches from the run of the path each kernel is on
+        # launches and summed kernel time from the run of the path each
+        # kernel is on
         for r_ in rows:
-            r_["launches"] = (launches if r_["name"] in (
-                "maxsim_top2", "maxsim_topk", "colbert_maxsim_multi_bf16",
-                "colbert_maxsim_rerank_bf16") else comp_launches)[r_["name"]]
+            on_main = r_["name"] in ("maxsim_top2", "maxsim_topk",
+                                     "colbert_maxsim_multi_bf16",
+                                     "colbert_maxsim_rerank_bf16")
+            r_["launches"] = (launches if on_main
+                              else comp_launches)[r_["name"]]
+            r_["path_ms"] = (path_ms if on_main
+                             else comp_ms).get(r_["name"], 0.0)
 
     def lm_phase():
         """Phase 7, ``[lm]``: minitron-4b at its full config on the
@@ -621,9 +767,13 @@ def main() -> int:
         logits, n_fa = {}, {}
         for backend in ("fused", "reference"):
             fa_ops.flash_attention_op.launches = 0
+            timer.start()
             logits[backend], tm = prefill_lm(model, prompts,
                                              backend=backend)
             n_fa[backend] = fa_ops.flash_attention_op.launches
+            fa_path_ms = timer.stop().get("flash_attention", 0.0)
+            if backend == "fused":
+                fa_ms = fa_path_ms
             log(f"[lm] prefill {backend} B={LM_BATCH} S={LM_SEQ}: "
                 f"{tm['prefill_s']:.4f} s, "
                 f"{LM_BATCH * LM_SEQ / tm['prefill_s']:.0f} tokens/s, "
@@ -770,6 +920,7 @@ def main() -> int:
             "src/repro/kernels/flash_attention/flash_attention.py:84", err, ms,
             plain_ms, flops, nb, lib_ms, tc_flops=flops)
         rows[-1]["launches"] = n_fa["fused"]
+        rows[-1]["path_ms"] = fa_ms
 
     @torch.no_grad()
     def recsys_phase():
@@ -799,13 +950,18 @@ def main() -> int:
                 serve_ctr(cfg, batch, backend=backend, model=model)
             probs, n = {}, {"fused": set(), "reference": set()}
             fwd = {"fused": [], "reference": []}
-            made = []
+            made, b8_ms = [], []
             for backend in ("fused", "reference", "reference", "fused",
                             "fused", "reference"):
                 embedding_bag_op.launches = 0
+                timer.start()
                 probs[backend], tm = serve_ctr(cfg, batch, backend=backend,
                                                model=model)
                 n[backend].add(embedding_bag_op.launches)
+                if backend == "fused":
+                    b8_ms.append(timer.stop().get("embedding_bag", 0.0))
+                else:
+                    timer.stop()
                 fwd[backend].append(tm["forward_s"] * 1e3)
                 made.append(tm["batch_s"] * 1e3)
             for backend, ms in fwd.items():
@@ -828,7 +984,7 @@ def main() -> int:
                    f"expected {want_launches} on fused and 0 on reference")
             expect(equal and ok and p.shape == (batch,),
                    f"{cfg.name} {shape}: probabilities differ or malformed")
-            return max(n["fused"])
+            return max(n["fused"]), sorted(b8_ms)[1]
 
         def breakdown(cfg, model, batch):
             """dlrm-rm2's forward by stage at ``batch`` (CUDA events): the
@@ -901,7 +1057,7 @@ def main() -> int:
         expect(sum(p.numel() for p in model.parameters())
                == cfg.param_count(), "dlrm-rm2 parameter count")
         serve_both(cfg, model, "serve_p99", 1)
-        bulk_launches = serve_both(cfg, model, "serve_bulk", 1)
+        bulk_launches, bulk_b8_ms = serve_both(cfg, model, "serve_bulk", 1)
         bulk = dlrm_rm2.RECSYS_SHAPES["serve_bulk"].dims["batch"]
         breakdown(cfg, model, bulk)
 
@@ -1003,6 +1159,7 @@ def main() -> int:
             "src/repro/kernels/embedding_bag/embedding_bag.py:36", err, ms,
             plain_ms, flops, nb, lib_ms)
         rows[-1]["launches"] = bulk_launches
+        rows[-1]["path_ms"] = bulk_b8_ms
 
     retrieval_phases()
     gc.collect()

@@ -7,10 +7,13 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles with
 the first launch of a kernel builds its library, and :func:`build_all`
 compiles every source at once with one ``nvcc`` process per source.
 ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills) is
-kept beside each library as ``<name>.log``.  ``flash_attention`` also
-links the CUDA driver library (``-lcuda``, through the toolkit's stub
-directory where it has one): its host side encodes TMA tensor maps
-with ``cuTensorMapEncodeTiled``, a driver-API call.
+kept beside each library as ``<name>.log``.  The sources with a Hopper
+(TMA) kernel — ``flash_attention``, ``maxsim_topk`` and
+``colbert_maxsim`` — also link the CUDA driver library (``-lcuda``,
+through the toolkit's stub directory where it has one): their host side
+encodes TMA tensor maps with ``cuTensorMapEncodeTiled``, a driver-API
+call.  A source is stale when it or any shared header (``*.cuh``) is
+newer than its library.
 
 Every C entry returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code.
@@ -35,7 +38,7 @@ SOURCES = ("maxsim_top2", "maxsim_topk", "colbert_maxsim",
            "flash_attention", "embedding_bag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-DRIVER_API = ("flash_attention",)   # sources that link libcuda
+DRIVER_API = ("flash_attention", "maxsim_topk", "colbert_maxsim")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,10 +50,10 @@ SIGNATURES = {
     "maxsim_top2": {"maxsim_top2_launch": [_P, _P, _P, _I, _I, _I, _I,
                                            _P, _P, _P, _P, _P]},
     "maxsim_topk": {"maxsim_topk_launch": [_P, _P, _P, _I, _I, _I, _I, _I,
-                                           _P, _P, _P]},
+                                           _P, _P, _P, _P, _P, _P, _P]},
     "colbert_maxsim": {
         "colbert_maxsim_multi_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        _I, _P, _P],
+                                        _I, _P, _P, _P, _P],
         "colbert_maxsim_rerank_launch": [_P, _P, _P, _P, _I, _I, _I, _I,
                                          _I, _I, _P, _P],
         "colbert_maxsim_residual_multi_launch": [

@@ -14,7 +14,10 @@ Counterpart of ``repro.kernels.colbert_maxsim.ops``:
   residual-codec docs, decoded inside the kernel tile by tile.
 
 Queries are fp32; dense docs are fp32 or bf16.  A CPU tensor runs the
-plain version (``ref.py``); a CUDA tensor launches the kernel.
+plain version (``ref.py``); a CUDA tensor launches the kernel.  On bf16
+docs the multi sweep is the Hopper kernel, which splits the queries
+into three bf16 planes first (scratch allocated here) and takes a dim
+that is a multiple of 8 up to 128.
 ``.launches`` on each launching wrapper counts its launches, and
 ``.bf16_launches`` on the two dense ones the share of them on bf16
 docs.
@@ -30,6 +33,7 @@ from repro_torch.kernels.colbert_maxsim.ref import (
     colbert_maxsim_residual_multi_ref, colbert_maxsim_residual_rerank_ref)
 
 L_MAX = 64   # query tokens per query the kernel takes (csrc RT)
+BF16_DIM_MAX = 128   # the query planes' row length (csrc PLANE_DP)
 DOC_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -64,14 +68,37 @@ def _launch(entry, q_embs, d_embs, d_masks, q_masks, n_docs):
     build.require(d_embs, "d_embs", d_embs.dtype,
                   d_masks.shape + (dim,), dev)
     build.require(d_masks, "d_masks", torch.bool, d_masks.shape, dev)
+    scratch = (_query_planes(q_embs, d_embs)
+               if entry == "colbert_maxsim_multi_launch" else ())
     out = torch.empty((n_q, n_docs), dtype=torch.float32, device=dev)
     lib = build.library("colbert_maxsim")
     build.check("colbert_maxsim", getattr(lib, entry)(
         q_embs.data_ptr(), q_masks.data_ptr(), d_embs.data_ptr(),
         d_masks.data_ptr(), n_q, l, n_docs, m, dim,
-        int(d_embs.dtype == torch.bfloat16), out.data_ptr(),
-        build.stream_ptr(q_embs)))
+        int(d_embs.dtype == torch.bfloat16),
+        *[None if s is None else s.data_ptr() for s in scratch],
+        out.data_ptr(), build.stream_ptr(q_embs)))
     return out
+
+
+def _query_planes(q_embs, d_embs):
+    """Scratch of the multi kernel on bf16 docs: the queries' three bf16
+    planes and one flag a warpgroup of floor(64 / l) queries; nothing on
+    fp32 docs."""
+    n_q, l, dim = q_embs.shape
+    if d_embs.dtype != torch.bfloat16:
+        return (None, None)
+    if dim % 8 or dim > BF16_DIM_MAX:
+        raise ValueError(f"dim={dim}: the bf16 kernel takes a multiple of "
+                         f"8 up to {BF16_DIM_MAX}")
+    if d_embs.data_ptr() % 16:
+        raise ValueError("bf16 d_embs must be 16-byte aligned")
+    dev = q_embs.device
+    planes = torch.empty((3, n_q * l, BF16_DIM_MAX), dtype=torch.bfloat16,
+                         device=dev)
+    flags = torch.empty((-(-n_q // (64 // l)),), dtype=torch.int32,
+                        device=dev)
+    return planes, flags
 
 
 def _count(fn, d_embs):

@@ -24,6 +24,12 @@
 // sentinel the streaming pad audits rely on (never -inf or NaN).
 // Queries are fp32; dense docs are fp32 or bf16 (widened exactly).
 //
+// Two engines share these functions.  colbert_maxsim_multi on bf16 docs
+// (the serving sweep of the main path) is a Hopper kernel, below
+// (namespace multi_bf16).  Every other route — the multi sweep on fp32
+// docs, the rerank (B4) and the residual sweeps (B5, B6) — runs on the
+// fp32 tile engine of score_tile.cuh:
+//
 // Bound on the H100: operations (2*n_q*l*n_docs*m*dim fp32 flops on the
 // CUDA cores) at the serving shapes; bytes read are the doc tokens once
 // (4, 2, or 1 + dim*bits/8 + 4 bytes a token).
@@ -40,6 +46,7 @@
 // exists.
 
 #include "score_tile.cuh"
+#include "sm90.cuh"
 
 using namespace repro;
 
@@ -112,40 +119,23 @@ colbert_maxsim_kernel(const float* __restrict__ q,
   }
 }
 
-template <class Docs>
-static int launch(bool rerank, const float* q, const uint8_t* qmask,
-                  Docs docs, const uint8_t* dmask, int n_q, int l,
-                  int n_docs, int m, int dim, float* out, void* stream) {
+template <bool RERANK, class Docs>
+static int launch(const float* q, const uint8_t* qmask, Docs docs,
+                  const uint8_t* dmask, int n_q, int l, int n_docs, int m,
+                  int dim, float* out, void* stream) {
   if (l < 1 || l > RT) return static_cast<int>(cudaErrorInvalidValue);
-  const int qb = rerank ? 1 : RT / l;
+  const int qb = RERANK ? 1 : RT / l;
   if (n_q > 0 && n_docs > 0) {
     dim3 grid(n_docs, (n_q + qb - 1) / qb);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (rerank)
-      colbert_maxsim_kernel<true, Docs><<<grid, NT, 0, s>>>(
-          q, qmask, docs, dmask, n_q, l, n_docs, m, dim, qb, out);
-    else
-      colbert_maxsim_kernel<false, Docs><<<grid, NT, 0, s>>>(
-          q, qmask, docs, dmask, n_q, l, n_docs, m, dim, qb, out);
+    colbert_maxsim_kernel<RERANK, Docs>
+        <<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+            q, qmask, docs, dmask, n_q, l, n_docs, m, dim, qb, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-static int launch_dense(bool rerank, const float* q, const uint8_t* qmask,
-                        const void* docs, const uint8_t* dmask, int n_q,
-                        int l, int n_docs, int m, int dim, int bf16,
-                        float* out, void* stream) {
-  if (bf16)
-    return launch(rerank, q, qmask,
-                  DenseDocs<__nv_bfloat16>{
-                      static_cast<const __nv_bfloat16*>(docs), m, dim},
-                  dmask, n_q, l, n_docs, m, dim, out, stream);
-  return launch(rerank, q, qmask,
-                DenseDocs<float>{static_cast<const float*>(docs), m, dim},
-                dmask, n_q, l, n_docs, m, dim, out, stream);
-}
-
-static int launch_residual(bool rerank, const float* q,
+template <bool RERANK>
+static int launch_residual(const float* q,
                            const uint8_t* qmask, const int8_t* codes,
                            const uint8_t* resq, const float* scale,
                            const float* codebooks, const int* bucket_of,
@@ -157,25 +147,375 @@ static int launch_residual(bool rerank, const float* q,
       n_tables < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (bits == 2)
-    return launch(rerank, q, qmask,
-                  ResidualDocs<2>{codes, resq, scale, codebooks, bucket_of,
-                                  m, dim, n_centroids, n_tables},
-                  dmask, n_q, l, n_docs, m, dim, out, stream);
-  return launch(rerank, q, qmask,
-                ResidualDocs<4>{codes, resq, scale, codebooks, bucket_of, m,
-                                dim, n_centroids, n_tables},
-                dmask, n_q, l, n_docs, m, dim, out, stream);
+    return launch<RERANK>(q, qmask,
+                          ResidualDocs<2>{codes, resq, scale, codebooks,
+                                          bucket_of, m, dim, n_centroids,
+                                          n_tables},
+                          dmask, n_q, l, n_docs, m, dim, out, stream);
+  return launch<RERANK>(q, qmask,
+                        ResidualDocs<4>{codes, resq, scale, codebooks,
+                                        bucket_of, m, dim, n_centroids,
+                                        n_tables},
+                        dmask, n_q, l, n_docs, m, dim, out, stream);
 }
 
+// ---- colbert_maxsim_multi on bf16 docs: the Hopper kernel ----
+//
+// Replaces, for bf16 docs, the Pallas TPU kernel
+//   src/repro/kernels/colbert_maxsim/colbert_maxsim.py:125
+//   ::colbert_maxsim_multi (_kernel_multi; pallas_call at :149).
+//
+// Bound on the H100: operations.  The docs are bf16 (one term); the
+// queries are fp32, split into hi + mid + lo (sm90.cuh).  On the main
+// path they are the bf16 encoder's output widened, so their flag is 0
+// and a score costs one bf16 product: 2·n_q·l·n_docs·m·dim flops, 0.251
+// ms for 64 queries x 32 tokens against 3,695 docs x 128 tokens (989
+// TFLOP/s), against 0.036 ms of bytes.  General fp32 queries add
+// q_mid·d and q_lo·d, summed in a second fp32 accumulator and added
+// once: exact products, fp32 sums — the plain version's function within
+// its 1e-5 gate.
+//
+// Design.  Queries are stationary: a block holds 2 x qpw whole queries
+// (qpw = floor(64 / l) to a warpgroup, so no query straddles two), as
+// three bf16 planes of 128 rows loaded once by TMA from the pre-pass's
+// output, with one flag a warpgroup.  One producer warp streams the
+// block's docs through a three-stage ring of 128-row tiles from a 3-D
+// tensor map over (dim, m, n_docs): a tile is G = 128 / m_pad docs of
+// m_pad = pow2(m) <= 128 rows (rows past m zero-filled), or one 128-row
+// slice of a doc with m > 128.  A consumer warpgroup computes its
+// 64 x 128 scores with wgmma m64n128k16 (both operands K-major from
+// shared memory) — the two warpgroups take turns issuing theirs, so one's
+// epilogue runs under the other's products — releases the stage, masks
+// the columns (doc mask bits by ballot; columns past m or n_docs are
+// dead), and takes each row's max over each doc's columns with quad
+// shuffles — the docs of a tile sit on whole groups of 8 columns, so the
+// doc of a register is static for a given G.  A doc longer than 128
+// carries its rows' maxima across its tiles in registers.  The row
+// maxima go to shared memory, 0 for a masked query token; after a named
+// barrier of the warpgroup, one warp per (query, doc) adds a query's
+// maxima in double, rounded once, so the sum does not depend on an
+// order.  The grid is query blocks x doc groups, query
+// blocks fastest, so the blocks that read the same docs run together in
+// the 50 MB L2.
+
+namespace multi_bf16 {
+
+using namespace sm90;
+
+constexpr int QROWS = 128;    // query rows a block: two warpgroups of 64
+constexpr int TN = 128;       // doc rows a tile (wgmma N)
+constexpr int STAGES = 3;
+constexpr int NT = 288;       // consumer warps 0-7, producer warp 8
+constexpr int CONSUMER_WARPS = 8;
+constexpr int MAX_G = 16;     // docs a tile: m_pad 8
+
+constexpr uint32_t PLANE_Q = QROWS * PLANE_DP * 2;
+constexpr uint32_t STAGE_D = TN * PLANE_DP * 2;
+constexpr uint32_t OFF_D = 3 * PLANE_Q;
+constexpr uint32_t OFF_RM = OFF_D + STAGES * STAGE_D;
+constexpr uint32_t RM_BUF = MAX_G * QROWS * 4;       // [g][row] floats
+constexpr uint32_t OFF_BARS = OFF_RM + 2 * RM_BUF;
+// q_full, then full[STAGES], empty[STAGES]
+constexpr uint32_t SMEM_BYTES = OFF_BARS + 8 * (1 + 2 * STAGES);
+constexpr uint32_t SMEM_DYNAMIC = SMEM_BYTES + 1024;
+
+struct Args {
+  const int* qflags;
+  const uint8_t* qmask;     // (n_q, l)
+  const uint8_t* dmask;     // (n_docs, m)
+  int n_q, l, qpw, n_docs, m, m_pad, tiles_per_doc, docs_per_block;
+  float* out;               // (n_q, n_docs)
+};
+
+// Issue one 64 x 128 score tile of a warpgroup: q_hi·d into acc and,
+// for a flagged query group (QF), q_mid·d + q_lo·d into acc2, each
+// accumulator overwritten by its first product; one straight-line group
+// per case, committed here and waited for by the caller.  K-major
+// operands: 64-column panels of 128-byte rows, 32 bytes a k16 step.
+template <bool QF>
+__device__ __forceinline__ void tile_mma(float (&acc)[64], float (&acc2)[64],
+                                         uint32_t q_hi, uint32_t tile) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < PLANE_DP / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    const uint32_t q = q_hi + (kk / 4) * QROWS * 128 + off;
+    const uint64_t d = smem_desc(tile + (kk / 4) * TN * 128 + off, 16, 1024);
+    wgmma_ss_n128(acc, smem_desc(q, 16, 1024), d, kk > 0);
+    if constexpr (QF) {
+      wgmma_ss_n128(acc2, smem_desc(q + PLANE_Q, 16, 1024), d, kk > 0);
+      wgmma_ss_n128(acc2, smem_desc(q + 2 * PLANE_Q, 16, 1024), d, 1);
+    }
+  }
+  wgmma_commit();
+}
+
+// Each row's max over each of the tile's G docs, masked columns at NEG;
+// acc2 is read only for a flagged query group (QF).
+template <int G, bool QF>
+__device__ __forceinline__ void row_max(const float (&acc)[64],
+                                        const float (&acc2)[64],
+                                        const uint32_t (&w)[4], float (&g0)[G],
+                                        float (&g1)[G]) {
+  constexpr int I_PER_DOC = 16 / G;     // 8-column groups a doc
+#pragma unroll
+  for (int g = 0; g < G; ++g) g0[g] = g1[g] = NEG;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool live = (w[i / 4] >> (8 * (i % 4) + e)) & 1u;
+      const int g = i / I_PER_DOC;
+      const float s0 = QF ? acc[4 * i + e] + acc2[4 * i + e] : acc[4 * i + e];
+      const float s1 = QF ? acc[4 * i + 2 + e] + acc2[4 * i + 2 + e]
+                          : acc[4 * i + 2 + e];
+      g0[g] = fmaxf(g0[g], live ? s0 : NEG);
+      g1[g] = fmaxf(g1[g], live ? s1 : NEG);
+    }
+}
+
+// One consumer warpgroup.  Thread (warp w, lane) owns local rows
+// r0 = 16 w + lane / 4 and r1 = r0 + 8; column 8 i + 2 (lane % 4) + e of
+// the tile sits in register 4 i + e (r0) and 4 i + 2 + e (r1).
+template <int G>
+__device__ __forceinline__ void consume(uint32_t base, uint8_t* smem, int wg,
+                                        int n_tiles, int d_begin,
+                                        int d_end, const Args& a) {
+  const int tid = threadIdx.x % 128, warp = uniform(tid / 32), lane = tid % 32;
+  const int r0 = 16 * warp + lane / 4, r1 = r0 + 8;
+  const int cl = 2 * (lane % 4);
+  const int qg = 2 * blockIdx.x + wg;
+  const int q_first = qg * a.qpw;
+  const int n_groups = (a.n_q + a.qpw - 1) / a.qpw;
+  const bool qf = uniform(qg < n_groups && a.qflags[qg]);
+  const uint32_t bars = base + OFF_BARS;
+  const uint32_t q_hi = base + wg * 64 * 128;
+  float* rm = reinterpret_cast<float*>(smem + OFF_RM);
+  // whether local rows r0 and r1 are live tokens of this warpgroup's
+  // queries: a masked row's maxima go to shared memory as 0, so the sum
+  // adds every row of a query
+  const auto row_live = [&](int r) {
+    const int qi = q_first + r / a.l;
+    return r < a.qpw * a.l && qi < a.n_q &&
+           a.qmask[(size_t)qi * a.l + r % a.l];
+  };
+  const bool live0 = row_live(r0), live1 = row_live(r1);
+  int buf = 0;
+  float run0 = -INFINITY, run1 = -INFINITY;
+  // Ping-pong: the warpgroups take turns issuing their tiles' wgmmas
+  // (named barriers 3 and 4), so that one's epilogue runs while the
+  // tensor cores work for the other; warpgroup 0 goes first.
+  if (wg == 1 && n_tiles > 0) bar_arrive(3, 256);
+
+  mbar_wait(bars, 0);                                   // query planes
+  for (int it = 0; it < n_tiles; ++it) {
+    // the tile's docs and token rows
+    const int t = G == 1 ? it % a.tiles_per_doc : 0;
+    const int doc0 = G == 1 ? d_begin + it / a.tiles_per_doc
+                            : d_begin + it * G;
+    // live bytes of columns 32 j + lane, loaded before the wait
+    bool live[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 32 * j + lane;
+      const int doc = doc0 + (G == 1 ? 0 : c / a.m_pad);
+      const int tok = G == 1 ? t * TN + c : c % a.m_pad;
+      live[j] = doc < d_end && tok < a.m &&
+                a.dmask[(size_t)doc * a.m + tok];
+    }
+    const int s = it % STAGES;
+    const uint32_t tile = base + OFF_D + s * STAGE_D;
+    float acc[64], acc2[64];
+    mbar_wait(bars + 8 + 8 * s, (it / STAGES) & 1);
+    bar_sync(3 + wg, 256);                              // my turn
+    if (qf)
+      tile_mma<true>(acc, acc2, q_hi, tile);
+    else
+      tile_mma<false>(acc, acc2, q_hi, tile);
+    if (wg == 0 || it + 1 < n_tiles) bar_arrive(4 - wg, 256);  // yours
+    wgmma_wait0();
+    fence_regs(acc);
+    fence_regs(acc2);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 + 8 * (STAGES + s));
+
+    // bit 8 (i % 4) + e of w[i / 4] is this thread's column 8 i + cl + e
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = __ballot_sync(0xffffffffu, live[j]) >> cl;
+
+    float g0[G], g1[G];
+    if (qf)
+      row_max<G, true>(acc, acc2, w, g0, g1);
+    else
+      row_max<G, false>(acc, acc2, w, g0, g1);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      g0[g] = quad_max(g0[g]);
+      g1[g] = quad_max(g1[g]);
+    }
+    float* rb = rm + buf * (RM_BUF / 4) + 64 * wg;
+    if (G == 1) {
+      run0 = t == 0 ? g0[0] : fmaxf(run0, g0[0]);
+      run1 = t == 0 ? g1[0] : fmaxf(run1, g1[0]);
+      if (t + 1 < a.tiles_per_doc) continue;          // doc not done
+      if (lane % 4 == 0) {
+        rb[r0] = live0 ? run0 : 0.f;
+        rb[r1] = live1 ? run1 : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (lane % 4 == g % 4) {
+          rb[g * QROWS + r0] = live0 ? g0[g] : 0.f;
+          rb[g * QROWS + r1] = live1 ? g1[g] : 0.f;
+        }
+    }
+    bar_sync(1 + wg, 128);
+    // one warp a (query, doc): the live tokens' maxima summed in double
+    for (int p0 = 0; p0 < a.qpw * G; p0 += 4) {
+      const int p = p0 + warp;
+      const int qi = q_first + p / G, g = p % G;
+      const int doc = doc0 + g;
+      if (p >= a.qpw * G || qi >= a.n_q || doc >= d_end) continue;
+      double sum = 0.0;
+      for (int tk = lane; tk < a.l; tk += 32)
+        sum += (double)rb[g * QROWS + (p / G) * a.l + tk];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) a.out[(size_t)qi * a.n_docs + doc] = (float)sum;
+    }
+    buf ^= 1;
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(NT, 1)
+kernel(const __grid_constant__ CUtensorMap tq,
+       const __grid_constant__ CUtensorMap td, const Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t bars = base + OFF_BARS;
+  const int d_begin = blockIdx.y * a.docs_per_block;
+  const int d_end = min(a.n_docs, d_begin + a.docs_per_block);
+  const int n_tiles = G == 1 ? (d_end - d_begin) * a.tiles_per_doc
+                             : (d_end - d_begin + G - 1) / G;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 + 8 * s, 1);
+      mbar_init(bars + 8 + 8 * (STAGES + s), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = uniform(threadIdx.x / 32);
+  if (warp == CONSUMER_WARPS) {
+    // producer: one thread keeps the ring full
+    if (threadIdx.x % 32 == 0) {
+      // each warpgroup's 64 rows start at its first query; a warpgroup
+      // past the last query loads nothing
+      const int q0 = 2 * blockIdx.x * a.qpw;
+      const int groups = q0 + a.qpw < a.n_q ? 2 : 1;
+      mbar_expect_tx(bars, 3 * groups * PLANE_Q / 2);
+      for (int pl = 0; pl < 3; ++pl)
+        for (int p = 0; p < PLANE_DP / 64; ++p)
+          for (int h = 0; h < groups; ++h)
+            tma_load_3d(base + pl * PLANE_Q + p * QROWS * 128 + h * 64 * 128,
+                        &tq, bars, p * 64, (q0 + h * a.qpw) * a.l, pl);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES;
+        const uint32_t full = bars + 8 + 8 * s;
+        const int t = G == 1 ? it % a.tiles_per_doc : 0;
+        const int doc0 = G == 1 ? d_begin + it / a.tiles_per_doc
+                                : d_begin + it * G;
+        mbar_wait(bars + 8 + 8 * (STAGES + s), ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full, STAGE_D);
+        for (int p = 0; p < PLANE_DP / 64; ++p)
+          tma_load_3d(base + OFF_D + s * STAGE_D + p * TN * 128, &td, full,
+                      p * 64, t * TN, doc0);
+      }
+    }
+  } else {
+    consume<G>(base, smem, warp / 4, n_tiles, d_begin, d_end, a);
+  }
+}
+
+template <int G>
+int run(const CUtensorMap& tq, const CUtensorMap& td, const Args& a,
+        int gx, int gy, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DYNAMIC);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<G><<<dim3(gx, gy), NT, SMEM_DYNAMIC, stream>>>(tq, td, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const float* q, const uint8_t* qmask, const void* docs,
+           const uint8_t* dmask, int n_q, int l, int n_docs, int m, int dim,
+           void* q_planes, int* q_flags, float* out, cudaStream_t stream) {
+  if (l < 1 || l > 64 || m < 1 || dim % 8 ||
+      reinterpret_cast<uintptr_t>(docs) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_q < 1 || n_docs < 1) return static_cast<int>(cudaGetLastError());
+  Args a{q_flags, qmask, dmask, n_q, l, 64 / l, n_docs, m, 0, 1, 0, out};
+  auto* qp = static_cast<__nv_bfloat16*>(q_planes);
+  int err = split_planes(q, n_q * l, dim, a.qpw * l, qp, q_flags, stream);
+  if (err) return err;
+  int m_pad = 8;
+  while (m_pad < m) m_pad *= 2;
+  const int G = m_pad >= TN ? 1 : TN / m_pad;
+  a.m_pad = G == 1 ? TN : m_pad;
+  a.tiles_per_doc = G == 1 ? (m + TN - 1) / TN : 1;
+  CUtensorMap tq, td;
+  const uint64_t row = PLANE_DP * 2;
+  if (!encode_3d(&tq, qp, PLANE_DP, (uint64_t)n_q * l, 3, row,
+                 row * n_q * l, 64, 1) ||
+      !encode_3d(&td, docs, dim, m, n_docs, dim * 2ull, dim * 2ull * m,
+                 a.m_pad, G))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // about four blocks an SM, query blocks fastest; a doc group is a
+  // whole number of tiles
+  const int gx = (n_q + 2 * a.qpw - 1) / (2 * a.qpw);
+  const int units = (n_docs + G - 1) / G;
+  const int groups = max(1, min(units, (4 * sm_count() + gx - 1) / gx));
+  a.docs_per_block = (units + groups - 1) / groups * G;
+  const int gy = (n_docs + a.docs_per_block - 1) / a.docs_per_block;
+  switch (G) {
+    case 1: return run<1>(tq, td, a, gx, gy, stream);
+    case 2: return run<2>(tq, td, a, gx, gy, stream);
+    case 4: return run<4>(tq, td, a, gx, gy, stream);
+    case 8: return run<8>(tq, td, a, gx, gy, stream);
+    default: return run<16>(tq, td, a, gx, gy, stream);
+  }
+}
+
+}  // namespace multi_bf16
+
+// bf16 docs take the Hopper kernel, with the caller's scratch for the
+// query planes, (3, n_q·l, 128) bf16, and flags, (ceil(n_q / floor(64 /
+// l)),) int32; fp32 docs the tile engine (the scratch is not read).
 extern "C" int colbert_maxsim_multi_launch(const float* q,
                                            const uint8_t* qmask,
                                            const void* docs,
                                            const uint8_t* dmask, int n_q,
                                            int l, int n_docs, int m, int dim,
-                                           int bf16, float* out,
+                                           int bf16, void* q_planes,
+                                           int* q_flags, float* out,
                                            void* stream) {
-  return launch_dense(false, q, qmask, docs, dmask, n_q, l, n_docs, m, dim,
-                      bf16, out, stream);
+  if (bf16)
+    return multi_bf16::launch(q, qmask, docs, dmask, n_q, l, n_docs, m, dim,
+                              q_planes, q_flags, out,
+                              static_cast<cudaStream_t>(stream));
+  return launch<false>(q, qmask,
+                       DenseDocs<float>{static_cast<const float*>(docs), m,
+                                        dim},
+                       dmask, n_q, l, n_docs, m, dim, out, stream);
 }
 
 extern "C" int colbert_maxsim_rerank_launch(const float* q,
@@ -185,8 +525,15 @@ extern "C" int colbert_maxsim_rerank_launch(const float* q,
                                             int l, int n_cand, int m,
                                             int dim, int bf16, float* out,
                                             void* stream) {
-  return launch_dense(true, q, qmask, docs, dmask, n_q, l, n_cand, m, dim,
-                      bf16, out, stream);
+  if (bf16)
+    return launch<true>(q, qmask,
+                        DenseDocs<__nv_bfloat16>{
+                            static_cast<const __nv_bfloat16*>(docs), m, dim},
+                        dmask, n_q, l, n_cand, m, dim, out, stream);
+  return launch<true>(q, qmask,
+                      DenseDocs<float>{static_cast<const float*>(docs), m,
+                                       dim},
+                      dmask, n_q, l, n_cand, m, dim, out, stream);
 }
 
 extern "C" int colbert_maxsim_residual_multi_launch(
@@ -194,9 +541,9 @@ extern "C" int colbert_maxsim_residual_multi_launch(
     const uint8_t* resq, const float* scale, const float* codebook,
     const uint8_t* dmask, int n_q, int l, int n_docs, int m, int dim,
     int n_centroids, int bits, float* out, void* stream) {
-  return launch_residual(false, q, qmask, codes, resq, scale, codebook,
-                         nullptr, 1, dmask, n_q, l, n_docs, m, dim,
-                         n_centroids, bits, out, stream);
+  return launch_residual<false>(q, qmask, codes, resq, scale, codebook,
+                                nullptr, 1, dmask, n_q, l, n_docs, m, dim,
+                                n_centroids, bits, out, stream);
 }
 
 extern "C" int colbert_maxsim_residual_rerank_launch(
@@ -205,9 +552,9 @@ extern "C" int colbert_maxsim_residual_rerank_launch(
     const int* bucket_of, int n_buckets, const uint8_t* dmask, int n_q,
     int l, int n_cand, int m, int dim, int n_centroids, int bits, float* out,
     void* stream) {
-  return launch_residual(true, q, qmask, codes, resq, scale, codebooks,
-                         bucket_of, n_buckets, dmask, n_q, l, n_cand, m, dim,
-                         n_centroids, bits, out, stream);
+  return launch_residual<true>(q, qmask, codes, resq, scale, codebooks,
+                               bucket_of, n_buckets, dmask, n_q, l, n_cand, m,
+                               dim, n_centroids, bits, out, stream);
 }
 
 REPRO_ERROR_STRING(colbert_maxsim)

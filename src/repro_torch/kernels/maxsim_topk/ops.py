@@ -4,6 +4,9 @@ Counterpart of ``repro.kernels.maxsim_topk.ops``: the rescan primitive
 of the ``shortlist_topk`` pruning path.  A CPU tensor runs the plain
 version (``ref.py``); a CUDA tensor launches the kernel, one launch per
 rescan for a whole bucket (``maxsim_topk_op.launches`` counts them).
+The launch splits samples and tokens into three bf16 planes first (a
+pre-pass in the same C entry) into scratch allocated here; the kernel
+takes dim <= 128.
 """
 
 from __future__ import annotations
@@ -13,7 +16,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.maxsim_topk.ref import maxsim_topk_ref
 
-K_MAX = 32   # the kernel's per-thread list length (csrc KMAX)
+K_MAX = 32   # the kernel's longest register list (csrc KMAX)
+DIM_MAX = 128   # the bf16 planes' row length (csrc PLANE_DP)
 
 
 def _launch(samples, tokens, alive, k):
@@ -25,12 +29,21 @@ def _launch(samples, tokens, alive, k):
     build.require(alive, "alive", torch.bool, (B, m), dev)
     if k > K_MAX:
         raise ValueError(f"k={k} exceeds the kernel's limit {K_MAX}")
+    if dim > DIM_MAX:
+        raise ValueError(f"dim={dim} exceeds the kernel's limit {DIM_MAX}")
     vals = torch.empty((B, N, k), dtype=torch.float32, device=dev)
     idxs = torch.empty((B, N, k), dtype=torch.int32, device=dev)
+    s_planes = torch.empty((3, N, DIM_MAX), dtype=torch.bfloat16, device=dev)
+    s_flags = torch.empty((-(-N // 64),), dtype=torch.int32, device=dev)
+    t_planes = torch.empty((3, B * m, DIM_MAX), dtype=torch.bfloat16,
+                           device=dev)
+    t_flags = torch.empty((B,), dtype=torch.int32, device=dev)
     lib = build.library("maxsim_topk")
     build.check("maxsim_topk", lib.maxsim_topk_launch(
         samples.data_ptr(), tokens.data_ptr(), alive.data_ptr(), B, N, m,
-        dim, k, vals.data_ptr(), idxs.data_ptr(), build.stream_ptr(tokens)))
+        dim, k, s_planes.data_ptr(), s_flags.data_ptr(),
+        t_planes.data_ptr(), t_flags.data_ptr(), vals.data_ptr(),
+        idxs.data_ptr(), build.stream_ptr(tokens)))
     maxsim_topk_op.launches += 1
     return vals, idxs
 

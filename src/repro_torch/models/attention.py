@@ -114,12 +114,19 @@ class Attention(nn.Module):
         return F.linear(ctx.reshape(B, S, H * hd), self.wo.weight)
 
 
+def _scaled(s, hd):
+    """s / √hd with √hd rounded to s's dtype first, as the reference's
+    ``/ jnp.sqrt(head_dim)`` rounds its weak fp32 scalar (bf16: 11.3125
+    for hd 128, not 11.3137); fp32 is unchanged."""
+    return s / torch.tensor(math.sqrt(hd), dtype=s.dtype, device=s.device)
+
+
 def _attend(qg, k, v, row0, causal, window, attn_mask):
     """The reference's score -> mask -> fp32 softmax -> P·V for query
     rows ``row0 + i`` of qg (B, c, KV, G, hd) against every key; one
     query chunk of the blocked branch, or all of them."""
     c, S, hd = qg.shape[1], k.shape[1], qg.shape[-1]
-    s = torch.einsum("bikgh,bjkh->bkgij", qg, k) / math.sqrt(hd)
+    s = _scaled(torch.einsum("bikgh,bjkh->bkgij", qg, k), hd)
     if causal or window is not None:     # else every key is visible
         s = torch.where(visible(c, S, causal=causal, window=window,
                                 row0=row0, device=qg.device), s, NEG)
@@ -166,7 +173,7 @@ def decode_attention(attn: Attention, x, cache: KVCache, pos: int, *,
     cache.v[:, :, slot] = v[:, 0].to(cache.v.dtype)
 
     qg = q.view(B, KV, H // KV, hd)
-    s = torch.einsum("bkgh,bkjh->bkgj", qg, cache.k) / math.sqrt(hd)
+    s = _scaled(torch.einsum("bkgh,bkjh->bkgj", qg, cache.k), hd)
     j = torch.arange(C, device=x.device)
     if window is None:
         valid = j <= pos

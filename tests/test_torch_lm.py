@@ -78,10 +78,10 @@ ATTN_CASES = {
 }
 
 
-def _attn_case(name, dtype=jnp.float32):
+def _attn_case(name, dtype=jnp.float32, hd=16):
     H, KV, S, kw = ATTN_CASES[name]
     kw = dict(kw)
-    D, hd, B = 32, 16, 2
+    D, B = 32, 2
     p, m = _attn_pair(len(name), D, H, KV, hd, kw.pop("bias", False), dtype)
     rng = np.random.default_rng(3)
     x = rng.standard_normal((B, S, D)).astype(np.float32)
@@ -129,6 +129,39 @@ class TestAttention:
         assert np.abs(want).max() <= 4
         np.testing.assert_allclose(fused.float().numpy(), want,
                                    atol=BF16_FUSED_ATOL, rtol=0)
+
+    @pytest.mark.parametrize("hd", [80, 128])
+    @pytest.mark.parametrize("name", ["gqa_causal", "chunked"])
+    def test_bf16_head_dims_match_jax(self, name, hd):
+        """The LM configs' head dims, where √hd is not a bf16 value: the
+        reference divides by √hd rounded to bf16, and so must the
+        ``reference`` backend."""
+        m, x, kw, want = _attn_case(name, jnp.bfloat16, hd=hd)
+        with torch.no_grad():
+            ref = m(x, backend="reference", **kw)
+        assert ref.dtype == torch.bfloat16
+        np.testing.assert_allclose(ref.float().numpy(), want, atol=BF16_ATOL,
+                                   rtol=0)
+
+    def test_bf16_decode_matches_jax(self):
+        """Token-by-token bf16 decode at head dim 128 (the divisor rounded
+        to bf16, as in prefill)."""
+        H, KV, D, hd, B, steps = 4, 2, 32, 128, 2, 6
+        p, m = _attn_pair(7, D, H, KV, hd, False, jnp.bfloat16)
+        jc = j_attn.init_cache(B, KV, steps, hd, jnp.bfloat16)
+        tc = attn.init_cache(B, KV, steps, hd, torch.bfloat16)
+        xs = np.random.default_rng(8).standard_normal(
+            (steps, B, 1, D)).astype(np.float32)
+        for pos in range(steps):
+            want, jc = j_attn.decode_attention(
+                p, jnp.asarray(xs[pos], jnp.bfloat16), jc, jnp.int32(pos),
+                n_heads=H, n_kv_heads=KV, head_dim=hd)
+            with torch.no_grad():
+                got, tc = attn.decode_attention(
+                    m, torch.from_numpy(xs[pos]).bfloat16(), tc, pos)
+            np.testing.assert_allclose(
+                got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                atol=BF16_ATOL, rtol=0)
 
     @pytest.mark.parametrize("window,steps", [(None, 10), (4, 11)])
     def test_decode_matches_jax(self, window, steps):
