@@ -28,21 +28,25 @@ passed — any failure exits non-zero):
    serve top-10 e2e and two-stage on ``fused``, build a
    ``RoutingIndex`` (4 centroids) on the 4-bit index and serve it
    ``bounded`` (must equal the exhaustive top-10 bit for bit) and
-   ``nprobe=1`` (recall@10 against exhaustive).  Launch counts are
-   zeroed just before and read just after; every top-10 is then held
-   against the ``reference`` backend.
+   ``nprobe=1`` (recall@10 against exhaustive).  One small launch of
+   each kernel of this path (fp32 B3/B4, B5, B6) comes first, so that
+   ``path_ms`` holds kernel time only.  Launch counts are zeroed just
+   before and read just after; every top-10 is then held against the
+   ``reference`` backend.
 5. Kernels against their plain PyTorch versions on the card, on the
    paths' own tensors: max abs error, index agreement, kernel and plain
    times (CUDA events), and each kernel's bound.  B3/B4 run on fp32 and
    on bf16 docs; B5/B6 at 4 and 2 bits and at 8 and 127 centroids.
-   These launches do not count.  The ptxas report of B2's and B3's
-   sources.  One bound rule for B1-B6: an operand takes 1 bf16 term
+   These launches do not count.  The ptxas report of B1's, B2's and
+   B3's sources.  One bound rule for B1-B6: an operand takes 1 bf16 term
    when the run's tensor equals its own bf16 rounding, else 3; products
    of terms below 2^-24 relative are dropped (3 x 1 terms: 3 products,
    3 x 3: 6), and every product runs at the bf16 tensor-core rate.
 6. Fused pruning leg: the first 256 docs on ``backend="fused"``
    (``maxsim_top2``) against ``shortlist_topk``; B1's launch count is
-   read from this leg.
+   read from this leg.  Before it, B1 is timed at the leg's widest
+   bucket beside the 2,908-doc shape of phase 5; those launches also
+   warm the leg's kernel before its timer.
    The retrieval phases' tensors are freed before the next phase.
 7. Dense LM path (``[lm]``) at minitron-4b's full ``CONFIG`` (32
    layers, d_model 3072, 24 heads / 8 KV, head_dim 128, vocab 256,000,
@@ -435,6 +439,34 @@ def main() -> int:
 
         # 4. compressed and routed path on the main path's pruned corpus
         pruned = TokenIndex.build(res.d_emb, res.d_mask).with_keep(res.keep)
+        # one small launch of each kernel of this path (CUDA loads each
+        # kernel at its first launch), at both bucket widths
+        g = torch.Generator(device="cuda").manual_seed(3)
+        wq = torch.randn(2, 32, 128, device="cuda", generator=g)
+        for cap in (64, 128):
+            wm = torch.ones(8, cap, dtype=torch.bool, device="cuda")
+            we = torch.randn(8, cap, 128, device="cuda", generator=g)
+            cm_ops.colbert_maxsim_multi_op(wq, we, wm)
+            cm_ops.colbert_maxsim_rerank_op(wq, we[None].expand(2, -1, -1, -1)
+                                            .contiguous(),
+                                            wm[None].expand(2, -1, -1)
+                                            .contiguous())
+            codes = torch.zeros(8, cap, dtype=torch.int8, device="cuda")
+            scale = torch.ones(8, cap, 1, device="cuda")
+            cb = torch.randn(8, 128, device="cuda", generator=g)
+            for bits in (4, 2):
+                resq = torch.zeros(8, cap, 128 * bits // 8, dtype=torch.uint8,
+                                   device="cuda")
+                cm_ops.colbert_maxsim_residual_multi_op(
+                    wq, codes, resq, scale, cb, wm, bits=bits)
+                cm_ops.colbert_maxsim_residual_rerank_op(
+                    wq, codes.expand(2, -1, -1).contiguous(),
+                    resq.expand(2, -1, -1, -1).contiguous(),
+                    scale.expand(2, -1, -1, -1).contiguous(), cb[None],
+                    torch.zeros(2, 8, dtype=torch.int32, device="cuda"),
+                    wm.expand(2, -1, -1).contiguous(), bits=bits)
+        torch.cuda.synchronize()
+        del g, wq, wm, we, codes, scale, cb, resq
         codecs = {"int8": {"compression": "int8"},
                   "residual4": {"compression": "residual", "residual_bits": 4},
                   "residual2": {"compression": "residual", "residual_bits": 2}}
@@ -527,7 +559,8 @@ def main() -> int:
         B, m, dim = tok.shape
         N = samples.shape[0]
         K, _ = shortlist_knobs(m)
-        log(f"[kernel] ptxas: maxsim_topk {build.ptxas_report('maxsim_topk')}"
+        log(f"[kernel] ptxas: maxsim_top2 {build.ptxas_report('maxsim_top2')}"
+            f" || maxsim_topk {build.ptxas_report('maxsim_topk')}"
             f" || colbert_maxsim {build.ptxas_report('colbert_maxsim')}")
 
         # one bound rule for B1-B6: each fp32 operand split into the bf16
@@ -691,8 +724,24 @@ def main() -> int:
                 max(v[0] for v in store.values()), ms, plain, flops, nb,
                 tc_flops=flops)
 
-        # 6. fused pruning leg
+        # 6. fused pruning leg; first B1 at the leg's widest bucket, beside
+        # the 2,908-doc shape above
         e, mk = d_emb[:FUSED_DOCS], d_mask[:FUSED_DOCS]
+        fplan = pruning_pipeline.bucket_plan(
+            pruning_pipeline.effective_lengths(mk), mk.shape[1])
+        fb = max(fplan, key=lambda b: len(b.indices) * b.width)
+        fidx = torch.as_tensor(fb.indices, device=e.device)
+        ftok = e[fidx, :fb.width].contiguous()
+        falive = mk[fidx, :fb.width].contiguous()
+        log(f"[kernel] maxsim_top2 at the fused leg's widest bucket "
+            f"B={len(fb.indices)} m={fb.width} N={N}: "
+            f"{cuda_ms(lambda: maxsim_top2_op(samples, ftok, falive)):.3f} ms"
+            f" (B={B} m={m}: "
+            f"{next(r['ms'] for r in rows if r['name'] == 'maxsim_top2'):.3f}"
+            f" ms); buckets "
+            f"{[(len(b.indices), b.width) for b in fplan]}")
+        del ftok, falive
+        torch.cuda.synchronize()
         maxsim_top2_op.launches = 0
         timer.start()
         t = time.perf_counter()

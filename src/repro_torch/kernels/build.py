@@ -8,7 +8,7 @@ the first launch of a kernel builds its library, and :func:`build_all`
 compiles every source at once with one ``nvcc`` process per source.
 ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills) is
 kept beside each library as ``<name>.log``.  The sources with a Hopper
-(TMA) kernel — ``flash_attention``, ``maxsim_topk`` and
+(TMA) kernel — ``flash_attention``, ``maxsim_top2``, ``maxsim_topk`` and
 ``colbert_maxsim`` — also link the CUDA driver library (``-lcuda``,
 through the toolkit's stub directory where it has one): their host side
 encodes TMA tensor maps with ``cuTensorMapEncodeTiled``, a driver-API
@@ -38,7 +38,8 @@ SOURCES = ("maxsim_top2", "maxsim_topk", "colbert_maxsim",
            "flash_attention", "embedding_bag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-DRIVER_API = ("flash_attention", "maxsim_topk", "colbert_maxsim")
+DRIVER_API = ("flash_attention", "maxsim_top2", "maxsim_topk",
+              "colbert_maxsim")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,7 +49,8 @@ _F = ctypes.c_float
 # (c_longlong where the C side takes a long long), floats as c_float.
 SIGNATURES = {
     "maxsim_top2": {"maxsim_top2_launch": [_P, _P, _P, _I, _I, _I, _I,
-                                           _P, _P, _P, _P, _P]},
+                                           _P, _P, _P, _P, _P, _P, _P, _P,
+                                           _P]},
     "maxsim_topk": {"maxsim_topk_launch": [_P, _P, _P, _I, _I, _I, _I, _I,
                                            _P, _P, _P, _P, _P, _P, _P]},
     "colbert_maxsim": {
@@ -57,7 +59,8 @@ SIGNATURES = {
         "colbert_maxsim_rerank_launch": [_P, _P, _P, _P, _I, _I, _I, _I,
                                          _I, _I, _P, _P],
         "colbert_maxsim_residual_multi_launch": [
-            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+            _P, _P],
         "colbert_maxsim_residual_rerank_launch": [
             _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
             _P, _P],
@@ -170,8 +173,11 @@ def _kernel_name(mangled: str) -> str:
         ident, rest = rest[:size], rest[size:]
         if not ident.startswith("_GLOBAL__N"):
             parts.append(ident)
-    arg = re.match(r"I(?:Li(\d+)E|(f))E", rest)
-    return "::".join(parts) + (f"<{arg.group(1) or 'float'}>" if arg else "")
+    args = re.match(r"I((?:Li\d+E|f)+)E", rest)
+    if not args:
+        return "::".join(parts)
+    vals = [n or "float" for n in re.findall(r"Li(\d+)E|f", args.group(1))]
+    return "::".join(parts) + f"<{', '.join(vals)}>"
 
 
 def ptxas_report(name: str) -> str:

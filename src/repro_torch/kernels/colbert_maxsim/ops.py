@@ -14,10 +14,10 @@ Counterpart of ``repro.kernels.colbert_maxsim.ops``:
   residual-codec docs, decoded inside the kernel tile by tile.
 
 Queries are fp32; dense docs are fp32 or bf16.  A CPU tensor runs the
-plain version (``ref.py``); a CUDA tensor launches the kernel.  On bf16
-docs the multi sweep is the Hopper kernel, which splits the queries
-into three bf16 planes first (scratch allocated here) and takes a dim
-that is a multiple of 8 up to 128.
+plain version (``ref.py``); a CUDA tensor launches the kernel.  The
+multi sweep on bf16 docs and the residual multi sweep are Hopper
+kernels, which split the queries into three bf16 planes first (scratch
+allocated here) and take a dim that is a multiple of 8 up to 128.
 ``.launches`` on each launching wrapper counts its launches, and
 ``.bf16_launches`` on the two dense ones the share of them on bf16
 docs.
@@ -68,8 +68,13 @@ def _launch(entry, q_embs, d_embs, d_masks, q_masks, n_docs):
     build.require(d_embs, "d_embs", d_embs.dtype,
                   d_masks.shape + (dim,), dev)
     build.require(d_masks, "d_masks", torch.bool, d_masks.shape, dev)
-    scratch = (_query_planes(q_embs, d_embs)
-               if entry == "colbert_maxsim_multi_launch" else ())
+    scratch = ()
+    if entry == "colbert_maxsim_multi_launch":
+        scratch = (None, None)
+        if d_embs.dtype == torch.bfloat16:
+            if d_embs.data_ptr() % 16:
+                raise ValueError("bf16 d_embs must be 16-byte aligned")
+            scratch = _query_planes(q_embs)
     out = torch.empty((n_q, n_docs), dtype=torch.float32, device=dev)
     lib = build.library("colbert_maxsim")
     build.check("colbert_maxsim", getattr(lib, entry)(
@@ -81,18 +86,14 @@ def _launch(entry, q_embs, d_embs, d_masks, q_masks, n_docs):
     return out
 
 
-def _query_planes(q_embs, d_embs):
-    """Scratch of the multi kernel on bf16 docs: the queries' three bf16
-    planes and one flag a warpgroup of floor(64 / l) queries; nothing on
-    fp32 docs."""
+def _query_planes(q_embs):
+    """Scratch of the Hopper multi kernels (bf16 docs, residual): the
+    queries' three bf16 planes and one flag a warpgroup of floor(64 / l)
+    queries."""
     n_q, l, dim = q_embs.shape
-    if d_embs.dtype != torch.bfloat16:
-        return (None, None)
     if dim % 8 or dim > BF16_DIM_MAX:
-        raise ValueError(f"dim={dim}: the bf16 kernel takes a multiple of "
-                         f"8 up to {BF16_DIM_MAX}")
-    if d_embs.data_ptr() % 16:
-        raise ValueError("bf16 d_embs must be 16-byte aligned")
+        raise ValueError(f"dim={dim}: the Hopper kernel takes a multiple "
+                         f"of 8 up to {BF16_DIM_MAX}")
     dev = q_embs.device
     planes = torch.empty((3, n_q * l, BF16_DIM_MAX), dtype=torch.bfloat16,
                          device=dev)
@@ -171,14 +172,23 @@ def _residual_launch(entry, q_embs, q_masks, codes, resq, rscale, tables,
     build.require(tables, "codebook", torch.float32,
                   tables.shape[:-1] + (dim,), dev)
     args = [t.data_ptr() for t in (codes, resq, rscale, tables)]
+    scratch = ()
     if bucket_of is not None:
         build.require(bucket_of, "bucket_of", torch.int32, shape[:-1], dev)
         args += [bucket_of.data_ptr(), tables.shape[0]]
+    else:
+        # the Hopper kernel loads a chunk's residual bits as one word and
+        # codebook rows 16 bytes at a time
+        if resq.data_ptr() % bits or tables.data_ptr() % 16:
+            raise ValueError("resq must be aligned to the residual word and "
+                             "the codebook to 16 bytes")
+        scratch = _query_planes(q_embs)
     out = torch.empty((n_q, n_docs), dtype=torch.float32, device=dev)
     lib = build.library("colbert_maxsim")
     build.check("colbert_maxsim", getattr(lib, entry)(
         q_embs.data_ptr(), q_masks.data_ptr(), *args, d_masks.data_ptr(),
-        n_q, l, n_docs, m, dim, tables.shape[-2], bits, out.data_ptr(),
+        n_q, l, n_docs, m, dim, tables.shape[-2], bits,
+        *[t.data_ptr() for t in scratch], out.data_ptr(),
         build.stream_ptr(q_embs)))
     return out
 
@@ -189,7 +199,8 @@ def colbert_maxsim_residual_multi_op(q_embs, codes, resq, rscale, codebook,
     q_embs (n_q, l, dim) x [codes (n_docs, m) int8, resq (n_docs, m,
     dim*bits//8) uint8, rscale (n_docs, m, 1) f32, codebook (C, dim)
     f32] -> (n_q, n_docs).  Pad rows (code 0, residual 0) decode to
-    garbage and must arrive all-masked."""
+    garbage and must arrive all-masked.  On the card, dim is a multiple
+    of 8 up to 128."""
     if _device_of(codes).type == "cpu":
         return colbert_maxsim_residual_multi_ref(
             q_embs, codes, resq, rscale, codebook, d_masks, q_masks,

@@ -25,9 +25,10 @@
 // Queries are fp32; dense docs are fp32 or bf16 (widened exactly).
 //
 // Two engines share these functions.  colbert_maxsim_multi on bf16 docs
-// (the serving sweep of the main path) is a Hopper kernel, below
-// (namespace multi_bf16).  Every other route — the multi sweep on fp32
-// docs, the rerank (B4) and the residual sweeps (B5, B6) — runs on the
+// (the serving sweep of the main path) and colbert_maxsim_residual_multi
+// (the sweep of a residual index) are Hopper kernels, below (namespaces
+// multi_bf16 and resid_sm90).  Every other route — the multi sweep on
+// fp32 docs, the rerank (B4) and the residual rerank (B6) — runs on the
 // fp32 tile engine of score_tile.cuh:
 //
 // Bound on the H100: operations (2*n_q*l*n_docs*m*dim fp32 flops on the
@@ -38,8 +39,8 @@
 // and sweeps the doc's tokens in 64-column tiles (score_tile.cuh), so a
 // doc of any length fits in 25 KB of static shared memory.  The doc
 // format is a template parameter: its loader widens bf16 or decodes the
-// residual codec while the tile is staged into shared memory, so the
-// decoded bucket exists one tile at a time.  Each of 64 threads keeps
+// residual codec (B6) while the tile is staged into shared memory, so a
+// decoded candidate exists one tile at a time.  Each of 64 threads keeps
 // its row's running fp32 max; the per-query sum over l token maxes runs
 // in double and is rounded once, so it does not depend on a summation
 // order.  The 4-D (n_q, n_docs, l, m) tensor of the plain version never
@@ -60,18 +61,18 @@ struct DenseDocs {
   }
 };
 
-// bucket_of entries outside [0, n_tables) are clamped, like codes.
+// The residual rerank's candidates: doc d decodes against table
+// bucket_of[d]; entries outside [0, n_tables) are clamped, like codes.
 template <int BITS>
 struct ResidualDocs {
   const int8_t* codes;
   const uint8_t* resq;
   const float* scale;
-  const float* codebooks;   // one (C, dim) table, or (n_buckets, C, dim)
-  const int* bucket_of;     // null: every doc uses table 0
+  const float* codebooks;   // (n_buckets, C, dim)
+  const int* bucket_of;
   int m, dim, n_centroids, n_tables;
   __device__ __forceinline__ ResidualCols<BITS> doc(size_t d) const {
-    const size_t cb =
-        bucket_of ? (size_t)min(max(bucket_of[d], 0), n_tables - 1) : 0;
+    const size_t cb = min(max(bucket_of[d], 0), n_tables - 1);
     return {codes + d * m, resq + d * m * (dim * BITS / 8), scale + d * m,
             codebooks + cb * n_centroids * dim, dim, n_centroids};
   }
@@ -134,29 +135,29 @@ static int launch(const float* q, const uint8_t* qmask, Docs docs,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool RERANK>
-static int launch_residual(const float* q,
-                           const uint8_t* qmask, const int8_t* codes,
-                           const uint8_t* resq, const float* scale,
-                           const float* codebooks, const int* bucket_of,
-                           int n_tables, const uint8_t* dmask, int n_q,
-                           int l, int n_docs, int m, int dim,
-                           int n_centroids, int bits, float* out,
-                           void* stream) {
+// The residual rerank (B6) on the tile engine.
+static int launch_residual_rerank(const float* q, const uint8_t* qmask,
+                                  const int8_t* codes, const uint8_t* resq,
+                                  const float* scale, const float* codebooks,
+                                  const int* bucket_of, int n_tables,
+                                  const uint8_t* dmask, int n_q, int l,
+                                  int n_cand, int m, int dim,
+                                  int n_centroids, int bits, float* out,
+                                  void* stream) {
   if ((bits != 2 && bits != 4) || dim % (8 / bits) || n_centroids < 1 ||
       n_tables < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (bits == 2)
-    return launch<RERANK>(q, qmask,
-                          ResidualDocs<2>{codes, resq, scale, codebooks,
-                                          bucket_of, m, dim, n_centroids,
-                                          n_tables},
-                          dmask, n_q, l, n_docs, m, dim, out, stream);
-  return launch<RERANK>(q, qmask,
-                        ResidualDocs<4>{codes, resq, scale, codebooks,
+    return launch<true>(q, qmask,
+                        ResidualDocs<2>{codes, resq, scale, codebooks,
                                         bucket_of, m, dim, n_centroids,
                                         n_tables},
-                        dmask, n_q, l, n_docs, m, dim, out, stream);
+                        dmask, n_q, l, n_cand, m, dim, out, stream);
+  return launch<true>(q, qmask,
+                      ResidualDocs<4>{codes, resq, scale, codebooks,
+                                      bucket_of, m, dim, n_centroids,
+                                      n_tables},
+                      dmask, n_q, l, n_cand, m, dim, out, stream);
 }
 
 // ---- colbert_maxsim_multi on bf16 docs: the Hopper kernel ----
@@ -497,6 +498,407 @@ int launch(const float* q, const uint8_t* qmask, const void* docs,
 
 }  // namespace multi_bf16
 
+// ---- colbert_maxsim_residual_multi: the Hopper kernel ----
+//
+// Replaces the Pallas TPU kernel
+//   src/repro/kernels/colbert_maxsim/colbert_maxsim.py:217
+//   ::colbert_maxsim_residual_multi (_kernel_residual_multi; pallas_call
+//   at :246).
+// B3's function over one residual bucket, decoded in the kernel: token
+// c is codebook[code] + (u - 2^(BITS-1)) · scale, u the BITS-bit value of
+// its packed row.  As the Pallas kernel decodes into VMEM, this one
+// decodes into shared memory: a decoded bucket never sits in device
+// memory (at the timed bucket it would be ~360 MB a launch as planes).
+//
+// Bound on the H100: operations.  A decoded token is not bf16-exact, so
+// the docs take three bf16 terms; the queries on the serving path are
+// the encoder's bf16 output widened (one term), so a score costs three
+// bf16 products: 3 · 2·n_q·l·n_docs·m·dim flops, 0.752 ms for 64
+// queries x 32 tokens against 3,695 docs x 128 (989 TFLOP/s), against
+// 0.010 ms of codes, residuals, scales and masks (3.35 TB/s).  General
+// fp32 queries take the six products of the split rule.
+//
+// Design.  B3's bf16 kernel (multi_bf16, above) with another doc
+// source.  Queries are stationary: a block holds 2 x qpw whole queries,
+// their three bf16 planes loaded once by TMA from the pre-pass's output,
+// with one flag a warpgroup.  A producer warpgroup decodes the block's
+// docs into a two-stage ring of 64-token tiles: each thread takes one
+// 8-value chunk of eight rows of a tile, reads the token's code and
+// scale, its packed residual bits (one 4- or 2-byte load) and the
+// codebook row's 8 values (two 16-byte loads through the read-only
+// cache: the codebook, up to 127 x 128 fp32, stays in L1/L2), decodes
+// with the product and the sum rounded apart (__fmul_rn, __fadd_rn:
+// no fma contraction) — the eager decode's arithmetic, so the tile
+// equals dequantize_residual bit for bit; codes outside [0, C) are
+// clamped, as XLA's gather clamps — splits each value into hi + mid + lo
+// (sm90.cuh) and stores the three planes as 16-byte chunks in the
+// 128B-swizzled layout the wgmma descriptors read (chunk index XOR row
+// mod 8, the pattern TMA writes).  Each producer thread then fences the
+// generic proxy against the async one (the tensor cores read through
+// it) and arrives on the stage's full barrier.  Rows past m or past the
+// block's last doc are written as zeros and masked.
+// Shared memory decides the tile: three query planes of 128 rows take
+// 96 KB and a three-plane doc tile of 128 rows another 96 KB, so a ring
+// of two does not fit in 227 KB; 64-token tiles (48 KB a stage) do, and
+// keep 128-row query blocks, which halve the decode against 64-row ones
+// (every query block decodes every doc tile).  A consumer warpgroup
+// computes its 64 x 64 scores with wgmma m64n64k16
+// (sm90::split_mma_n64_rn): the products of the doc's three terms (and,
+// for a flagged query group, the query's) one k16 step at a time, the
+// steps added in fp32 round to nearest on the CUDA cores.  A decoded
+// token may be far from unit norm (the codebook is the caller's): with
+// centroids of norm ~11 (scores up to ~90) eight steps into one
+// tensor-core accumulator, which adds with truncation, put scores up to
+// 1.97e-5 below a float64 MaxSim; step by step they stay within 7.8e-6
+// of it, where the fp32 plain version is within 1.38e-5 (H100, the
+// same inputs).  The two warpgroups take turns issuing theirs.  A
+// tile is G = 64 / m_pad docs of m_pad = pow2(m) <= 64 rows, or one
+// 64-row slice of a doc with m > 64, so the doc of a register is static
+// for a given G; the row maxima, the masks and the double-precision
+// per-query sums are multi_bf16's.
+
+namespace resid_sm90 {
+
+using namespace sm90;
+
+constexpr int QROWS = 128;    // query rows a block: two warpgroups of 64
+constexpr int TN = 64;        // doc rows a tile (wgmma N)
+constexpr int STAGES = 2;
+constexpr int NT = 384;       // consumer warps 0-7, producer warps 8-11
+constexpr int CONSUMER_WARPS = 8;
+constexpr int PRODUCERS = 128;
+constexpr int MAX_G = 8;      // docs a tile: m_pad 8
+
+constexpr uint32_t PLANE_Q = QROWS * PLANE_DP * 2;
+constexpr uint32_t PLANE_D = TN * PLANE_DP * 2;
+constexpr uint32_t STAGE_D = 3 * PLANE_D;
+constexpr uint32_t OFF_D = 3 * PLANE_Q;
+constexpr uint32_t OFF_RM = OFF_D + STAGES * STAGE_D;
+constexpr uint32_t RM_BUF = MAX_G * QROWS * 4;       // [g][row] floats
+constexpr uint32_t OFF_BARS = OFF_RM + 2 * RM_BUF;
+// q_full, then full[STAGES], empty[STAGES]
+constexpr uint32_t SMEM_BYTES = OFF_BARS + 8 * (1 + 2 * STAGES);
+constexpr uint32_t SMEM_DYNAMIC = SMEM_BYTES + 1024;
+static_assert(PLANE_Q == SPLIT_A_PLANE && PLANE_D == SPLIT_B_PLANE,
+              "split_mma_n64's plane strides");
+
+struct Args {
+  const int* qflags;
+  const uint8_t* qmask;     // (n_q, l)
+  const uint8_t* dmask;     // (n_docs, m)
+  const int8_t* codes;      // (n_docs, m)
+  const uint8_t* resq;      // (n_docs, m, dim * BITS / 8)
+  const float* scale;       // (n_docs, m)
+  const float* codebook;    // (n_centroids, dim)
+  int n_q, l, qpw, n_docs, m, m_pad, tiles_per_doc, docs_per_block, dim,
+      n_centroids;
+  float* out;               // (n_q, n_docs)
+};
+
+// The first doc and the token slice of tile `it` of a block.
+template <int G>
+__device__ __forceinline__ void tile_of(const Args& a, int d_begin, int it,
+                                        int& doc0, int& t) {
+  t = G == 1 ? it % a.tiles_per_doc : 0;
+  doc0 = G == 1 ? d_begin + it / a.tiles_per_doc : d_begin + it * G;
+}
+
+// Producer thread p of 128: chunk c = p % 16 (values 8c .. 8c + 7) of
+// rows p / 16 + 8 j of the tile at `tile`, decoded, split and stored in
+// the three planes.  Every row of a thread has the same row mod 8, so
+// one swizzled chunk offset serves all eight.
+template <int BITS, int G>
+__device__ __forceinline__ void decode_tile(const Args& a, uint32_t tile,
+                                            int doc0, int t, int d_end,
+                                            int p) {
+  constexpr int HALF = 1 << (BITS - 1);
+  const int c = p % 16, rr = p / 16;
+  const uint32_t chunk = tile + (c / 8) * TN * 128 + ((c % 8) ^ rr) * 16;
+  const bool col_ok = 8 * c < a.dim;
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+    const int r = rr + 8 * j;
+    const int doc = G == 1 ? doc0 : doc0 + r / a.m_pad;
+    const int tok = G == 1 ? t * TN + r : r % a.m_pad;
+    uint32_t h[4] = {0, 0, 0, 0}, md[4] = {0, 0, 0, 0}, lo[4] = {0, 0, 0, 0};
+    if (col_ok && doc < d_end && tok < a.m) {
+      const size_t k = (size_t)doc * a.m + tok;
+      const int code = min(max((int)a.codes[k], 0), a.n_centroids - 1);
+      const float sc = a.scale[k];
+      // the chunk's 8 values are BITS bytes, value i at bit BITS · i
+      const uint8_t* rq = a.resq + k * (a.dim * BITS / 8) + c * BITS;
+      const uint32_t u = BITS == 4 ? *reinterpret_cast<const uint32_t*>(rq)
+                                   : *reinterpret_cast<const uint16_t*>(rq);
+      const float4* cb = reinterpret_cast<const float4*>(
+          a.codebook + (size_t)code * a.dim + 8 * c);
+      const float4 c0 = __ldg(cb), c1 = __ldg(cb + 1);
+      const float cent[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        __nv_bfloat16 th[2], tm[2], tl[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int v = (u >> (BITS * (2 * i + e))) & ((1 << BITS) - 1);
+          const float x = __fadd_rn(cent[2 * i + e],
+                                    __fmul_rn((float)(v - HALF), sc));
+          split3(x, th[e], tm[e], tl[e]);
+        }
+        h[i] = pack_bf16(th[0], th[1]);
+        md[i] = pack_bf16(tm[0], tm[1]);
+        lo[i] = pack_bf16(tl[0], tl[1]);
+      }
+    }
+    const uint32_t dst = chunk + r * 128;
+    st_shared_v4(dst, h[0], h[1], h[2], h[3]);
+    st_shared_v4(dst + PLANE_D, md[0], md[1], md[2], md[3]);
+    st_shared_v4(dst + 2 * PLANE_D, lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// Each row's max over each of the tile's G docs, masked columns at NEG.
+template <int G>
+__device__ __forceinline__ void row_max(const float (&acc)[32],
+                                        const uint32_t (&w)[2], float (&g0)[G],
+                                        float (&g1)[G]) {
+  constexpr int I_PER_DOC = 8 / G;      // 8-column groups a doc
+#pragma unroll
+  for (int g = 0; g < G; ++g) g0[g] = g1[g] = NEG;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool live = (w[i / 4] >> (8 * (i % 4) + e)) & 1u;
+      const int g = i / I_PER_DOC;
+      g0[g] = fmaxf(g0[g], live ? acc[4 * i + e] : NEG);
+      g1[g] = fmaxf(g1[g], live ? acc[4 * i + 2 + e] : NEG);
+    }
+}
+
+// One consumer warpgroup.  Thread (warp w, lane) owns local rows
+// r0 = 16 w + lane / 4 and r1 = r0 + 8; column 8 i + 2 (lane % 4) + e of
+// the tile sits in register 4 i + e (r0) and 4 i + 2 + e (r1).
+template <int G>
+__device__ __forceinline__ void consume(uint32_t base, uint8_t* smem, int wg,
+                                        int n_tiles, int d_begin,
+                                        int d_end, const Args& a) {
+  const int tid = threadIdx.x % 128, warp = uniform(tid / 32), lane = tid % 32;
+  const int r0 = 16 * warp + lane / 4, r1 = r0 + 8;
+  const int cl = 2 * (lane % 4);
+  const int qg = 2 * blockIdx.x + wg;
+  const int q_first = qg * a.qpw;
+  const int n_groups = (a.n_q + a.qpw - 1) / a.qpw;
+  const bool qf = uniform(qg < n_groups && a.qflags[qg]);
+  const uint32_t bars = base + OFF_BARS;
+  const uint32_t q_hi = base + wg * 64 * 128;
+  float* rm = reinterpret_cast<float*>(smem + OFF_RM);
+  // whether local rows r0 and r1 are live tokens of this warpgroup's
+  // queries: a masked row's maxima go to shared memory as 0, so the sum
+  // adds every row of a query
+  const auto row_live = [&](int r) {
+    const int qi = q_first + r / a.l;
+    return r < a.qpw * a.l && qi < a.n_q &&
+           a.qmask[(size_t)qi * a.l + r % a.l];
+  };
+  const bool live0 = row_live(r0), live1 = row_live(r1);
+  int buf = 0;
+  float run0 = -INFINITY, run1 = -INFINITY;
+  // Ping-pong on named barriers 3 and 4; warpgroup 0 goes first.
+  if (wg == 1 && n_tiles > 0) bar_arrive(3, 256);
+
+  mbar_wait(bars, 0);                                   // query planes
+  for (int it = 0; it < n_tiles; ++it) {
+    int doc0, t;
+    tile_of<G>(a, d_begin, it, doc0, t);
+    // live bytes of columns 32 j + lane, loaded before the wait
+    bool live[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = 32 * j + lane;
+      const int doc = doc0 + (G == 1 ? 0 : c / a.m_pad);
+      const int tok = G == 1 ? t * TN + c : c % a.m_pad;
+      live[j] = doc < d_end && tok < a.m &&
+                a.dmask[(size_t)doc * a.m + tok];
+    }
+    const int s = it % STAGES;
+    const uint32_t tile = base + OFF_D + s * STAGE_D;
+    float acc[32];
+    mbar_wait(bars + 8 + 8 * s, (it / STAGES) & 1);
+    bar_sync(3 + wg, 256);                              // my turn
+    if (qf)
+      split_mma_n64_rn<true, true>(acc, q_hi, tile);
+    else
+      split_mma_n64_rn<false, true>(acc, q_hi, tile);
+    if (wg == 0 || it + 1 < n_tiles) bar_arrive(4 - wg, 256);  // yours
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 + 8 * (STAGES + s));
+
+    // bit 8 (i % 4) + e of w[i / 4] is this thread's column 8 i + cl + e
+    uint32_t w[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      w[j] = __ballot_sync(0xffffffffu, live[j]) >> cl;
+
+    float g0[G], g1[G];
+    row_max<G>(acc, w, g0, g1);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      g0[g] = quad_max(g0[g]);
+      g1[g] = quad_max(g1[g]);
+    }
+    float* rb = rm + buf * (RM_BUF / 4) + 64 * wg;
+    if (G == 1) {
+      run0 = t == 0 ? g0[0] : fmaxf(run0, g0[0]);
+      run1 = t == 0 ? g1[0] : fmaxf(run1, g1[0]);
+      if (t + 1 < a.tiles_per_doc) continue;          // doc not done
+      if (lane % 4 == 0) {
+        rb[r0] = live0 ? run0 : 0.f;
+        rb[r1] = live1 ? run1 : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (lane % 4 == g % 4) {
+          rb[g * QROWS + r0] = live0 ? g0[g] : 0.f;
+          rb[g * QROWS + r1] = live1 ? g1[g] : 0.f;
+        }
+    }
+    bar_sync(1 + wg, 128);
+    // one warp a (query, doc): the live tokens' maxima summed in double
+    for (int p0 = 0; p0 < a.qpw * G; p0 += 4) {
+      const int p = p0 + warp;
+      const int qi = q_first + p / G, g = p % G;
+      const int doc = doc0 + g;
+      if (p >= a.qpw * G || qi >= a.n_q || doc >= d_end) continue;
+      double sum = 0.0;
+      for (int tk = lane; tk < a.l; tk += 32)
+        sum += (double)rb[g * QROWS + (p / G) * a.l + tk];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) a.out[(size_t)qi * a.n_docs + doc] = (float)sum;
+    }
+    buf ^= 1;
+  }
+}
+
+template <int BITS, int G>
+__global__ void __launch_bounds__(NT, 1)
+kernel(const __grid_constant__ CUtensorMap tq,
+       const __grid_constant__ Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t bars = base + OFF_BARS;
+  const int d_begin = blockIdx.y * a.docs_per_block;
+  const int d_end = min(a.n_docs, d_begin + a.docs_per_block);
+  const int n_tiles = G == 1 ? (d_end - d_begin) * a.tiles_per_doc
+                             : (d_end - d_begin + G - 1) / G;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 + 8 * s, PRODUCERS);
+      mbar_init(bars + 8 + 8 * (STAGES + s), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = uniform(threadIdx.x / 32);
+  if (warp >= CONSUMER_WARPS) {
+    // producer warpgroup: one thread loads the query planes, all 128
+    // decode the doc tiles
+    const int p = threadIdx.x - CONSUMER_WARPS * 32;
+    if (p == 0) {
+      // each warpgroup's 64 rows start at its first query; a warpgroup
+      // past the last query loads nothing
+      const int q0 = 2 * blockIdx.x * a.qpw;
+      const int groups = q0 + a.qpw < a.n_q ? 2 : 1;
+      mbar_expect_tx(bars, 3 * groups * PLANE_Q / 2);
+      for (int pl = 0; pl < 3; ++pl)
+        for (int pn = 0; pn < PLANE_DP / 64; ++pn)
+          for (int h = 0; h < groups; ++h)
+            tma_load_3d(base + pl * PLANE_Q + pn * QROWS * 128 +
+                            h * 64 * 128,
+                        &tq, bars, pn * 64, (q0 + h * a.qpw) * a.l, pl);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES;
+      int doc0, t;
+      tile_of<G>(a, d_begin, it, doc0, t);
+      mbar_wait(bars + 8 + 8 * (STAGES + s), ((it / STAGES) & 1) ^ 1);
+      decode_tile<BITS, G>(a, base + OFF_D + s * STAGE_D, doc0, t, d_end, p);
+      fence_proxy_async();
+      mbar_arrive(bars + 8 + 8 * s);
+    }
+  } else {
+    consume<G>(base, smem, warp / 4, n_tiles, d_begin, d_end, a);
+  }
+}
+
+template <int BITS, int G>
+int run(const CUtensorMap& tq, const Args& a, int gx, int gy,
+        cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel<BITS, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_DYNAMIC);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<BITS, G><<<dim3(gx, gy), NT, SMEM_DYNAMIC, stream>>>(tq, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BITS>
+int run_g(int G, const CUtensorMap& tq, const Args& a, int gx, int gy,
+          cudaStream_t stream) {
+  switch (G) {
+    case 1: return run<BITS, 1>(tq, a, gx, gy, stream);
+    case 2: return run<BITS, 2>(tq, a, gx, gy, stream);
+    case 4: return run<BITS, 4>(tq, a, gx, gy, stream);
+    default: return run<BITS, 8>(tq, a, gx, gy, stream);
+  }
+}
+
+int launch(const float* q, const uint8_t* qmask, const int8_t* codes,
+           const uint8_t* resq, const float* scale, const float* codebook,
+           const uint8_t* dmask, int n_q, int l, int n_docs, int m, int dim,
+           int n_centroids, int bits, void* q_planes, int* q_flags,
+           float* out, cudaStream_t stream) {
+  // 16-byte codebook loads; a chunk's residual bits load as one 4-byte
+  // (4-bit) or 2-byte (2-bit) word
+  if (l < 1 || l > 64 || m < 1 || dim < 8 || dim % 8 || dim > PLANE_DP ||
+      (bits != 2 && bits != 4) || n_centroids < 1 ||
+      reinterpret_cast<uintptr_t>(codebook) % 16 ||
+      reinterpret_cast<uintptr_t>(resq) % bits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_q < 1 || n_docs < 1) return static_cast<int>(cudaGetLastError());
+  Args a{q_flags, qmask, dmask, codes, resq, scale, codebook, n_q, l,
+         64 / l, n_docs, m, 0, 1, 0, dim, n_centroids, out};
+  auto* qp = static_cast<__nv_bfloat16*>(q_planes);
+  int err = split_planes(q, n_q * l, dim, a.qpw * l, qp, q_flags, stream);
+  if (err) return err;
+  int m_pad = 8;
+  while (m_pad < m) m_pad *= 2;
+  const int G = m_pad >= TN ? 1 : TN / m_pad;
+  a.m_pad = G == 1 ? TN : m_pad;
+  a.tiles_per_doc = G == 1 ? (m + TN - 1) / TN : 1;
+  CUtensorMap tq;
+  const uint64_t row = PLANE_DP * 2;
+  if (!encode_3d(&tq, qp, PLANE_DP, (uint64_t)n_q * l, 3, row,
+                 row * n_q * l, 64, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // about four blocks an SM, query blocks fastest; a doc group is a
+  // whole number of tiles
+  const int gx = (n_q + 2 * a.qpw - 1) / (2 * a.qpw);
+  const int units = (n_docs + G - 1) / G;
+  const int groups = max(1, min(units, (4 * sm_count() + gx - 1) / gx));
+  a.docs_per_block = (units + groups - 1) / groups * G;
+  const int gy = (n_docs + a.docs_per_block - 1) / a.docs_per_block;
+  return bits == 2 ? run_g<2>(G, tq, a, gx, gy, stream)
+                   : run_g<4>(G, tq, a, gx, gy, stream);
+}
+
+}  // namespace resid_sm90
+
 // bf16 docs take the Hopper kernel, with the caller's scratch for the
 // query planes, (3, n_q·l, 128) bf16, and flags, (ceil(n_q / floor(64 /
 // l)),) int32; fp32 docs the tile engine (the scratch is not read).
@@ -536,14 +938,18 @@ extern "C" int colbert_maxsim_rerank_launch(const float* q,
                       dmask, n_q, l, n_cand, m, dim, out, stream);
 }
 
+// The caller's scratch: the query planes, (3, n_q·l, 128) bf16, and
+// flags, (ceil(n_q / floor(64 / l)),) int32.
 extern "C" int colbert_maxsim_residual_multi_launch(
     const float* q, const uint8_t* qmask, const int8_t* codes,
     const uint8_t* resq, const float* scale, const float* codebook,
     const uint8_t* dmask, int n_q, int l, int n_docs, int m, int dim,
-    int n_centroids, int bits, float* out, void* stream) {
-  return launch_residual<false>(q, qmask, codes, resq, scale, codebook,
-                                nullptr, 1, dmask, n_q, l, n_docs, m, dim,
-                                n_centroids, bits, out, stream);
+    int n_centroids, int bits, void* q_planes, int* q_flags, float* out,
+    void* stream) {
+  return resid_sm90::launch(q, qmask, codes, resq, scale, codebook, dmask,
+                            n_q, l, n_docs, m, dim, n_centroids, bits,
+                            q_planes, q_flags, out,
+                            static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int colbert_maxsim_residual_rerank_launch(
@@ -552,9 +958,9 @@ extern "C" int colbert_maxsim_residual_rerank_launch(
     const int* bucket_of, int n_buckets, const uint8_t* dmask, int n_q,
     int l, int n_cand, int m, int dim, int n_centroids, int bits, float* out,
     void* stream) {
-  return launch_residual<true>(q, qmask, codes, resq, scale, codebooks,
-                               bucket_of, n_buckets, dmask, n_q, l, n_cand, m,
-                               dim, n_centroids, bits, out, stream);
+  return launch_residual_rerank(q, qmask, codes, resq, scale, codebooks,
+                                bucket_of, n_buckets, dmask, n_q, l, n_cand,
+                                m, dim, n_centroids, bits, out, stream);
 }
 
 REPRO_ERROR_STRING(colbert_maxsim)

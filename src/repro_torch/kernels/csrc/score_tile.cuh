@@ -1,15 +1,16 @@
-// Shared fp32 score-tile engine of the six retrieval kernels.
+// Shared fp32 score-tile engine of the retrieval kernels not yet on the
+// tensor cores: colbert_maxsim_multi on fp32 docs (B3), the rerank (B4)
+// and the residual rerank (B6), all in colbert_maxsim.cu.
 //
-// Every kernel of this slice computes a small dense product
-// S = A . B^T (A: rows x dim, B: cols x dim, fp32) and reduces each row
-// of S over the columns (top-2, top-K, or max).  The TPU kernels kept
-// that product in VMEM; here one 256-thread block computes one
-// RT x CT tile of S with a classic shared-memory tiled SGEMM on the CUDA
-// cores (each thread owns a 4 x 4 register micro-tile, the dim axis
-// streams through shared memory DK values at a time), then parks the
-// tile in shared memory so the caller's epilogue can scan each row in
-// ascending column order.  Nothing (rows x cols)-shaped ever reaches
-// device memory.
+// Each computes a small dense product S = A . B^T (A: rows x dim, B:
+// cols x dim, fp32) and reduces each row of S over the columns (max).
+// The TPU kernels kept that product in VMEM; here one 256-thread block
+// computes one RT x CT tile of S with a classic shared-memory tiled
+// SGEMM on the CUDA cores (each thread owns a 4 x 4 register micro-tile,
+// the dim axis streams through shared memory DK values at a time), then
+// parks the tile in shared memory so the caller's epilogue can scan each
+// row in ascending column order.  Nothing (rows x cols)-shaped ever
+// reaches device memory.
 //
 // Numerics: IEEE fp32 fmaf, dim summed in ascending order — no TF32,
 // no tensor cores (fp32 on Hopper's tensor cores exists only as TF32).
@@ -132,15 +133,6 @@ __device__ __forceinline__ void score_tile(const float* __restrict__ A,
 #pragma unroll
     for (int j = 0; j < 4; ++j) sm.s[ty * 4 + i][tx * 4 + j] = acc[i][j];
   __syncthreads();
-}
-
-// fp32 doc tile starting at B (the pruning kernels' call).
-__device__ __forceinline__ void score_tile(const float* __restrict__ A,
-                                           int nrows,
-                                           const float* __restrict__ B,
-                                           int ncols, int dim,
-                                           TileSmem& sm) {
-  score_tile(A, nrows, DenseCols<float>{B, dim}, 0, ncols, dim, sm);
 }
 
 }  // namespace repro

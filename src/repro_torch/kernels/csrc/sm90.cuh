@@ -9,8 +9,10 @@
 // the wgmma shape m64n64k16 with both operands from shared memory,
 // commit and wait as two calls, a lane-0 broadcast the compiler knows
 // to be warp-uniform, named barriers, a host encoder of 3-D tensor maps,
-// and the three-term split pre-pass of the score kernels
-// (maxsim_topk.cu, colbert_maxsim.cu).
+// the three-term split pre-pass of the score kernels and their
+// two-accumulator 64 x 64 split tile (maxsim_sm90.cuh, colbert_maxsim.cu),
+// and, for a producer that writes wgmma operands itself (B5's decode),
+// 16-byte shared stores and the generic-to-async proxy fence.
 //
 // The three-term split.  For fp32 x let hi = RN_bf16(x), mid =
 // RN_bf16(x - hi) and lo = RN_bf16(x - hi - mid).  Both subtractions
@@ -301,6 +303,21 @@ __device__ __forceinline__ int uniform(int x) {
   return __shfl_sync(0xffffffffu, x, 0);
 }
 
+// Order this thread's generic-proxy writes to shared memory before later
+// async-proxy reads (wgmma operands): each writer fences, then arrives
+// on the barrier the readers wait for.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a,
+                                             uint32_t b, uint32_t c,
+                                             uint32_t d) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
 // Named barrier `id` (1..15; 0 is __syncthreads) over `count` threads:
 // wait for it, or only arrive.
 __device__ __forceinline__ void bar_sync(int id, int count) {
@@ -368,6 +385,102 @@ split_planes_kernel(const float* __restrict__ x, int rows, int dim,
       if (!nz) return;
     }
   }
+}
+
+// One 64 x 64 score tile of a warpgroup from split operands in shared
+// memory: A is 64 rows of a 128-row block (three planes, SPLIT_A_PLANE
+// apart), B a 64-row tile (three planes, SPLIT_B_PLANE apart), both
+// K-major in 64-column panels of 128-byte rows, 128B-swizzled.  hi·hi
+// goes into acc; the products of the flagged small terms (AF: A's mid
+// and lo, BF: B's) into acc2 — hi·mid, hi·lo, mid·hi, lo·hi, mid·mid,
+// the terms above 2^-24 relative — each accumulator overwritten by its
+// first product.  Committed here; the caller waits.
+constexpr uint32_t SPLIT_A_PLANE = 128 * PLANE_DP * 2;
+constexpr uint32_t SPLIT_B_PLANE = 64 * PLANE_DP * 2;
+
+template <bool AF, bool BF>
+__device__ __forceinline__ void split_mma_n64(float (&acc)[32],
+                                              float (&acc2)[32],
+                                              uint32_t a_hi, uint32_t b_hi) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < PLANE_DP / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    const uint32_t a = a_hi + (kk / 4) * 128 * 128 + off;
+    const uint32_t b = b_hi + (kk / 4) * 64 * 128 + off;
+    const auto desc = [](uint32_t x) { return smem_desc(x, 16, 1024); };
+    int acc2_on = kk > 0;
+    wgmma_ss_n64(acc, desc(a), desc(b), kk > 0);
+    if constexpr (AF) {
+      wgmma_ss_n64(acc2, desc(a + SPLIT_A_PLANE), desc(b), acc2_on);
+      wgmma_ss_n64(acc2, desc(a + 2 * SPLIT_A_PLANE), desc(b), 1);
+      acc2_on = 1;
+    }
+    if constexpr (BF) {
+      wgmma_ss_n64(acc2, desc(a), desc(b + SPLIT_B_PLANE), acc2_on);
+      wgmma_ss_n64(acc2, desc(a), desc(b + 2 * SPLIT_B_PLANE), 1);
+    }
+    if constexpr (AF && BF)
+      wgmma_ss_n64(acc2, desc(a + SPLIT_A_PLANE), desc(b + SPLIT_B_PLANE), 1);
+  }
+  wgmma_commit();
+}
+
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+}
+
+// The products of split_mma_n64 summed with rounding to nearest between
+// k16 steps.  The tensor cores add each product group to their fp32
+// accumulator with truncation, so eight steps into one accumulator
+// drift low by up to a few ulp of the dot product.  Here each step goes
+// into a fresh accumulator — two in turn, one step in flight while the
+// other is added — its flagged small products first and hi·hi last, so
+// that the step truncates once against its own partial sum, and the
+// steps are summed in fp32 on the CUDA cores, round to nearest.  On
+// return every product is complete and sum is readable.
+template <bool AF, bool BF>
+__device__ __forceinline__ void split_mma_n64_rn(float (&sum)[32],
+                                                 uint32_t a_hi,
+                                                 uint32_t b_hi) {
+  float t0[32], t1[32];
+  const auto desc = [](uint32_t x) { return smem_desc(x, 16, 1024); };
+#pragma unroll
+  for (int kk = 0; kk < PLANE_DP / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    const uint32_t a = a_hi + (kk / 4) * 128 * 128 + off;
+    const uint32_t b = b_hi + (kk / 4) * 64 * 128 + off;
+    float (&t)[32] = kk % 2 ? t1 : t0;
+    int on = 0;        // the step's first product overwrites t
+    wgmma_fence();     // t of step kk - 2 was read by the adds below
+    if constexpr (AF && BF) {
+      wgmma_ss_n64(t, desc(a + SPLIT_A_PLANE), desc(b + SPLIT_B_PLANE), on);
+      on = 1;
+    }
+    if constexpr (BF) {
+      wgmma_ss_n64(t, desc(a), desc(b + 2 * SPLIT_B_PLANE), on);
+      wgmma_ss_n64(t, desc(a), desc(b + SPLIT_B_PLANE), 1);
+      on = 1;
+    }
+    if constexpr (AF) {
+      wgmma_ss_n64(t, desc(a + 2 * SPLIT_A_PLANE), desc(b), on);
+      wgmma_ss_n64(t, desc(a + SPLIT_A_PLANE), desc(b), 1);
+      on = 1;
+    }
+    wgmma_ss_n64(t, desc(a), desc(b), on);
+    wgmma_commit();
+    if (kk > 0) {
+      wgmma_wait1();                      // step kk - 1 is complete
+      float (&p)[32] = kk % 2 ? t0 : t1;
+      fence_regs(p);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sum[i] = kk == 1 ? p[i] : sum[i] + p[i];
+    }
+  }
+  wgmma_wait0();
+  fence_regs(t1);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sum[i] += t1[i];
 }
 
 // Split x (rows, dim) fp32 into planes (3, rows, PLANE_DP) bf16 and

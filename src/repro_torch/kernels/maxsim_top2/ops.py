@@ -2,7 +2,9 @@
 
 Counterpart of ``repro.kernels.maxsim_top2.ops``.  The kernel takes a
 whole bucket of documents, so one launch serves one greedy step of
-Alg. 1 for every document of the bucket.
+Alg. 1 for every document of the bucket.  The launch splits samples
+and tokens into three bf16 planes first (a pre-pass in the same C
+entry) into scratch allocated here; the kernel takes dim <= 128.
 
 * :func:`maxsim_top2_op` — (best, second, argbest, argsecond); a CPU
   tensor runs the plain version (``ref.py``), a CUDA tensor launches
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.maxsim_top2.ref import maxsim_top2_ref
+from repro_torch.kernels.maxsim_topk.ops import DIM_MAX
 
 
 def _launch(samples, tokens, alive):
@@ -30,15 +33,23 @@ def _launch(samples, tokens, alive):
     build.require(samples, "samples", torch.float32, (N, dim), dev)
     build.require(tokens, "tokens", torch.float32, (B, m, dim), dev)
     build.require(alive, "alive", torch.bool, (B, m), dev)
+    if dim > DIM_MAX:
+        raise ValueError(f"dim={dim} exceeds the kernel's limit {DIM_MAX}")
     best = torch.empty((B, N), dtype=torch.float32, device=dev)
     second = torch.empty_like(best)
     bi = torch.empty((B, N), dtype=torch.int32, device=dev)
     si = torch.empty_like(bi)
+    s_planes = torch.empty((3, N, DIM_MAX), dtype=torch.bfloat16, device=dev)
+    s_flags = torch.empty((-(-N // 64),), dtype=torch.int32, device=dev)
+    t_planes = torch.empty((3, B * m, DIM_MAX), dtype=torch.bfloat16,
+                           device=dev)
+    t_flags = torch.empty((B,), dtype=torch.int32, device=dev)
     lib = build.library("maxsim_top2")
     build.check("maxsim_top2", lib.maxsim_top2_launch(
         samples.data_ptr(), tokens.data_ptr(), alive.data_ptr(), B, N, m,
-        dim, best.data_ptr(), second.data_ptr(), bi.data_ptr(),
-        si.data_ptr(), build.stream_ptr(tokens)))
+        dim, s_planes.data_ptr(), s_flags.data_ptr(), t_planes.data_ptr(),
+        t_flags.data_ptr(), best.data_ptr(), second.data_ptr(),
+        bi.data_ptr(), si.data_ptr(), build.stream_ptr(tokens)))
     maxsim_top2_op.launches += 1
     return best, second, bi, si
 

@@ -1,17 +1,28 @@
-"""Quick card check of the two Hopper score kernels (B2, bf16 B3).
+"""Quick card check of the Hopper score kernels (B1, B2, bf16 B3, B5).
 
     PYTHONPATH=src python -m repro_torch.kernels.score_check
 
-Builds the kernels, prints the ptxas report of ``maxsim_topk`` and
-``colbert_maxsim``, then runs each once at the ``colbert`` main path's
-timed shapes on random unit-norm inputs (seed 0) against its plain
-version, and times it with CUDA events (mean of 5 after a warm-up):
+Builds the kernels, prints the ptxas report of ``maxsim_top2``,
+``maxsim_topk`` and ``colbert_maxsim``, then runs each once at the
+``colbert`` paths' timed shapes on random unit-norm inputs (seed 0)
+against its plain version, and times it with CUDA events (mean of 5
+after a warm-up):
 
-* B2: 2,048 fp32 samples against 2,908 docs x 180 bf16-exact tokens
-  (doc 0 all dead), at k 4 and 16;
+* B1: 2,048 fp32 samples against 2,908 docs x 180 bf16-exact tokens
+  (doc 0 all dead, doc 1 one alive token) and against the fused
+  pruning leg's bucket of 128 docs;
+* B2: the same, at k 4 and 16;
 * B3: 64 queries x 32 bf16-exact tokens against 3,695 bf16 docs x 128
   (doc 5 all masked), with those queries (one bf16 term) and with them
-  scaled by 1 + 2^-12 (three terms).
+  scaled by 1 + 2^-12 (three terms);
+* B5: the same queries against a residual bucket of 3,695 docs x 128
+  (4-bit, 8 centroids; 2-bit; 4-bit with 127 centroids and codes out of
+  range, clamped), one- and three-term queries; then B5 and its plain
+  version against a float64 MaxSim where the centroids are far from unit
+  norm (randn, norm ~11; scores up to ~90), 6 queries x 32 against 37
+  docs x 130 at 2 and 4 bits and 8 and 127 centroids: the codebooks,
+  codes, residuals and masks of ``tests/test_torch_kernels.py``'s
+  residual case with unit-norm fp32 queries (printed, not gated).
 
 It needs a CUDA device and exits non-zero on a disagreement past the
 1e-5 gate.  ``chip_smoke.py`` holds the same kernels on the paths' own
@@ -28,8 +39,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.colbert_maxsim import ops as cm
 from repro_torch.kernels.colbert_maxsim import ref as cm_ref
+from repro_torch.kernels.maxsim_top2.ops import maxsim_top2_op
+from repro_torch.kernels.maxsim_top2.ref import maxsim_top2_ref
 from repro_torch.kernels.maxsim_topk.ops import maxsim_topk_op
 from repro_torch.kernels.maxsim_topk.ref import maxsim_topk_ref
+from repro_torch.train.compress import dequantize_residual, quantize_residual
 
 ATOL = 1e-5
 
@@ -54,9 +68,10 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    secs = build.build_all(("maxsim_topk", "colbert_maxsim"), force=True)
+    names = ("maxsim_top2", "maxsim_topk", "colbert_maxsim")
+    secs = build.build_all(names, force=True)
     print(f"build {secs:.2f} s")
-    for name in ("maxsim_topk", "colbert_maxsim"):
+    for name in names:
         print(f"{name} ptxas: {build.ptxas_report(name)}")
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -83,6 +98,30 @@ def main() -> int:
     print(f"B2 maxsim_topk: max abs err {err:.3e}, untied id mismatches "
           f"{bad}; {times}")
 
+    A[1] = False
+    A[1, 77] = True
+    for tag, n_docs in (("2,908 docs", 2908), ("the fused leg's 128", 128)):
+        t, a = T[:n_docs], A[:n_docs]
+        out = maxsim_top2_op(S, t, a)
+        ref = maxsim_top2_ref(S, t, a)
+        top3, _ = maxsim_topk_ref(S, t, a, 3)
+        err = max((out[0] - ref[0]).abs().max().item(),
+                  (out[1] - ref[1]).abs().max().item())
+        gap1 = top3[..., 0] - top3[..., 1]
+        gap2 = top3[..., 1] - top3[..., 2]
+        bad = int(((out[2] != ref[2]) & (gap1 > ATOL)).sum()
+                  + ((out[3] != ref[3]) & (gap1 > ATOL) & (gap2 > ATOL)).sum())
+        # the all-dead doc: best and second token 0 at -1e30; the doc of
+        # one alive token: best token 77, second token 0 at -1e30
+        edge = (all(torch.equal(o[:2], r[:2])
+                    for o, r in zip(out[1:], ref[1:]))
+                and torch.equal(out[0][0], ref[0][0]))
+        ok &= err <= ATOL and bad == 0 and edge
+        del ref, top3
+        print(f"B1 maxsim_top2 {tag} x 180: max abs err {err:.3e}, untied id "
+              f"mismatches {bad}, all-dead and one-alive docs equal {edge}; "
+              f"{_ms(lambda: maxsim_top2_op(S, t, a)):.3f} ms")
+
     q = unit(64, 32, 128).bfloat16().float()
     D = unit(3695, 128, 128).bfloat16()
     M = torch.rand(3695, 128, device="cuda", generator=g) < 0.7
@@ -97,6 +136,60 @@ def main() -> int:
         print(f"B3 colbert_maxsim_multi bf16 docs, queries {tag}: max abs "
               f"err {err:.3e}, sentinel rel err {rel:.1e}; "
               f"{_ms(lambda: cm.colbert_maxsim_multi_op(qq, D, M)):.3f} ms")
+
+    codes = torch.randint(0, 8, (3695, 128), device="cuda", generator=g,
+                          dtype=torch.int8)
+    for bits, C in ((4, 8), (2, 8), (4, 127)):
+        cb = unit(C, 128)
+        x = cb[codes.long() % C] + 0.2 * unit(3695, 128, 128)
+        resq, scale = quantize_residual(x - cb[codes.long() % C], bits)
+        cds = codes.clone()
+        if C == 127:
+            cds[7, :9] = 127          # out of range: clamped to C - 1
+            cds[8, :9] = -3           # clamped to 0
+        for tag, qq in (("one term", q),
+                        ("three terms", q * (1 + 2.0 ** -12))):
+            args = (qq, cds, resq, scale, cb, M)
+            o = cm.colbert_maxsim_residual_multi_op(*args, bits=bits)
+            r = cm_ref.colbert_maxsim_residual_multi_ref(
+                qq, cds.clamp(0, C - 1), resq, scale, cb, M, bits=bits)
+            real = r > -1e29
+            err = (o - r)[real].abs().max().item()
+            rel = ((o - r) / r)[~real].abs().max().item()
+            ok &= err <= ATOL and rel <= 1e-6
+            ms = _ms(lambda: cm.colbert_maxsim_residual_multi_op(*args,
+                                                                 bits=bits))
+            print(f"B5 colbert_maxsim_residual_multi {bits}-bit C {C}, "
+                  f"queries {tag}: max abs err {err:.3e}, sentinel rel err "
+                  f"{rel:.1e}; {ms:.3f} ms")
+
+    for bits in (2, 4):
+        for C in (8, 127):
+            cg = torch.Generator().manual_seed(0)
+            cb = torch.randn(C, 128, generator=cg)
+            cds = torch.randint(0, C, (37, 130), generator=cg,
+                                dtype=torch.int8)
+            x = cb[cds.long()] + 0.3 * torch.randn((37, 130, 128),
+                                                   generator=cg)
+            resq, scale = quantize_residual(x - cb[cds.long()], bits)
+            dm = torch.rand((37, 130), generator=cg) < 0.8
+            dm[1] = False
+            args = [t.cuda() for t in (unit(6, 32, 128).cpu(), cds, resq,
+                                       scale, cb, dm)]
+            o = cm.colbert_maxsim_residual_multi_op(*args, bits=bits)
+            r = cm_ref.colbert_maxsim_residual_multi_ref(*args, bits=bits)
+            qq, cds, resq, scale, cb, dm = args
+            d = dequantize_residual(resq, scale, cds, cb, bits)
+            s = torch.einsum("qld,nmd->qnlm", qq.double(), d.double())
+            e = torch.where(dm[None, :, None, :], s, -1e30).amax(-1).sum(-1)
+            real = e > -1e29
+            print(f"B5 {bits}-bit C {C}, centroids of norm ~11 (|score| <= "
+                  f"{e[real].abs().max().item():.1f}) against float64: kernel "
+                  f"{(o - e)[real].abs().max().item():.2e} (mean "
+                  f"{(o - e)[real].mean().item():+.1e}), plain "
+                  f"{(r - e)[real].abs().max().item():.2e} (mean "
+                  f"{(r - e)[real].mean().item():+.1e}), kernel vs plain "
+                  f"{(o - r)[real].abs().max().item():.2e}")
     print("score_check: " + ("ok" if ok else "FAILED"))
     return 0 if ok else 1
 
