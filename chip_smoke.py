@@ -29,19 +29,27 @@ passed — any failure exits non-zero):
    ``RoutingIndex`` (4 centroids) on the 4-bit index and serve it
    ``bounded`` (must equal the exhaustive top-10 bit for bit) and
    ``nprobe=1`` (recall@10 against exhaustive).  One small launch of
-   each kernel of this path (fp32 B3/B4, B5, B6) comes first, so that
+   each kernel of this path (fp32 B3 at the buckets' widths and at the
+   routing table's 4 centroids, fp32 B4, B5, B6) comes first, so that
    ``path_ms`` holds kernel time only.  Launch counts are zeroed just
    before and read just after; every top-10 is then held against the
    ``reference`` backend.
 5. Kernels against their plain PyTorch versions on the card, on the
    paths' own tensors: max abs error, index agreement, kernel and plain
-   times (CUDA events), and each kernel's bound.  B3/B4 run on fp32 and
-   on bf16 docs; B5/B6 at 4 and 2 bits and at 8 and 127 centroids.
-   These launches do not count.  The ptxas report of B1's, B2's and
-   B3's sources.  One bound rule for B1-B6: an operand takes 1 bf16 term
-   when the run's tensor equals its own bf16 rounding, else 3; products
-   of terms below 2^-24 relative are dropped (3 x 1 terms: 3 products,
-   3 x 3: 6), and every product runs at the bf16 tensor-core rate.
+   times (CUDA events), and each kernel's bound.  B3 runs on the bf16
+   index's widest bucket (bf16 docs) and on the int8 index's as the
+   dense fp32 view the int8 path scores (int8 values times fp32 scales,
+   three terms); the bf16 docs widened to fp32 (one term) and the fp32
+   route's split pre-pass alone are timed beside it.  B4 runs on fp32
+   and bf16 candidates; B5/B6 at 4 and 2 bits and at 8 and 127
+   centroids.  Then B3 on fp32 docs and B6 on docs and tables far from
+   unit norm (randn, norm ~11) against a float64 MaxSim
+   (``[norm11]``).  These launches do not count.  The ptxas report of
+   B1's, B2's and B3-B6's sources.  One bound rule for B1-B6: an operand
+   takes 1 bf16 term when the run's tensor equals its own bf16 rounding,
+   else 3; products of terms below 2^-24 relative are dropped (3 x 1
+   terms: 3 products, 3 x 3: 6), and every product runs at the bf16
+   tensor-core rate.
 6. Fused pruning leg: the first 256 docs on ``backend="fused"``
    (``maxsim_top2``) against ``shortlist_topk``; B1's launch count is
    read from this leg.  Before it, B1 is timed at the leg's widest
@@ -102,11 +110,12 @@ passed — any failure exits non-zero):
    three ``fused`` dlrm-rm2 ``serve_bulk`` forwards (B8).
 
 Tolerances: retrieval values within 1e-5 abs (unit-norm fp32 inputs,
-dim 128); token/doc ids equal wherever the gap to the runner-up exceeds
-1e-5.  Empty-doc sentinel scores (l x -1e30) are compared relatively
-(1e-6).  LM logits (bf16) within ``LOGIT_TOL`` = 0.25 abs, and argmax
-equal wherever the reference's top-2 gap exceeds it.  B7 in bf16 within
-one output rounding (2^-7 |plain| + 1e-5), in fp32 within 2e-4.  Recsys:
+dim 128; on norm-11 docs, of a float64 MaxSim); token/doc ids equal
+wherever the gap to the runner-up exceeds 1e-5.  Empty-doc sentinel
+scores (l x -1e30) are compared relatively (1e-6).  LM logits (bf16)
+within ``LOGIT_TOL`` = 0.25 abs, and argmax equal wherever the
+reference's top-2 gap exceeds it.  B7 in bf16 within one output
+rounding (2^-7 |plain| + 1e-5), in fp32 within 2e-4.  Recsys:
 the two backends' probabilities equal bit for bit (the lookups are
 gathers and bags added in one order on both; the rest is the same
 code); top-100 ids equal wherever the gap to a neighbour exceeds 1e-6,
@@ -300,7 +309,9 @@ def main() -> int:
                                              topk_search)
     from repro_torch.serve.routing import RoutingIndex
     from repro_torch.core.backend import shortlist_knobs
-    from repro_torch.train.compress import residual_values
+    from repro_torch.train.compress import (dequantize_residual,
+                                            quantize_residual,
+                                            residual_values)
 
     failures = []
 
@@ -465,6 +476,10 @@ def main() -> int:
                     scale.expand(2, -1, -1, -1).contiguous(), cb[None],
                     torch.zeros(2, 8, dtype=torch.int32, device="cuda"),
                     wm.expand(2, -1, -1).contiguous(), bits=bits)
+        # the routing table's centroid scoring: fp32 B3 at m = 4
+        cm_ops.colbert_maxsim_multi_op(
+            wq, torch.randn(8, 4, 128, device="cuda", generator=g),
+            torch.ones(8, 4, dtype=torch.bool, device="cuda"))
         torch.cuda.synchronize()
         del g, wq, wm, we, codes, scale, cb, resq
         codecs = {"int8": {"compression": "int8"},
@@ -616,29 +631,67 @@ def main() -> int:
             flops, nbytes(samples, tok, alive) + B * N * 16, tc_flops=flops)
         del out, ref
         # B3 colbert_maxsim_multi — the e2e sweep of the widest packed
-        # bucket, on the main path's bf16 docs and on the same docs
-        # widened to fp32
+        # bucket: fp32 docs on the int8 index's (its dense view, int8
+        # values times fp32 scales: three terms; the row), bf16 docs on the
+        # main path's; the bf16 docs widened to fp32 (one term) are logged
         pb = max(packed.buckets, key=lambda b: b.n_docs * b.cap)
+        p8 = packs["int8"]
+        ib = max(p8.buckets, key=lambda b: b.n_docs * b.cap)
         l = q_emb.shape[1]
-        for name, embs in (("colbert_maxsim_multi", pb.embs.float()),
-                           ("colbert_maxsim_multi_bf16", pb.embs)):
-            o = cm_ops.colbert_maxsim_multi_op(q_emb, embs, pb.masks)
-            r = cm_ref.colbert_maxsim_multi_ref(q_emb, embs, pb.masks)
+        for name, embs, masks in (
+                ("colbert_maxsim_multi", ib.dense_embs(p8.dim), ib.masks),
+                ("colbert_maxsim_multi_bf16", pb.embs, pb.masks)):
+            o = cm_ops.colbert_maxsim_multi_op(q_emb, embs, masks)
+            r = cm_ref.colbert_maxsim_multi_ref(q_emb, embs, masks)
             err, rel = score_err(o, r)
-            log(f"[kernel] {name} n_q={N_QUERIES} l={l} n_docs={pb.n_docs} "
-                f"m={pb.cap} docs {embs.dtype}: sentinel rel err {rel:.2e}")
+            log(f"[kernel] {name} n_q={N_QUERIES} l={l} n_docs="
+                f"{masks.shape[0]} m={masks.shape[1]} docs {embs.dtype} "
+                f"({terms(embs)} term(s)): sentinel rel err {rel:.2e}")
             expect(err <= ATOL and rel <= 1e-6, f"{name} disagrees with plain")
-            fl = (2.0 * N_QUERIES * l * pb.n_docs * pb.cap * dim
+            fl = (2.0 * N_QUERIES * l * masks.numel() * dim
                   * split_products(q_emb, embs))
+            ms = cuda_ms(lambda: cm_ops.colbert_maxsim_multi_op(q_emb, embs,
+                                                                 masks))
             row(name, "src/repro_torch/kernels/csrc/colbert_maxsim.cu",
                 "src/repro/kernels/colbert_maxsim/colbert_maxsim.py:125", err,
-                cuda_ms(lambda: cm_ops.colbert_maxsim_multi_op(q_emb, embs,
-                                                                pb.masks)),
+                ms,
                 cuda_ms(lambda: cm_ref.colbert_maxsim_multi_ref(q_emb, embs,
-                                                                 pb.masks),
+                                                                 masks),
                         reps=2),
-                fl, nbytes(q_emb, embs, pb.masks) + N_QUERIES * pb.n_docs * 4,
+                fl,
+                nbytes(q_emb, embs, masks) + N_QUERIES * masks.shape[0] * 4,
                 tc_flops=fl)
+            if name == "colbert_maxsim_multi":
+                # the split pre-pass alone, on the same docs: its share of
+                # the fp32 route's time
+                n, m_ = masks.shape
+                m_pad = max(8, 1 << (m_ - 1).bit_length())
+                G = 1 if m_pad >= 64 else 64 // m_pad
+                planes = torch.empty((3, n * m_, 128), dtype=torch.bfloat16,
+                                     device="cuda")
+                flg = torch.empty((n,), dtype=torch.int32, device="cuda")
+                lib = build.library("colbert_maxsim")
+                split_ms = cuda_ms(lambda: build.check(
+                    "colbert_maxsim", lib.colbert_maxsim_split_planes(
+                        embs.data_ptr(), n * m_, dim, G * m_,
+                        planes.data_ptr(), flg.data_ptr(),
+                        build.stream_ptr(embs))))
+                del planes, flg
+                wide = pb.embs.float()
+                wide_ms = cuda_ms(lambda: cm_ops.colbert_maxsim_multi_op(
+                    q_emb, wide, pb.masks))
+                wo = cm_ops.colbert_maxsim_multi_op(q_emb, wide, pb.masks)
+                werr, wrel = score_err(
+                    wo, cm_ref.colbert_maxsim_multi_ref(q_emb, wide, pb.masks))
+                expect(werr <= ATOL and wrel <= 1e-6,
+                       "colbert_maxsim_multi on widened bf16 docs disagrees "
+                       "with plain")
+                log(f"[kernel] colbert_maxsim_multi split pre-pass alone: "
+                    f"{split_ms:.3f} ms of {ms:.3f} ms "
+                    f"({100 * split_ms / ms:.1f} %); on the bf16 docs widened "
+                    f"to fp32 ({terms(wide)} term): {wide_ms:.3f} ms, max abs "
+                    f"err {werr:.3e}")
+                del wide, wo
         # the queries' split terms: the same bf16 sweep with queries that
         # are not bf16-exact (three terms)
         q3 = q_emb * (1 + 2.0 ** -12)
@@ -723,6 +776,50 @@ def main() -> int:
                 f"src/repro/kernels/colbert_maxsim/colbert_maxsim.py:{line}",
                 max(v[0] for v in store.values()), ms, plain, flops, nb,
                 tc_flops=flops)
+
+        # B3 on fp32 docs and B6 where the docs are far from unit norm
+        # (randn, norm ~11; scores up to ~90), the cases of their card
+        # tests: within 1e-5 of a float64 MaxSim of the same tokens, as the
+        # fp32 plain versions are themselves ~1e-5 from it there (logged)
+        g = torch.Generator(device="cuda").manual_seed(4)
+        q11 = torch.randn(6, 32, dim, device="cuda", generator=g)
+        q11 = q11 / q11.norm(dim=-1, keepdim=True)
+        qm11 = torch.rand(6, 32, device="cuda", generator=g) < 0.9
+        d11 = torch.randn(37, 130, dim, device="cuda", generator=g)
+        dm11 = torch.rand(37, 130, device="cuda", generator=g) < 0.8
+        dm11[1] = False
+        tab = torch.randn(3, 127, dim, device="cuda", generator=g)
+        cds = torch.randint(0, 127, (6, 37, 130), device="cuda", generator=g,
+                            dtype=torch.int8)
+        bo = torch.randint(0, 3, (6, 37), device="cuda", generator=g,
+                           dtype=torch.int32)
+        rq11, sc11 = quantize_residual(0.3 * torch.randn(
+            6, 37, 130, dim, device="cuda", generator=g), 4)
+        rm11 = torch.rand(6, 37, 130, device="cuda", generator=g) < 0.8
+        rm11[:, 1] = False
+        dec = dequantize_residual(rq11, sc11, bo.long()[..., None] * 127
+                                  + cds.long(), tab.reshape(-1, dim), 4)
+        a3 = (q11, d11, dm11, qm11)
+        a6 = (q11, cds, rq11, sc11, tab, bo, rm11, qm11)
+        for name, o, r, eq, dd, mk in (
+                ("colbert_maxsim_multi", cm_ops.colbert_maxsim_multi_op(*a3),
+                 cm_ref.colbert_maxsim_multi_ref(*a3), "qld,nmd->qnlm", d11,
+                 dm11),
+                ("colbert_maxsim_residual_rerank",
+                 cm_ops.colbert_maxsim_residual_rerank_op(*a6, bits=4),
+                 cm_ref.colbert_maxsim_residual_rerank_ref(*a6, bits=4),
+                 "qld,qnmd->qnlm", dec, rm11)):
+            s_ = torch.where(mk[..., None, :], torch.einsum(
+                eq, q11.double(), dd.double()), -1e30).amax(-1)
+            e = torch.where(qm11[:, None, :], s_, 0.0).sum(-1)
+            err, rel = score_err(o.double(), e)
+            log(f"[norm11] {name} against a float64 MaxSim (|score| <= "
+                f"{e[e > -1e29].abs().max().item():.1f}): max abs err "
+                f"{err:.3e}, sentinel rel err {rel:.2e}; the plain version "
+                f"{score_err(r.double(), e)[0]:.3e}")
+            expect(err <= ATOL and rel <= 1e-6,
+                   f"{name} on norm-11 docs strays from float64")
+        del g, q11, qm11, d11, dm11, tab, cds, bo, rq11, sc11, rm11, dec
 
         # 6. fused pruning leg; first B1 at the leg's widest bucket, beside
         # the 2,908-doc shape above

@@ -55,7 +55,7 @@ SIGNATURES = {
                                            _P, _P, _P, _P, _P, _P, _P]},
     "colbert_maxsim": {
         "colbert_maxsim_multi_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        _I, _P, _P, _P, _P],
+                                        _I, _P, _P, _P, _P, _P, _P],
         "colbert_maxsim_rerank_launch": [_P, _P, _P, _P, _I, _I, _I, _I,
                                          _I, _I, _P, _P],
         "colbert_maxsim_residual_multi_launch": [
@@ -63,7 +63,8 @@ SIGNATURES = {
             _P, _P],
         "colbert_maxsim_residual_rerank_launch": [
             _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
-            _P, _P],
+            _P, _P, _P, _P],
+        "colbert_maxsim_split_planes": [_P, _I, _I, _I, _P, _P, _P],
     },
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

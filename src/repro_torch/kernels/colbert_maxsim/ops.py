@@ -14,10 +14,10 @@ Counterpart of ``repro.kernels.colbert_maxsim.ops``:
   residual-codec docs, decoded inside the kernel tile by tile.
 
 Queries are fp32; dense docs are fp32 or bf16.  A CPU tensor runs the
-plain version (``ref.py``); a CUDA tensor launches the kernel.  The
-multi sweep on bf16 docs and the residual multi sweep are Hopper
-kernels, which split the queries into three bf16 planes first (scratch
-allocated here) and take a dim that is a multiple of 8 up to 128.
+plain version (``ref.py``); a CUDA tensor launches the kernel.  Every
+route but the dense rerank is a Hopper kernel, which splits the queries
+(and fp32 docs) into three bf16 planes first, into scratch allocated
+here, and takes a dim that is a multiple of 8 up to 128.
 ``.launches`` on each launching wrapper counts its launches, and
 ``.bf16_launches`` on the two dense ones the share of them on bf16
 docs.
@@ -70,11 +70,11 @@ def _launch(entry, q_embs, d_embs, d_masks, q_masks, n_docs):
     build.require(d_masks, "d_masks", torch.bool, d_masks.shape, dev)
     scratch = ()
     if entry == "colbert_maxsim_multi_launch":
-        scratch = (None, None)
-        if d_embs.dtype == torch.bfloat16:
-            if d_embs.data_ptr() % 16:
-                raise ValueError("bf16 d_embs must be 16-byte aligned")
-            scratch = _query_planes(q_embs)
+        bf16 = d_embs.dtype == torch.bfloat16
+        if bf16 and d_embs.data_ptr() % 16:
+            raise ValueError("bf16 d_embs must be 16-byte aligned")
+        scratch = _query_planes(q_embs, 64 // l) + (
+            (None, None) if bf16 else _doc_planes(d_embs))
     out = torch.empty((n_q, n_docs), dtype=torch.float32, device=dev)
     lib = build.library("colbert_maxsim")
     build.check("colbert_maxsim", getattr(lib, entry)(
@@ -86,10 +86,10 @@ def _launch(entry, q_embs, d_embs, d_masks, q_masks, n_docs):
     return out
 
 
-def _query_planes(q_embs):
-    """Scratch of the Hopper multi kernels (bf16 docs, residual): the
-    queries' three bf16 planes and one flag a warpgroup of floor(64 / l)
-    queries."""
+def _query_planes(q_embs, group):
+    """Scratch of the Hopper kernels: the queries' three bf16 planes and
+    one flag a group of ``group`` queries (a warpgroup's floor(64 / l) in
+    the multi sweeps, one in the residual rerank)."""
     n_q, l, dim = q_embs.shape
     if dim % 8 or dim > BF16_DIM_MAX:
         raise ValueError(f"dim={dim}: the Hopper kernel takes a multiple "
@@ -97,9 +97,19 @@ def _query_planes(q_embs):
     dev = q_embs.device
     planes = torch.empty((3, n_q * l, BF16_DIM_MAX), dtype=torch.bfloat16,
                          device=dev)
-    flags = torch.empty((-(-n_q // (64 // l)),), dtype=torch.int32,
-                        device=dev)
+    flags = torch.empty((-(-n_q // group),), dtype=torch.int32, device=dev)
     return planes, flags
+
+
+def _doc_planes(d_embs):
+    """Scratch of the multi sweep on fp32 docs: the docs' three bf16
+    planes (6 bytes a doc value) and a flag a doc (the kernel uses one a
+    tile group)."""
+    n_docs, m, _ = d_embs.shape
+    dev = d_embs.device
+    planes = torch.empty((3, n_docs * m, BF16_DIM_MAX), dtype=torch.bfloat16,
+                         device=dev)
+    return planes, torch.empty((n_docs,), dtype=torch.int32, device=dev)
 
 
 def _count(fn, d_embs):
@@ -172,17 +182,17 @@ def _residual_launch(entry, q_embs, q_masks, codes, resq, rscale, tables,
     build.require(tables, "codebook", torch.float32,
                   tables.shape[:-1] + (dim,), dev)
     args = [t.data_ptr() for t in (codes, resq, rscale, tables)]
-    scratch = ()
+    group = 64 // l
     if bucket_of is not None:
         build.require(bucket_of, "bucket_of", torch.int32, shape[:-1], dev)
         args += [bucket_of.data_ptr(), tables.shape[0]]
-    else:
-        # the Hopper kernel loads a chunk's residual bits as one word and
-        # codebook rows 16 bytes at a time
-        if resq.data_ptr() % bits or tables.data_ptr() % 16:
-            raise ValueError("resq must be aligned to the residual word and "
-                             "the codebook to 16 bytes")
-        scratch = _query_planes(q_embs)
+        group = 1
+    # the Hopper kernels load a chunk's residual bits as one word and
+    # codebook rows 16 bytes at a time
+    if resq.data_ptr() % bits or tables.data_ptr() % 16:
+        raise ValueError("resq must be aligned to the residual word and "
+                         "the codebook to 16 bytes")
+    scratch = _query_planes(q_embs, group)
     out = torch.empty((n_q, n_docs), dtype=torch.float32, device=dev)
     lib = build.library("colbert_maxsim")
     build.check("colbert_maxsim", getattr(lib, entry)(

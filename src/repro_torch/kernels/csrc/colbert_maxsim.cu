@@ -24,34 +24,32 @@
 // sentinel the streaming pad audits rely on (never -inf or NaN).
 // Queries are fp32; dense docs are fp32 or bf16 (widened exactly).
 //
-// Two engines share these functions.  colbert_maxsim_multi on bf16 docs
-// (the serving sweep of the main path) and colbert_maxsim_residual_multi
-// (the sweep of a residual index) are Hopper kernels, below (namespaces
-// multi_bf16 and resid_sm90).  Every other route — the multi sweep on
-// fp32 docs, the rerank (B4) and the residual rerank (B6) — runs on the
-// fp32 tile engine of score_tile.cuh:
+// Every route but the rerank (B4) is a Hopper kernel on split-bf16
+// wgmma, below: colbert_maxsim_multi on bf16 docs (namespace
+// multi_bf16), on fp32 docs and colbert_maxsim_residual_multi (B5) —
+// one kernel, a TMA or a decoding producer (multi_sm90) — and
+// colbert_maxsim_residual_rerank (B6, rerank_sm90); the last three share
+// one consumer warpgroup (namespace sweep).  The rerank alone runs on
+// the fp32 tile engine of score_tile.cuh:
 //
-// Bound on the H100: operations (2*n_q*l*n_docs*m*dim fp32 flops on the
-// CUDA cores) at the serving shapes; bytes read are the doc tokens once
-// (4, 2, or 1 + dim*bits/8 + 4 bytes a token).
-// Design: a block owns one doc (one candidate) and a 64-row tile of
-// flattened query tokens — whole queries only, floor(64 / l) of them —
-// and sweeps the doc's tokens in 64-column tiles (score_tile.cuh), so a
-// doc of any length fits in 25 KB of static shared memory.  The doc
-// format is a template parameter: its loader widens bf16 or decodes the
-// residual codec (B6) while the tile is staged into shared memory, so a
-// decoded candidate exists one tile at a time.  Each of 64 threads keeps
-// its row's running fp32 max; the per-query sum over l token maxes runs
-// in double and is rounded once, so it does not depend on a summation
-// order.  The 4-D (n_q, n_docs, l, m) tensor of the plain version never
-// exists.
+// Bound on the H100: bytes at the serving shapes (the candidates read
+// once, 4 or 2 bytes a token value).
+// Design: a block owns one candidate and one query (64-row tile, its l
+// rows used) and sweeps the candidate's tokens in 64-column tiles
+// (score_tile.cuh), so a doc of any length fits in 25 KB of static
+// shared memory; the loader widens bf16 while the tile is staged.  Each
+// of 64 threads keeps its row's running fp32 max; the per-query sum over
+// l token maxes runs in double and is rounded once, so it does not
+// depend on a summation order.  The 4-D (n_q, n_cand, l, m) tensor of
+// the plain version never exists.
 
 #include "score_tile.cuh"
 #include "sm90.cuh"
 
 using namespace repro;
 
-// Doc sources: doc(d) is the loader of flat doc index d.
+// Candidates of the rerank, row-major (n_q, n_cand, m, dim), fp32 or
+// bf16: doc(d) is the loader of flat candidate d.
 template <class T>
 struct DenseDocs {
   const T* docs;
@@ -61,40 +59,19 @@ struct DenseDocs {
   }
 };
 
-// The residual rerank's candidates: doc d decodes against table
-// bucket_of[d]; entries outside [0, n_tables) are clamped, like codes.
-template <int BITS>
-struct ResidualDocs {
-  const int8_t* codes;
-  const uint8_t* resq;
-  const float* scale;
-  const float* codebooks;   // (n_buckets, C, dim)
-  const int* bucket_of;
-  int m, dim, n_centroids, n_tables;
-  __device__ __forceinline__ ResidualCols<BITS> doc(size_t d) const {
-    const size_t cb = min(max(bucket_of[d], 0), n_tables - 1);
-    return {codes + d * m, resq + d * m * (dim * BITS / 8), scale + d * m,
-            codebooks + cb * n_centroids * dim, dim, n_centroids};
-  }
-};
-
-// RERANK: the doc axis is (n_q, n_docs) and each query reads its own
-// slab; otherwise all queries share (n_docs, ...).
-template <bool RERANK, class Docs>
+// Block (candidate d, query qi).
+template <class Docs>
 __global__ void __launch_bounds__(NT)
 colbert_maxsim_kernel(const float* __restrict__ q,
                       const uint8_t* __restrict__ qmask, Docs docs,
-                      const uint8_t* __restrict__ dmask, int n_q, int l,
-                      int n_docs, int m, int dim, int qb,
-                      float* __restrict__ out) {
+                      const uint8_t* __restrict__ dmask, int l,
+                      int n_docs, int m, int dim, float* __restrict__ out) {
   __shared__ TileSmem sm;
   __shared__ float rowmax[RT];
   const int d = blockIdx.x;
-  const int q0 = blockIdx.y * qb;
-  const int nq = min(qb, n_q - q0);
-  const int nrows = nq * l;
-  const float* A = q + (size_t)q0 * l * dim;
-  const size_t doc = RERANK ? (size_t)q0 * n_docs + d : (size_t)d;
+  const int qi = blockIdx.y;
+  const float* A = q + (size_t)qi * l * dim;
+  const size_t doc = (size_t)qi * n_docs + d;
   const auto D = docs.doc(doc);
   const uint8_t* dm = dmask + doc * m;
   const int tid = threadIdx.x;
@@ -102,7 +79,7 @@ colbert_maxsim_kernel(const float* __restrict__ q,
   float rmax = -INFINITY;
   for (int c0 = 0; c0 < m; c0 += CT) {
     const int nc = min(CT, m - c0);
-    score_tile(A, nrows, D, c0, nc, dim, sm);
+    score_tile(A, l, D, c0, nc, dim, sm);
     if (tid < RT) {
       for (int c = 0; c < nc; ++c)
         rmax = fmaxf(rmax, dm[c0 + c] ? sm.s[tid][c] : NEG);
@@ -111,53 +88,25 @@ colbert_maxsim_kernel(const float* __restrict__ q,
   }
   if (tid < RT) rowmax[tid] = rmax;
   __syncthreads();
-  if (tid < nq) {
-    const int qi = q0 + tid;
+  if (tid == 0) {
     double acc = 0.0;
     for (int t = 0; t < l; ++t)
-      if (qmask[(size_t)qi * l + t]) acc += (double)rowmax[tid * l + t];
+      if (qmask[(size_t)qi * l + t]) acc += (double)rowmax[t];
     out[(size_t)qi * n_docs + d] = (float)acc;
   }
 }
 
-template <bool RERANK, class Docs>
-static int launch(const float* q, const uint8_t* qmask, Docs docs,
-                  const uint8_t* dmask, int n_q, int l, int n_docs, int m,
-                  int dim, float* out, void* stream) {
+template <class Docs>
+static int launch_rerank(const float* q, const uint8_t* qmask, Docs docs,
+                         const uint8_t* dmask, int n_q, int l, int n_docs,
+                         int m, int dim, float* out, void* stream) {
   if (l < 1 || l > RT) return static_cast<int>(cudaErrorInvalidValue);
-  const int qb = RERANK ? 1 : RT / l;
   if (n_q > 0 && n_docs > 0) {
-    dim3 grid(n_docs, (n_q + qb - 1) / qb);
-    colbert_maxsim_kernel<RERANK, Docs>
-        <<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-            q, qmask, docs, dmask, n_q, l, n_docs, m, dim, qb, out);
+    colbert_maxsim_kernel<Docs>
+        <<<dim3(n_docs, n_q), NT, 0, static_cast<cudaStream_t>(stream)>>>(
+            q, qmask, docs, dmask, l, n_docs, m, dim, out);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// The residual rerank (B6) on the tile engine.
-static int launch_residual_rerank(const float* q, const uint8_t* qmask,
-                                  const int8_t* codes, const uint8_t* resq,
-                                  const float* scale, const float* codebooks,
-                                  const int* bucket_of, int n_tables,
-                                  const uint8_t* dmask, int n_q, int l,
-                                  int n_cand, int m, int dim,
-                                  int n_centroids, int bits, float* out,
-                                  void* stream) {
-  if ((bits != 2 && bits != 4) || dim % (8 / bits) || n_centroids < 1 ||
-      n_tables < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (bits == 2)
-    return launch<true>(q, qmask,
-                        ResidualDocs<2>{codes, resq, scale, codebooks,
-                                        bucket_of, m, dim, n_centroids,
-                                        n_tables},
-                        dmask, n_q, l, n_cand, m, dim, out, stream);
-  return launch<true>(q, qmask,
-                      ResidualDocs<4>{codes, resq, scale, codebooks,
-                                      bucket_of, m, dim, n_centroids,
-                                      n_tables},
-                      dmask, n_q, l, n_cand, m, dim, out, stream);
 }
 
 // ---- colbert_maxsim_multi on bf16 docs: the Hopper kernel ----
@@ -498,161 +447,78 @@ int launch(const float* q, const uint8_t* qmask, const void* docs,
 
 }  // namespace multi_bf16
 
-// ---- colbert_maxsim_residual_multi: the Hopper kernel ----
+// ---- the split-bf16 sweep of one consumer warpgroup ----
 //
-// Replaces the Pallas TPU kernel
-//   src/repro/kernels/colbert_maxsim/colbert_maxsim.py:217
-//   ::colbert_maxsim_residual_multi (_kernel_residual_multi; pallas_call
-//   at :246).
-// B3's function over one residual bucket, decoded in the kernel: token
-// c is codebook[code] + (u - 2^(BITS-1)) · scale, u the BITS-bit value of
-// its packed row.  As the Pallas kernel decodes into VMEM, this one
-// decodes into shared memory: a decoded bucket never sits in device
-// memory (at the timed bucket it would be ~360 MB a launch as planes).
-//
-// Bound on the H100: operations.  A decoded token is not bf16-exact, so
-// the docs take three bf16 terms; the queries on the serving path are
-// the encoder's bf16 output widened (one term), so a score costs three
-// bf16 products: 3 · 2·n_q·l·n_docs·m·dim flops, 0.752 ms for 64
-// queries x 32 tokens against 3,695 docs x 128 (989 TFLOP/s), against
-// 0.010 ms of codes, residuals, scales and masks (3.35 TB/s).  General
-// fp32 queries take the six products of the split rule.
-//
-// Design.  B3's bf16 kernel (multi_bf16, above) with another doc
-// source.  Queries are stationary: a block holds 2 x qpw whole queries,
-// their three bf16 planes loaded once by TMA from the pre-pass's output,
-// with one flag a warpgroup.  A producer warpgroup decodes the block's
-// docs into a two-stage ring of 64-token tiles: each thread takes one
-// 8-value chunk of eight rows of a tile, reads the token's code and
-// scale, its packed residual bits (one 4- or 2-byte load) and the
-// codebook row's 8 values (two 16-byte loads through the read-only
-// cache: the codebook, up to 127 x 128 fp32, stays in L1/L2), decodes
-// with the product and the sum rounded apart (__fmul_rn, __fadd_rn:
-// no fma contraction) — the eager decode's arithmetic, so the tile
-// equals dequantize_residual bit for bit; codes outside [0, C) are
-// clamped, as XLA's gather clamps — splits each value into hi + mid + lo
-// (sm90.cuh) and stores the three planes as 16-byte chunks in the
-// 128B-swizzled layout the wgmma descriptors read (chunk index XOR row
-// mod 8, the pattern TMA writes).  Each producer thread then fences the
-// generic proxy against the async one (the tensor cores read through
-// it) and arrives on the stage's full barrier.  Rows past m or past the
-// block's last doc are written as zeros and masked.
-// Shared memory decides the tile: three query planes of 128 rows take
-// 96 KB and a three-plane doc tile of 128 rows another 96 KB, so a ring
-// of two does not fit in 227 KB; 64-token tiles (48 KB a stage) do, and
-// keep 128-row query blocks, which halve the decode against 64-row ones
-// (every query block decodes every doc tile).  A consumer warpgroup
+// Shared by the three Hopper kernels on 64-token doc tiles: B3 on fp32
+// docs and B5 (multi_sm90), and B6 (rerank_sm90).  A tile is G = 64 /
+// m_pad docs of m_pad = pow2(m) <= 64 rows, or one 64-row slice of a doc
+// with m > 64, so the doc of a register is static for a given G.  A
+// consumer warpgroup holds qpw whole queries in its 64 rows of the query
+// planes (three bf16 terms, sm90.cuh) and, per tile of three doc planes,
 // computes its 64 x 64 scores with wgmma m64n64k16
-// (sm90::split_mma_n64_rn): the products of the doc's three terms (and,
-// for a flagged query group, the query's) one k16 step at a time, the
-// steps added in fp32 round to nearest on the CUDA cores.  A decoded
-// token may be far from unit norm (the codebook is the caller's): with
-// centroids of norm ~11 (scores up to ~90) eight steps into one
-// tensor-core accumulator, which adds with truncation, put scores up to
-// 1.97e-5 below a float64 MaxSim; step by step they stay within 7.8e-6
-// of it, where the fp32 plain version is within 1.38e-5 (H100, the
-// same inputs).  The two warpgroups take turns issuing theirs.  A
-// tile is G = 64 / m_pad docs of m_pad = pow2(m) <= 64 rows, or one
-// 64-row slice of a doc with m > 64, so the doc of a register is static
-// for a given G; the row maxima, the masks and the double-precision
-// per-query sums are multi_bf16's.
+// (sm90::split_mma_n64_rn): the products of the terms the flags ask for
+// one k16 step at a time, each step in a fresh accumulator, the steps
+// added in fp32 round to nearest.  The docs are the caller's, so they
+// may be far from unit norm: with centroids of norm ~11 (scores up to
+// ~90) eight steps into one tensor-core accumulator, which adds with
+// truncation, put B5's scores up to 1.97e-5 below a float64 MaxSim;
+// step by step they stay within 7.8e-6 of it, where the fp32 plain
+// version is within 1.38e-5 (score_check.py on the H100).  The
+// warpgroup then releases the stage, masks the columns (doc mask bits by
+// ballot; columns past m or the block's last doc are dead), takes each
+// row's max over each doc's columns with quad shuffles, carries a doc
+// longer than 64 across its tiles in registers, and writes the row
+// maxima to shared memory, 0 for a masked query token; after a named
+// barrier of the warpgroup, one warp per (query, doc) adds a query's
+// maxima in double, rounded once, so the sum does not depend on an
+// order.  Two warpgroups of a block take turns issuing their wgmmas
+// (named barriers 3 and 4), so one's epilogue runs under the other's
+// products.
 
-namespace resid_sm90 {
+namespace sweep {
 
 using namespace sm90;
 
-constexpr int QROWS = 128;    // query rows a block: two warpgroups of 64
 constexpr int TN = 64;        // doc rows a tile (wgmma N)
-constexpr int STAGES = 2;
-constexpr int NT = 384;       // consumer warps 0-7, producer warps 8-11
-constexpr int CONSUMER_WARPS = 8;
-constexpr int PRODUCERS = 128;
 constexpr int MAX_G = 8;      // docs a tile: m_pad 8
-
-constexpr uint32_t PLANE_Q = QROWS * PLANE_DP * 2;
 constexpr uint32_t PLANE_D = TN * PLANE_DP * 2;
 constexpr uint32_t STAGE_D = 3 * PLANE_D;
-constexpr uint32_t OFF_D = 3 * PLANE_Q;
-constexpr uint32_t OFF_RM = OFF_D + STAGES * STAGE_D;
-constexpr uint32_t RM_BUF = MAX_G * QROWS * 4;       // [g][row] floats
-constexpr uint32_t OFF_BARS = OFF_RM + 2 * RM_BUF;
-// q_full, then full[STAGES], empty[STAGES]
-constexpr uint32_t SMEM_BYTES = OFF_BARS + 8 * (1 + 2 * STAGES);
-constexpr uint32_t SMEM_DYNAMIC = SMEM_BYTES + 1024;
-static_assert(PLANE_Q == SPLIT_A_PLANE && PLANE_D == SPLIT_B_PLANE,
-              "split_mma_n64's plane strides");
+static_assert(PLANE_D == SPLIT_B_PLANE, "split_mma_n64's plane strides");
 
-struct Args {
-  const int* qflags;
+// A launch's docs and scores.  Rows of the query planes: a warpgroup's
+// 64 start at its first query.
+struct Sweep {
   const uint8_t* qmask;     // (n_q, l)
-  const uint8_t* dmask;     // (n_docs, m)
-  const int8_t* codes;      // (n_docs, m)
-  const uint8_t* resq;      // (n_docs, m, dim * BITS / 8)
-  const float* scale;       // (n_docs, m)
-  const float* codebook;    // (n_centroids, dim)
-  int n_q, l, qpw, n_docs, m, m_pad, tiles_per_doc, docs_per_block, dim,
-      n_centroids;
+  const uint8_t* dmask;     // (n_docs, m); B6 (n_q, n_docs, m)
+  const int* dflags;        // fp32 docs: a zero-term flag a tile group
   float* out;               // (n_q, n_docs)
+  int n_q, l, qpw, n_docs, m, m_pad, tiles_per_doc;
 };
+
+// The tiles of m tokens a doc: sets m_pad and tiles_per_doc, returns G.
+inline int geometry(Sweep& s) {
+  int m_pad = 8;
+  while (m_pad < s.m) m_pad *= 2;
+  const int G = m_pad >= TN ? 1 : TN / m_pad;
+  s.m_pad = G == 1 ? TN : m_pad;
+  s.tiles_per_doc = G == 1 ? (s.m + TN - 1) / TN : 1;
+  return G;
+}
+
+// Docs a block, a whole number of tile groups, for about four blocks an
+// SM over gx blocks along the other axis.
+inline int docs_per_block(int n_docs, int G, int gx) {
+  const int units = (n_docs + G - 1) / G;
+  const int groups = max(1, min(units, (4 * sm_count() + gx - 1) / gx));
+  return (units + groups - 1) / groups * G;
+}
 
 // The first doc and the token slice of tile `it` of a block.
 template <int G>
-__device__ __forceinline__ void tile_of(const Args& a, int d_begin, int it,
+__device__ __forceinline__ void tile_of(const Sweep& a, int d_begin, int it,
                                         int& doc0, int& t) {
   t = G == 1 ? it % a.tiles_per_doc : 0;
   doc0 = G == 1 ? d_begin + it / a.tiles_per_doc : d_begin + it * G;
-}
-
-// Producer thread p of 128: chunk c = p % 16 (values 8c .. 8c + 7) of
-// rows p / 16 + 8 j of the tile at `tile`, decoded, split and stored in
-// the three planes.  Every row of a thread has the same row mod 8, so
-// one swizzled chunk offset serves all eight.
-template <int BITS, int G>
-__device__ __forceinline__ void decode_tile(const Args& a, uint32_t tile,
-                                            int doc0, int t, int d_end,
-                                            int p) {
-  constexpr int HALF = 1 << (BITS - 1);
-  const int c = p % 16, rr = p / 16;
-  const uint32_t chunk = tile + (c / 8) * TN * 128 + ((c % 8) ^ rr) * 16;
-  const bool col_ok = 8 * c < a.dim;
-#pragma unroll
-  for (int j = 0; j < TN / 8; ++j) {
-    const int r = rr + 8 * j;
-    const int doc = G == 1 ? doc0 : doc0 + r / a.m_pad;
-    const int tok = G == 1 ? t * TN + r : r % a.m_pad;
-    uint32_t h[4] = {0, 0, 0, 0}, md[4] = {0, 0, 0, 0}, lo[4] = {0, 0, 0, 0};
-    if (col_ok && doc < d_end && tok < a.m) {
-      const size_t k = (size_t)doc * a.m + tok;
-      const int code = min(max((int)a.codes[k], 0), a.n_centroids - 1);
-      const float sc = a.scale[k];
-      // the chunk's 8 values are BITS bytes, value i at bit BITS · i
-      const uint8_t* rq = a.resq + k * (a.dim * BITS / 8) + c * BITS;
-      const uint32_t u = BITS == 4 ? *reinterpret_cast<const uint32_t*>(rq)
-                                   : *reinterpret_cast<const uint16_t*>(rq);
-      const float4* cb = reinterpret_cast<const float4*>(
-          a.codebook + (size_t)code * a.dim + 8 * c);
-      const float4 c0 = __ldg(cb), c1 = __ldg(cb + 1);
-      const float cent[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        __nv_bfloat16 th[2], tm[2], tl[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int v = (u >> (BITS * (2 * i + e))) & ((1 << BITS) - 1);
-          const float x = __fadd_rn(cent[2 * i + e],
-                                    __fmul_rn((float)(v - HALF), sc));
-          split3(x, th[e], tm[e], tl[e]);
-        }
-        h[i] = pack_bf16(th[0], th[1]);
-        md[i] = pack_bf16(tm[0], tm[1]);
-        lo[i] = pack_bf16(tl[0], tl[1]);
-      }
-    }
-    const uint32_t dst = chunk + r * 128;
-    st_shared_v4(dst, h[0], h[1], h[2], h[3]);
-    st_shared_v4(dst + PLANE_D, md[0], md[1], md[2], md[3]);
-    st_shared_v4(dst + 2 * PLANE_D, lo[0], lo[1], lo[2], lo[3]);
-  }
 }
 
 // Each row's max over each of the tile's G docs, masked columns at NEG.
@@ -674,23 +540,24 @@ __device__ __forceinline__ void row_max(const float (&acc)[32],
     }
 }
 
-// One consumer warpgroup.  Thread (warp w, lane) owns local rows
-// r0 = 16 w + lane / 4 and r1 = r0 + 8; column 8 i + 2 (lane % 4) + e of
-// the tile sits in register 4 i + e (r0) and 4 i + 2 + e (r1).
-template <int G>
-__device__ __forceinline__ void consume(uint32_t base, uint8_t* smem, int wg,
-                                        int n_tiles, int d_begin,
-                                        int d_end, const Args& a) {
+// One consumer warpgroup `wg` of WGS: the qpw queries from q_first (query
+// flag qf) in its 64 rows of the QROWS-row query planes at q_hi, against
+// the docs [d_begin, d_end) of `dmask` in n_tiles tiles of a ring of
+// STAGES at `ring`; barriers at `bars`: the query planes', full[STAGES],
+// empty[STAGES].  FLAGGED: a tile's doc terms follow its group's flag,
+// else the docs take three.  rm: two buffers of MAX_G x QROWS row maxima.
+// Thread (warp w, lane) owns local rows r0 = 16 w + lane / 4 and r1 =
+// r0 + 8; column 8 i + 2 (lane % 4) + e of the tile sits in register
+// 4 i + e (r0) and 4 i + 2 + e (r1).
+template <int G, int QROWS, int WGS, int STAGES, bool FLAGGED>
+__device__ __forceinline__ void consume(uint32_t q_hi, uint32_t ring,
+                                        uint32_t bars, float* rm, int wg,
+                                        int q_first, bool qf, int n_tiles,
+                                        int d_begin, int d_end,
+                                        const uint8_t* dmask, const Sweep& a) {
   const int tid = threadIdx.x % 128, warp = uniform(tid / 32), lane = tid % 32;
   const int r0 = 16 * warp + lane / 4, r1 = r0 + 8;
   const int cl = 2 * (lane % 4);
-  const int qg = 2 * blockIdx.x + wg;
-  const int q_first = qg * a.qpw;
-  const int n_groups = (a.n_q + a.qpw - 1) / a.qpw;
-  const bool qf = uniform(qg < n_groups && a.qflags[qg]);
-  const uint32_t bars = base + OFF_BARS;
-  const uint32_t q_hi = base + wg * 64 * 128;
-  float* rm = reinterpret_cast<float*>(smem + OFF_RM);
   // whether local rows r0 and r1 are live tokens of this warpgroup's
   // queries: a masked row's maxima go to shared memory as 0, so the sum
   // adds every row of a query
@@ -703,7 +570,7 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* smem, int wg,
   int buf = 0;
   float run0 = -INFINITY, run1 = -INFINITY;
   // Ping-pong on named barriers 3 and 4; warpgroup 0 goes first.
-  if (wg == 1 && n_tiles > 0) bar_arrive(3, 256);
+  if (WGS == 2 && wg == 1 && n_tiles > 0) bar_arrive(3, 256);
 
   mbar_wait(bars, 0);                                   // query planes
   for (int it = 0; it < n_tiles; ++it) {
@@ -716,19 +583,27 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* smem, int wg,
       const int c = 32 * j + lane;
       const int doc = doc0 + (G == 1 ? 0 : c / a.m_pad);
       const int tok = G == 1 ? t * TN + c : c % a.m_pad;
-      live[j] = doc < d_end && tok < a.m &&
-                a.dmask[(size_t)doc * a.m + tok];
+      live[j] = doc < d_end && tok < a.m && dmask[(size_t)doc * a.m + tok];
     }
+    const bool df = !FLAGGED || uniform(a.dflags[doc0 / G]);
     const int s = it % STAGES;
-    const uint32_t tile = base + OFF_D + s * STAGE_D;
+    const uint32_t tile = ring + s * STAGE_D;
     float acc[32];
     mbar_wait(bars + 8 + 8 * s, (it / STAGES) & 1);
-    bar_sync(3 + wg, 256);                              // my turn
-    if (qf)
-      split_mma_n64_rn<true, true>(acc, q_hi, tile);
-    else
-      split_mma_n64_rn<false, true>(acc, q_hi, tile);
-    if (wg == 0 || it + 1 < n_tiles) bar_arrive(4 - wg, 256);  // yours
+    if (WGS == 2) bar_sync(3 + wg, 256);                // my turn
+    if (qf) {
+      if (df)
+        split_mma_n64_rn<true, true, QROWS>(acc, q_hi, tile);
+      else
+        split_mma_n64_rn<true, false, QROWS>(acc, q_hi, tile);
+    } else {
+      if (df)
+        split_mma_n64_rn<false, true, QROWS>(acc, q_hi, tile);
+      else
+        split_mma_n64_rn<false, false, QROWS>(acc, q_hi, tile);
+    }
+    if (WGS == 2 && (wg == 0 || it + 1 < n_tiles))
+      bar_arrive(4 - wg, 256);                          // yours
     __syncwarp();
     if (lane == 0) mbar_arrive(bars + 8 + 8 * (STAGES + s));
 
@@ -745,7 +620,7 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* smem, int wg,
       g0[g] = quad_max(g0[g]);
       g1[g] = quad_max(g1[g]);
     }
-    float* rb = rm + buf * (RM_BUF / 4) + 64 * wg;
+    float* rb = rm + buf * MAX_G * QROWS + 64 * wg;
     if (G == 1) {
       run0 = t == 0 ? g0[0] : fmaxf(run0, g0[0]);
       run1 = t == 0 ? g1[0] : fmaxf(run1, g1[0]);
@@ -781,17 +656,497 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* smem, int wg,
   }
 }
 
+// The residual decode of one 8-value chunk, value i at bit BITS · i of
+// u, against its centroid values: the product and the sum rounded apart
+// (__fmul_rn, __fadd_rn: no fma contraction) — the eager decode's
+// arithmetic, so a tile equals dequantize_residual bit for bit — each
+// value split into hi + mid + lo and packed two a word.
+template <int BITS>
+__device__ __forceinline__ void decode_chunk(uint32_t u,
+                                             const float (&cent)[8],
+                                             float sc, uint32_t (&h)[4],
+                                             uint32_t (&md)[4],
+                                             uint32_t (&lo)[4]) {
+  constexpr int HALF = 1 << (BITS - 1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat16 th[2], tm[2], tl[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int v = (u >> (BITS * (2 * i + e))) & ((1 << BITS) - 1);
+      const float x = __fadd_rn(cent[2 * i + e],
+                                __fmul_rn((float)(v - HALF), sc));
+      split3(x, th[e], tm[e], tl[e]);
+    }
+    h[i] = pack_bf16(th[0], th[1]);
+    md[i] = pack_bf16(tm[0], tm[1]);
+    lo[i] = pack_bf16(tl[0], tl[1]);
+  }
+}
+
+// A chunk's three terms into the tile's three planes at `dst`.
+__device__ __forceinline__ void store_chunk(uint32_t dst,
+                                            const uint32_t (&h)[4],
+                                            const uint32_t (&md)[4],
+                                            const uint32_t (&lo)[4]) {
+  st_shared_v4(dst, h[0], h[1], h[2], h[3]);
+  st_shared_v4(dst + PLANE_D, md[0], md[1], md[2], md[3]);
+  st_shared_v4(dst + 2 * PLANE_D, lo[0], lo[1], lo[2], lo[3]);
+}
+
+// Split the queries into the caller's planes (3, n_q·l, 128) bf16 and
+// flags (one a group of `group` queries), and encode the planes' tensor
+// map (boxes of 64 rows).  Returns a cudaError_t code.
+inline int query_side(const float* q, int n_q, int l, int dim, int group,
+                      void* q_planes, int* q_flags, CUtensorMap* tq,
+                      cudaStream_t stream) {
+  auto* qp = static_cast<__nv_bfloat16*>(q_planes);
+  const int err = split_planes(q, n_q * l, dim, group * l, qp, q_flags,
+                               stream);
+  if (err) return err;
+  const uint64_t row = PLANE_DP * 2;
+  return encode_3d(tq, qp, PLANE_DP, (uint64_t)n_q * l, 3, row,
+                   row * n_q * l, 64, 1)
+             ? 0
+             : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace sweep
+
+// ---- the multi sweeps on fp32 docs and on a residual bucket ----
+//
+// Replace the Pallas TPU kernels
+//   src/repro/kernels/colbert_maxsim/colbert_maxsim.py:125
+//   ::colbert_maxsim_multi for fp32 docs (_kernel_multi; pallas_call at
+//   :149), and :217 ::colbert_maxsim_residual_multi
+//   (_kernel_residual_multi; pallas_call at :246).
+//
+// Bound on the H100: operations.  Docs that are not bf16-exact take
+// three bf16 terms: a decoded residual token (B5), or an int8 token
+// times its fp32 scale (fp32 B3 on the int8 path).  The queries on the
+// serving path are the encoder's bf16 output widened (one term), so a
+// score costs three bf16 products: 3 · 2·n_q·l·n_docs·m·dim flops,
+// 0.752 ms for 64 queries x 32 tokens against 3,695 docs x 128 (989
+// TFLOP/s), against 0.072 ms of fp32 docs (B3) or 0.010 ms of codes,
+// residuals, scales and masks (B5; 3.35 TB/s).  General fp32 queries
+// take the six products of the split rule; bf16-exact docs on the fp32
+// route (the bf16 index widened) one product per query term.
+//
+// Design.  One kernel, kernel<BITS, G>, with the producer its doc format
+// asks for.  Queries are stationary: a block holds 2 x qpw whole queries
+// in two consumer warpgroups (qpw = floor(64 / l)), their three bf16
+// planes loaded once by TMA from the pre-pass's output, with one flag a
+// warpgroup.  Shared memory decides the tile: three query planes of 128
+// rows take 96 KB and a three-plane doc tile of 128 rows another 96 KB,
+// so a ring of two does not fit in 227 KB; 64-token tiles (48 KB a
+// stage) do, and keep 128-row query blocks, which halve the doc traffic
+// (and B5's decode) against 64-row ones: every query block reads every
+// doc tile.  The grid is query blocks x doc groups, query blocks
+// fastest, so the blocks that read the same docs run together in the
+// 50 MB L2.  The two consumer warpgroups run the sweep above.
+//
+// BITS = 0, fp32 docs: the split pre-pass (sm90.cuh) writes the docs'
+// three planes (3, n_docs·m, 128) bf16 into the caller's scratch, with
+// one flag a tile group (G docs, a tile's worth), as B2's pre-pass
+// splits its tokens; one thread of the producer warpgroup streams the
+// hi plane of a tile, and mid and lo where its group's flag is set, by
+// TMA from a 3-D tensor map over (128, m, 3·n_docs) — box 64 x m_pad x
+// G, rows past m zero-filled — into a ring of two stages.  The scratch
+// is 6 bytes a doc value (363 MB at the timed bucket); the pre-pass
+// reads the docs once and writes it once.  Splitting in the producer
+// instead would repeat the split for every query block (16 at the
+// timed shape).
+//
+// BITS = 2 or 4, a residual bucket (B5), decoded in the kernel: token c
+// is codebook[code] + (u - 2^(BITS-1)) · scale, u the BITS-bit value of
+// its packed row.  As the Pallas kernel decodes into VMEM, this one
+// decodes into shared memory: a decoded bucket never sits in device
+// memory.  The producer warpgroup decodes the block's docs into the
+// ring: each thread takes one 8-value chunk of eight rows of a tile,
+// reads the token's code and scale, its packed residual bits (one 4- or
+// 2-byte load) and the codebook row's 8 values (two 16-byte loads
+// through the read-only cache: the codebook, up to 127 x 128 fp32, stays
+// in L1/L2), decodes (sweep::decode_chunk); codes outside [0, C) are
+// clamped, as XLA's gather clamps; and stores the three planes as
+// 16-byte chunks in the 128B-swizzled layout the wgmma descriptors read
+// (chunk index XOR row mod 8, the pattern TMA writes).  Each producer
+// thread then fences the generic proxy against the async one (the
+// tensor cores read through it) and arrives on the stage's full
+// barrier.  Rows past m or past the block's last doc are written as
+// zeros and masked.
+
+namespace multi_sm90 {
+
+using namespace sm90;
+using namespace sweep;
+
+constexpr int QROWS = 128;    // query rows a block: two warpgroups of 64
+constexpr int STAGES = 2;
+constexpr int NT = 384;       // consumer warps 0-7, producer warps 8-11
+constexpr int CONSUMER_WARPS = 8;
+constexpr int PRODUCERS = 128;
+
+constexpr uint32_t PLANE_Q = QROWS * PLANE_DP * 2;
+constexpr uint32_t OFF_D = 3 * PLANE_Q;
+constexpr uint32_t OFF_RM = OFF_D + STAGES * STAGE_D;
+constexpr uint32_t RM_BUF = MAX_G * QROWS * 4;       // [g][row] floats
+constexpr uint32_t OFF_BARS = OFF_RM + 2 * RM_BUF;
+// q_full, then full[STAGES], empty[STAGES]
+constexpr uint32_t SMEM_BYTES = OFF_BARS + 8 * (1 + 2 * STAGES);
+constexpr uint32_t SMEM_DYNAMIC = SMEM_BYTES + 1024;
+static_assert(PLANE_Q == SPLIT_A_PLANE, "split_mma_n64's plane strides");
+
+struct Args {
+  Sweep s;
+  const int* qflags;        // a flag a warpgroup of qpw queries
+  int docs_per_block;
+  // BITS > 0: the bucket's codes (n_docs, m), residuals (n_docs, m,
+  // dim * BITS / 8), scales (n_docs, m) and codebook (n_centroids, dim)
+  const int8_t* codes;
+  const uint8_t* resq;
+  const float* scale;
+  const float* codebook;
+  int dim, n_centroids;
+};
+
+// Producer thread p of 128: chunk c = p % 16 (values 8c .. 8c + 7) of
+// rows p / 16 + 8 j of the tile at `tile`, decoded, split and stored in
+// the three planes.  Every row of a thread has the same row mod 8, so
+// one swizzled chunk offset serves all eight.
+template <int BITS, int G>
+__device__ __forceinline__ void decode_tile(const Args& a, uint32_t tile,
+                                            int doc0, int t, int d_end,
+                                            int p) {
+  const int c = p % 16, rr = p / 16;
+  const uint32_t chunk = tile + (c / 8) * TN * 128 + ((c % 8) ^ rr) * 16;
+  const bool col_ok = 8 * c < a.dim;
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+    const int r = rr + 8 * j;
+    const int doc = G == 1 ? doc0 : doc0 + r / a.s.m_pad;
+    const int tok = G == 1 ? t * TN + r : r % a.s.m_pad;
+    uint32_t h[4] = {0, 0, 0, 0}, md[4] = {0, 0, 0, 0}, lo[4] = {0, 0, 0, 0};
+    if (col_ok && doc < d_end && tok < a.s.m) {
+      const size_t k = (size_t)doc * a.s.m + tok;
+      const int code = min(max((int)a.codes[k], 0), a.n_centroids - 1);
+      const float sc = a.scale[k];
+      // the chunk's 8 values are BITS bytes, value i at bit BITS · i
+      const uint8_t* rq = a.resq + k * (a.dim * BITS / 8) + c * BITS;
+      const uint32_t u = BITS == 4 ? *reinterpret_cast<const uint32_t*>(rq)
+                                   : *reinterpret_cast<const uint16_t*>(rq);
+      const float4* cb = reinterpret_cast<const float4*>(
+          a.codebook + (size_t)code * a.dim + 8 * c);
+      const float4 c0 = __ldg(cb), c1 = __ldg(cb + 1);
+      const float cent[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+      decode_chunk<BITS>(u, cent, sc, h, md, lo);
+    }
+    store_chunk(chunk + r * 128, h, md, lo);
+  }
+}
+
 template <int BITS, int G>
 __global__ void __launch_bounds__(NT, 1)
 kernel(const __grid_constant__ CUtensorMap tq,
+       const __grid_constant__ CUtensorMap td,
        const __grid_constant__ Args a) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t bars = base + OFF_BARS;
   const int d_begin = blockIdx.y * a.docs_per_block;
-  const int d_end = min(a.n_docs, d_begin + a.docs_per_block);
-  const int n_tiles = G == 1 ? (d_end - d_begin) * a.tiles_per_doc
+  const int d_end = min(a.s.n_docs, d_begin + a.docs_per_block);
+  const int n_tiles = G == 1 ? (d_end - d_begin) * a.s.tiles_per_doc
+                             : (d_end - d_begin + G - 1) / G;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 + 8 * s, BITS ? PRODUCERS : 1);
+      mbar_init(bars + 8 + 8 * (STAGES + s), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = uniform(threadIdx.x / 32);
+  if (warp >= CONSUMER_WARPS) {
+    // producer warpgroup: one thread loads the query planes (and, for
+    // fp32 docs, streams the doc tiles); for a residual bucket all 128
+    // decode them
+    const int p = threadIdx.x - CONSUMER_WARPS * 32;
+    if (p == 0) {
+      // each warpgroup's 64 rows start at its first query; a warpgroup
+      // past the last query loads nothing
+      const int q0 = 2 * blockIdx.x * a.s.qpw;
+      const int groups = q0 + a.s.qpw < a.s.n_q ? 2 : 1;
+      mbar_expect_tx(bars, 3 * groups * PLANE_Q / 2);
+      for (int pl = 0; pl < 3; ++pl)
+        for (int pn = 0; pn < PLANE_DP / 64; ++pn)
+          for (int h = 0; h < groups; ++h)
+            tma_load_3d(base + pl * PLANE_Q + pn * QROWS * 128 +
+                            h * 64 * 128,
+                        &tq, bars, pn * 64, (q0 + h * a.s.qpw) * a.s.l, pl);
+    }
+    if (BITS == 0 && p != 0) return;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES;
+      const uint32_t full = bars + 8 + 8 * s;
+      const uint32_t tile = base + OFF_D + s * STAGE_D;
+      int doc0, t;
+      tile_of<G>(a.s, d_begin, it, doc0, t);
+      mbar_wait(bars + 8 + 8 * (STAGES + s), ((it / STAGES) & 1) ^ 1);
+      if constexpr (BITS == 0) {
+        const int n_pl = a.s.dflags[doc0 / G] ? 3 : 1;
+        mbar_expect_tx(full, n_pl * PLANE_D);
+        for (int pl = 0; pl < n_pl; ++pl)
+          for (int pn = 0; pn < PLANE_DP / 64; ++pn)
+            tma_load_3d(tile + pl * PLANE_D + pn * TN * 128, &td, full,
+                        pn * 64, t * TN, pl * a.s.n_docs + doc0);
+      } else {
+        decode_tile<BITS, G>(a, tile, doc0, t, d_end, p);
+        fence_proxy_async();
+        mbar_arrive(full);
+      }
+    }
+  } else {
+    const int wg = warp / 4, qg = 2 * blockIdx.x + wg;
+    const int n_groups = (a.s.n_q + a.s.qpw - 1) / a.s.qpw;
+    const bool qf = uniform(qg < n_groups && a.qflags[qg]);
+    consume<G, QROWS, 2, STAGES, BITS == 0>(
+        base + wg * 64 * 128, base + OFF_D, bars,
+        reinterpret_cast<float*>(smem + OFF_RM), wg, qg * a.s.qpw, qf,
+        n_tiles, d_begin, d_end, a.s.dmask, a.s);
+  }
+}
+
+template <int BITS, int G>
+int run(const CUtensorMap& tq, const CUtensorMap& td, const Args& a, dim3 grid,
+        cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel<BITS, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_DYNAMIC);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<BITS, G><<<grid, NT, SMEM_DYNAMIC, stream>>>(tq, td, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BITS>
+int run_g(int G, const CUtensorMap& tq, const CUtensorMap& td, Args& a,
+          cudaStream_t stream) {
+  // query blocks fastest; a doc group is a whole number of tiles
+  const int gx = (a.s.n_q + 2 * a.s.qpw - 1) / (2 * a.s.qpw);
+  a.docs_per_block = docs_per_block(a.s.n_docs, G, gx);
+  const dim3 grid(gx, (a.s.n_docs + a.docs_per_block - 1) / a.docs_per_block);
+  switch (G) {
+    case 1: return run<BITS, 1>(tq, td, a, grid, stream);
+    case 2: return run<BITS, 2>(tq, td, a, grid, stream);
+    case 4: return run<BITS, 4>(tq, td, a, grid, stream);
+    default: return run<BITS, 8>(tq, td, a, grid, stream);
+  }
+}
+
+// fp32 docs, with the caller's scratch for the doc planes, (3, n_docs·m,
+// 128) bf16, and flags, (n_docs,) int32 (one a tile group is used).
+int launch_f32(const float* q, const uint8_t* qmask, const float* docs,
+               const uint8_t* dmask, int n_q, int l, int n_docs, int m,
+               int dim, void* q_planes, int* q_flags, void* d_planes,
+               int* d_flags, float* out, cudaStream_t stream) {
+  if (l < 1 || l > 64 || m < 1 || dim < 8 || dim % 8 || dim > PLANE_DP)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_q < 1 || n_docs < 1) return static_cast<int>(cudaGetLastError());
+  Args a{};
+  a.s = Sweep{qmask, dmask, d_flags, out, n_q, l, 64 / l, n_docs, m, 0, 1};
+  a.qflags = q_flags;
+  CUtensorMap tq, td;
+  int err = query_side(q, n_q, l, dim, a.s.qpw, q_planes, q_flags, &tq,
+                       stream);
+  if (err) return err;
+  const int G = geometry(a.s);
+  auto* dp = static_cast<__nv_bfloat16*>(d_planes);
+  err = split_planes(docs, n_docs * m, dim, G * m, dp, d_flags, stream);
+  if (err) return err;
+  const uint64_t row = PLANE_DP * 2;
+  if (!encode_3d(&td, dp, PLANE_DP, m, 3ull * n_docs, row, row * m,
+                 a.s.m_pad, G))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return run_g<0>(G, tq, td, a, stream);
+}
+
+int launch_resid(const float* q, const uint8_t* qmask, const int8_t* codes,
+                 const uint8_t* resq, const float* scale,
+                 const float* codebook, const uint8_t* dmask, int n_q, int l,
+                 int n_docs, int m, int dim, int n_centroids, int bits,
+                 void* q_planes, int* q_flags, float* out,
+                 cudaStream_t stream) {
+  // 16-byte codebook loads; a chunk's residual bits load as one 4-byte
+  // (4-bit) or 2-byte (2-bit) word
+  if (l < 1 || l > 64 || m < 1 || dim < 8 || dim % 8 || dim > PLANE_DP ||
+      (bits != 2 && bits != 4) || n_centroids < 1 ||
+      reinterpret_cast<uintptr_t>(codebook) % 16 ||
+      reinterpret_cast<uintptr_t>(resq) % bits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_q < 1 || n_docs < 1) return static_cast<int>(cudaGetLastError());
+  Args a{};
+  a.s = Sweep{qmask, dmask, nullptr, out, n_q, l, 64 / l, n_docs, m, 0, 1};
+  a.qflags = q_flags;
+  a.codes = codes;
+  a.resq = resq;
+  a.scale = scale;
+  a.codebook = codebook;
+  a.dim = dim;
+  a.n_centroids = n_centroids;
+  CUtensorMap tq;
+  const int err = query_side(q, n_q, l, dim, a.s.qpw, q_planes, q_flags,
+                             &tq, stream);
+  if (err) return err;
+  const int G = geometry(a.s);
+  return bits == 2 ? run_g<2>(G, tq, tq, a, stream)
+                   : run_g<4>(G, tq, tq, a, stream);
+}
+
+}  // namespace multi_sm90
+
+// ---- colbert_maxsim_residual_rerank (B6): the Hopper kernel ----
+//
+// Replaces the Pallas TPU kernel
+//   src/repro/kernels/colbert_maxsim/colbert_maxsim.py:294
+//   ::colbert_maxsim_residual_rerank (_kernel_residual_rerank;
+//   pallas_call at :326).
+// B5's function for each query against its own candidates, candidate
+// (i, j) decoding against codebook clamp(bucket_of[i, j]) of the
+// (n_tables, C, dim) table.
+//
+// Bound on the H100: operations, three bf16 products a score (decoded
+// docs take three terms, the path's queries one): 3 · 2·n_q·l·n_cand·m·
+// dim flops, 0.013 ms for 64 queries x 32 tokens against 64 candidates
+// x 128 each, against 0.011 ms of codes, residuals, scales and masks.
+//
+// Design.  A decoded tile serves one query only (each query has its own
+// candidates), so there is no repeated decode to save, as B5 saves it
+// with 128-row query blocks; what matters is filling the card.  A block
+// is one query and a group of its candidates: one consumer warpgroup
+// and a producer warpgroup, 256 threads, with the groups sized for
+// about four blocks an SM in the grid (64 queries alone are fewer than
+// the 132 SMs).  wgmma's M is 64 and a query has l <= 64 rows: the
+// query's rows are padded to 64 (rows past l dead; at l = 32 half the
+// products are spent on them), so the sweep's consumer, its row maxima
+// and its sums serve unchanged; putting doc tokens on M and the query
+// on N (m64n32k16) would spend no product on padding but needs a max
+// down the columns, across the four warps.  The query's three planes
+// (64 rows, 48 KB) load once by TMA; the producer warpgroup decodes the
+// candidates into one 64-token three-plane tile (48 KB), each thread one
+// 8-value chunk of eight rows, with B5's arithmetic (sweep::decode_chunk)
+// and two additions: the codebook of the row's candidate, and every load
+// of a tile issued before the first shared store (the stores carry a
+// memory clobber, so loads after them wait for them: B5 takes two
+// dependent round trips a row, this decode two a tile).  One stage
+// keeps a block at ~100 KB, so two blocks share an SM and one's decode
+// runs under the other's products; a ring of two in one block an SM
+// measured slower on the H100.
+
+namespace rerank_sm90 {
+
+using namespace sm90;
+using namespace sweep;
+
+constexpr int QROWS = 64;     // one query's rows, padded
+constexpr int STAGES = 1;      // and two blocks an SM
+constexpr int NT = 256;       // consumer warps 0-3, producer warps 4-7
+constexpr int CONSUMER_WARPS = 4;
+constexpr int PRODUCERS = 128;
+
+constexpr uint32_t PLANE_Q = QROWS * PLANE_DP * 2;
+constexpr uint32_t OFF_D = 3 * PLANE_Q;
+constexpr uint32_t OFF_RM = OFF_D + STAGES * STAGE_D;
+constexpr uint32_t RM_BUF = MAX_G * QROWS * 4;       // [g][row] floats
+constexpr uint32_t OFF_BARS = OFF_RM + 2 * RM_BUF;
+// q_full, then full[STAGES], empty[STAGES]
+constexpr uint32_t SMEM_BYTES = OFF_BARS + 8 * (1 + 2 * STAGES);
+constexpr uint32_t SMEM_DYNAMIC = SMEM_BYTES + 1024;
+static_assert(OFF_D % 1024 == 0, "128B-swizzled tiles are 1,024-aligned");
+
+struct Args {
+  Sweep s;                  // qpw 1; n_docs the candidates a query
+  const int* qflags;        // a flag a query
+  const int8_t* codes;      // (n_q, n_cand, m)
+  const uint8_t* resq;      // (n_q, n_cand, m, dim * BITS / 8)
+  const float* scale;       // (n_q, n_cand, m)
+  const float* codebooks;   // (n_tables, n_centroids, dim)
+  const int* bucket_of;     // (n_q, n_cand)
+  int n_tables, docs_per_block, dim, n_centroids;
+};
+
+// Producer thread p of 128: chunk c = p % 16 of rows p / 16 + 8 j of
+// query qi's tile at `tile`, as multi_sm90::decode_tile, with every
+// load first.
+template <int BITS, int G>
+__device__ __forceinline__ void decode_tile(const Args& a, int qi,
+                                            uint32_t tile, int doc0, int t,
+                                            int d_end, int p) {
+  constexpr int J = TN / 8;     // rows a thread
+  const int c = p % 16, rr = p / 16;
+  const uint32_t chunk = tile + (c / 8) * TN * 128 + ((c % 8) ^ rr) * 16;
+  const bool col_ok = 8 * c < a.dim;
+  const size_t cand0 = (size_t)qi * a.s.n_docs;
+  bool ok[J];
+  float sc[J];
+  uint32_t u[J];
+  const float4* cb[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int r = rr + 8 * j;
+    const int doc = G == 1 ? doc0 : doc0 + r / a.s.m_pad;
+    const int tok = G == 1 ? t * TN + r : r % a.s.m_pad;
+    ok[j] = col_ok && doc < d_end && tok < a.s.m;
+    sc[j] = 0.f;
+    u[j] = 0;
+    cb[j] = nullptr;
+    if (ok[j]) {
+      const size_t k = (cand0 + doc) * a.s.m + tok;
+      const int code = min(max((int)a.codes[k], 0), a.n_centroids - 1);
+      const int tab = min(max(a.bucket_of[cand0 + doc], 0), a.n_tables - 1);
+      sc[j] = a.scale[k];
+      const uint8_t* rq = a.resq + k * (a.dim * BITS / 8) + c * BITS;
+      u[j] = BITS == 4 ? *reinterpret_cast<const uint32_t*>(rq)
+                       : *reinterpret_cast<const uint16_t*>(rq);
+      cb[j] = reinterpret_cast<const float4*>(
+          a.codebooks + ((size_t)tab * a.n_centroids + code) * a.dim + 8 * c);
+    }
+  }
+  float4 c0[J], c1[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    c0[j] = c1[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ok[j]) {
+      c0[j] = __ldg(cb[j]);
+      c1[j] = __ldg(cb[j] + 1);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    uint32_t h[4] = {0, 0, 0, 0}, md[4] = {0, 0, 0, 0}, lo[4] = {0, 0, 0, 0};
+    if (ok[j]) {
+      const float cent[8] = {c0[j].x, c0[j].y, c0[j].z, c0[j].w,
+                             c1[j].x, c1[j].y, c1[j].z, c1[j].w};
+      decode_chunk<BITS>(u[j], cent, sc[j], h, md, lo);
+    }
+    store_chunk(chunk + (rr + 8 * j) * 128, h, md, lo);
+  }
+}
+
+// Block (query blockIdx.x, candidate group blockIdx.y).
+template <int BITS, int G>
+__global__ void __launch_bounds__(NT, 2)
+kernel(const __grid_constant__ CUtensorMap tq,
+       const __grid_constant__ Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t bars = base + OFF_BARS;
+  const int qi = blockIdx.x;
+  const int d_begin = blockIdx.y * a.docs_per_block;
+  const int d_end = min(a.s.n_docs, d_begin + a.docs_per_block);
+  const int n_tiles = G == 1 ? (d_end - d_begin) * a.s.tiles_per_doc
                              : (d_end - d_begin + G - 1) / G;
 
   if (threadIdx.x == 0) {
@@ -806,118 +1161,107 @@ kernel(const __grid_constant__ CUtensorMap tq,
 
   const int warp = uniform(threadIdx.x / 32);
   if (warp >= CONSUMER_WARPS) {
-    // producer warpgroup: one thread loads the query planes, all 128
-    // decode the doc tiles
     const int p = threadIdx.x - CONSUMER_WARPS * 32;
     if (p == 0) {
-      // each warpgroup's 64 rows start at its first query; a warpgroup
-      // past the last query loads nothing
-      const int q0 = 2 * blockIdx.x * a.qpw;
-      const int groups = q0 + a.qpw < a.n_q ? 2 : 1;
-      mbar_expect_tx(bars, 3 * groups * PLANE_Q / 2);
+      // the query's rows and the next 64 - l, which are dead
+      mbar_expect_tx(bars, 3 * PLANE_Q);
       for (int pl = 0; pl < 3; ++pl)
         for (int pn = 0; pn < PLANE_DP / 64; ++pn)
-          for (int h = 0; h < groups; ++h)
-            tma_load_3d(base + pl * PLANE_Q + pn * QROWS * 128 +
-                            h * 64 * 128,
-                        &tq, bars, pn * 64, (q0 + h * a.qpw) * a.l, pl);
+          tma_load_3d(base + pl * PLANE_Q + pn * QROWS * 128, &tq, bars,
+                      pn * 64, qi * a.s.l, pl);
     }
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % STAGES;
       int doc0, t;
-      tile_of<G>(a, d_begin, it, doc0, t);
+      tile_of<G>(a.s, d_begin, it, doc0, t);
       mbar_wait(bars + 8 + 8 * (STAGES + s), ((it / STAGES) & 1) ^ 1);
-      decode_tile<BITS, G>(a, base + OFF_D + s * STAGE_D, doc0, t, d_end, p);
+      decode_tile<BITS, G>(a, qi, base + OFF_D + s * STAGE_D, doc0, t,
+                           d_end, p);
       fence_proxy_async();
       mbar_arrive(bars + 8 + 8 * s);
     }
   } else {
-    consume<G>(base, smem, warp / 4, n_tiles, d_begin, d_end, a);
+    consume<G, QROWS, 1, STAGES, false>(
+        base, base + OFF_D, bars, reinterpret_cast<float*>(smem + OFF_RM),
+        0, qi, uniform(a.qflags[qi]), n_tiles, d_begin, d_end,
+        a.s.dmask + (size_t)qi * a.s.n_docs * a.s.m, a.s);
   }
 }
 
 template <int BITS, int G>
-int run(const CUtensorMap& tq, const Args& a, int gx, int gy,
+int run(const CUtensorMap& tq, const Args& a, dim3 grid,
         cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel<BITS, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_DYNAMIC);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<BITS, G><<<dim3(gx, gy), NT, SMEM_DYNAMIC, stream>>>(tq, a);
+  kernel<BITS, G><<<grid, NT, SMEM_DYNAMIC, stream>>>(tq, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BITS>
-int run_g(int G, const CUtensorMap& tq, const Args& a, int gx, int gy,
+int run_g(int G, const CUtensorMap& tq, const Args& a, dim3 grid,
           cudaStream_t stream) {
   switch (G) {
-    case 1: return run<BITS, 1>(tq, a, gx, gy, stream);
-    case 2: return run<BITS, 2>(tq, a, gx, gy, stream);
-    case 4: return run<BITS, 4>(tq, a, gx, gy, stream);
-    default: return run<BITS, 8>(tq, a, gx, gy, stream);
+    case 1: return run<BITS, 1>(tq, a, grid, stream);
+    case 2: return run<BITS, 2>(tq, a, grid, stream);
+    case 4: return run<BITS, 4>(tq, a, grid, stream);
+    default: return run<BITS, 8>(tq, a, grid, stream);
   }
 }
 
 int launch(const float* q, const uint8_t* qmask, const int8_t* codes,
-           const uint8_t* resq, const float* scale, const float* codebook,
-           const uint8_t* dmask, int n_q, int l, int n_docs, int m, int dim,
-           int n_centroids, int bits, void* q_planes, int* q_flags,
-           float* out, cudaStream_t stream) {
-  // 16-byte codebook loads; a chunk's residual bits load as one 4-byte
-  // (4-bit) or 2-byte (2-bit) word
+           const uint8_t* resq, const float* scale, const float* codebooks,
+           const int* bucket_of, int n_tables, const uint8_t* dmask, int n_q,
+           int l, int n_cand, int m, int dim, int n_centroids, int bits,
+           void* q_planes, int* q_flags, float* out, cudaStream_t stream) {
   if (l < 1 || l > 64 || m < 1 || dim < 8 || dim % 8 || dim > PLANE_DP ||
-      (bits != 2 && bits != 4) || n_centroids < 1 ||
-      reinterpret_cast<uintptr_t>(codebook) % 16 ||
+      (bits != 2 && bits != 4) || n_centroids < 1 || n_tables < 1 ||
+      reinterpret_cast<uintptr_t>(codebooks) % 16 ||
       reinterpret_cast<uintptr_t>(resq) % bits)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_q < 1 || n_docs < 1) return static_cast<int>(cudaGetLastError());
-  Args a{q_flags, qmask, dmask, codes, resq, scale, codebook, n_q, l,
-         64 / l, n_docs, m, 0, 1, 0, dim, n_centroids, out};
-  auto* qp = static_cast<__nv_bfloat16*>(q_planes);
-  int err = split_planes(q, n_q * l, dim, a.qpw * l, qp, q_flags, stream);
-  if (err) return err;
-  int m_pad = 8;
-  while (m_pad < m) m_pad *= 2;
-  const int G = m_pad >= TN ? 1 : TN / m_pad;
-  a.m_pad = G == 1 ? TN : m_pad;
-  a.tiles_per_doc = G == 1 ? (m + TN - 1) / TN : 1;
+  if (n_q < 1 || n_cand < 1) return static_cast<int>(cudaGetLastError());
+  Args a{};
+  a.s = Sweep{qmask, dmask, nullptr, out, n_q, l, 1, n_cand, m, 0, 1};
+  a.qflags = q_flags;
+  a.codes = codes;
+  a.resq = resq;
+  a.scale = scale;
+  a.codebooks = codebooks;
+  a.bucket_of = bucket_of;
+  a.n_tables = n_tables;
+  a.dim = dim;
+  a.n_centroids = n_centroids;
   CUtensorMap tq;
-  const uint64_t row = PLANE_DP * 2;
-  if (!encode_3d(&tq, qp, PLANE_DP, (uint64_t)n_q * l, 3, row,
-                 row * n_q * l, 64, 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  // about four blocks an SM, query blocks fastest; a doc group is a
-  // whole number of tiles
-  const int gx = (n_q + 2 * a.qpw - 1) / (2 * a.qpw);
-  const int units = (n_docs + G - 1) / G;
-  const int groups = max(1, min(units, (4 * sm_count() + gx - 1) / gx));
-  a.docs_per_block = (units + groups - 1) / groups * G;
-  const int gy = (n_docs + a.docs_per_block - 1) / a.docs_per_block;
-  return bits == 2 ? run_g<2>(G, tq, a, gx, gy, stream)
-                   : run_g<4>(G, tq, a, gx, gy, stream);
+  const int err = query_side(q, n_q, l, dim, 1, q_planes, q_flags, &tq,
+                             stream);
+  if (err) return err;
+  const int G = geometry(a.s);
+  a.docs_per_block = docs_per_block(n_cand, G, n_q);
+  const dim3 grid(n_q, (n_cand + a.docs_per_block - 1) / a.docs_per_block);
+  return bits == 2 ? run_g<2>(G, tq, a, grid, stream)
+                   : run_g<4>(G, tq, a, grid, stream);
 }
 
-}  // namespace resid_sm90
+}  // namespace rerank_sm90
 
-// bf16 docs take the Hopper kernel, with the caller's scratch for the
-// query planes, (3, n_q·l, 128) bf16, and flags, (ceil(n_q / floor(64 /
-// l)),) int32; fp32 docs the tile engine (the scratch is not read).
-extern "C" int colbert_maxsim_multi_launch(const float* q,
-                                           const uint8_t* qmask,
-                                           const void* docs,
-                                           const uint8_t* dmask, int n_q,
-                                           int l, int n_docs, int m, int dim,
-                                           int bf16, void* q_planes,
-                                           int* q_flags, float* out,
-                                           void* stream) {
+// The caller's scratch: the query planes, (3, n_q·l, 128) bf16, and
+// flags, (ceil(n_q / floor(64 / l)),) int32; for fp32 docs also the doc
+// planes, (3, n_docs·m, 128) bf16, and flags, (n_docs,) int32 (null for
+// bf16 docs).
+extern "C" int colbert_maxsim_multi_launch(
+    const float* q, const uint8_t* qmask, const void* docs,
+    const uint8_t* dmask, int n_q, int l, int n_docs, int m, int dim,
+    int bf16, void* q_planes, int* q_flags, void* d_planes, int* d_flags,
+    float* out, void* stream) {
   if (bf16)
     return multi_bf16::launch(q, qmask, docs, dmask, n_q, l, n_docs, m, dim,
                               q_planes, q_flags, out,
                               static_cast<cudaStream_t>(stream));
-  return launch<false>(q, qmask,
-                       DenseDocs<float>{static_cast<const float*>(docs), m,
-                                        dim},
-                       dmask, n_q, l, n_docs, m, dim, out, stream);
+  return multi_sm90::launch_f32(q, qmask, static_cast<const float*>(docs),
+                                dmask, n_q, l, n_docs, m, dim, q_planes,
+                                q_flags, d_planes, d_flags, out,
+                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int colbert_maxsim_rerank_launch(const float* q,
@@ -928,14 +1272,14 @@ extern "C" int colbert_maxsim_rerank_launch(const float* q,
                                             int dim, int bf16, float* out,
                                             void* stream) {
   if (bf16)
-    return launch<true>(q, qmask,
-                        DenseDocs<__nv_bfloat16>{
-                            static_cast<const __nv_bfloat16*>(docs), m, dim},
-                        dmask, n_q, l, n_cand, m, dim, out, stream);
-  return launch<true>(q, qmask,
-                      DenseDocs<float>{static_cast<const float*>(docs), m,
-                                       dim},
-                      dmask, n_q, l, n_cand, m, dim, out, stream);
+    return launch_rerank(q, qmask,
+                         DenseDocs<__nv_bfloat16>{
+                             static_cast<const __nv_bfloat16*>(docs), m, dim},
+                         dmask, n_q, l, n_cand, m, dim, out, stream);
+  return launch_rerank(q, qmask,
+                       DenseDocs<float>{static_cast<const float*>(docs), m,
+                                        dim},
+                       dmask, n_q, l, n_cand, m, dim, out, stream);
 }
 
 // The caller's scratch: the query planes, (3, n_q·l, 128) bf16, and
@@ -946,21 +1290,34 @@ extern "C" int colbert_maxsim_residual_multi_launch(
     const uint8_t* dmask, int n_q, int l, int n_docs, int m, int dim,
     int n_centroids, int bits, void* q_planes, int* q_flags, float* out,
     void* stream) {
-  return resid_sm90::launch(q, qmask, codes, resq, scale, codebook, dmask,
-                            n_q, l, n_docs, m, dim, n_centroids, bits,
-                            q_planes, q_flags, out,
-                            static_cast<cudaStream_t>(stream));
+  return multi_sm90::launch_resid(q, qmask, codes, resq, scale, codebook,
+                                  dmask, n_q, l, n_docs, m, dim, n_centroids,
+                                  bits, q_planes, q_flags, out,
+                                  static_cast<cudaStream_t>(stream));
 }
 
+// The caller's scratch: the query planes, (3, n_q·l, 128) bf16, and
+// flags, (n_q,) int32.
 extern "C" int colbert_maxsim_residual_rerank_launch(
     const float* q, const uint8_t* qmask, const int8_t* codes,
     const uint8_t* resq, const float* scale, const float* codebooks,
     const int* bucket_of, int n_buckets, const uint8_t* dmask, int n_q,
-    int l, int n_cand, int m, int dim, int n_centroids, int bits, float* out,
-    void* stream) {
-  return launch_residual_rerank(q, qmask, codes, resq, scale, codebooks,
-                                bucket_of, n_buckets, dmask, n_q, l, n_cand,
-                                m, dim, n_centroids, bits, out, stream);
+    int l, int n_cand, int m, int dim, int n_centroids, int bits,
+    void* q_planes, int* q_flags, float* out, void* stream) {
+  return rerank_sm90::launch(q, qmask, codes, resq, scale, codebooks,
+                             bucket_of, n_buckets, dmask, n_q, l, n_cand, m,
+                             dim, n_centroids, bits, q_planes, q_flags, out,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The split pre-pass alone (sm90::split_planes), for timing it apart
+// from the fp32 sweep it precedes.
+extern "C" int colbert_maxsim_split_planes(const float* x, int rows, int dim,
+                                           int group_rows, void* planes,
+                                           int* flags, void* stream) {
+  return sm90::split_planes(x, rows, dim, group_rows,
+                            static_cast<__nv_bfloat16*>(planes), flags,
+                            static_cast<cudaStream_t>(stream));
 }
 
 REPRO_ERROR_STRING(colbert_maxsim)

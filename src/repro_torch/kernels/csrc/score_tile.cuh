@@ -1,10 +1,9 @@
-// Shared fp32 score-tile engine of the retrieval kernels not yet on the
-// tensor cores: colbert_maxsim_multi on fp32 docs (B3), the rerank (B4)
-// and the residual rerank (B6), all in colbert_maxsim.cu.
+// The fp32 score-tile engine of the one retrieval kernel not yet on the
+// tensor cores: the rerank (B4, colbert_maxsim.cu).
 //
-// Each computes a small dense product S = A . B^T (A: rows x dim, B:
+// It computes a small dense product S = A . B^T (A: rows x dim, B:
 // cols x dim, fp32) and reduces each row of S over the columns (max).
-// The TPU kernels kept that product in VMEM; here one 256-thread block
+// The TPU kernel kept that product in VMEM; here one 256-thread block
 // computes one RT x CT tile of S with a classic shared-memory tiled
 // SGEMM on the CUDA cores (each thread owns a 4 x 4 register micro-tile,
 // the dim axis streams through shared memory DK values at a time), then
@@ -18,11 +17,7 @@
 // ignored by the epilogue.
 //
 // The B side comes through a loader, `B(c, k)` = element k of column c
-// as fp32, so one engine serves every storage format of the doc
-// tokens: fp32 and bf16 (DenseCols, widened exactly), and the residual
-// codec (ResidualCols), whose decode runs here, while the tile is
-// staged into shared memory — a decoded doc never reaches device
-// memory.
+// as fp32: fp32 and bf16 doc tokens (DenseCols, bf16 widened exactly).
 
 #pragma once
 
@@ -56,34 +51,6 @@ struct DenseCols {
   int dim;
   __device__ __forceinline__ float operator()(int c, int k) const {
     return to_f32(p[(size_t)c * dim + k]);
-  }
-};
-
-// Residual-codec doc tokens (train/compress.py layout): token c is
-// codebook[codes[c]] + (u - 2^(BITS-1)) * scale[c], u the BITS-bit value
-// k of its packed row — byte k / vpb, shift (k % vpb) * BITS, vpb =
-// 8 / BITS.  The product and the add are rounded separately
-// (__fmul_rn, __fadd_rn: no fma contraction), as the eager decode
-// rounds them, so the decoded tile equals dequantize_residual bit for
-// bit.  The codebook (at most 127 x dim fp32) goes through the
-// read-only cache.  A code outside [0, n_centroids) is clamped into it,
-// as XLA's gather clamps: a malformed code scores garbage but never
-// reads outside the codebook.
-template <int BITS>
-struct ResidualCols {
-  const int8_t* codes;      // (cols,)
-  const uint8_t* resq;      // (cols, dim * BITS / 8)
-  const float* scale;       // (cols,)
-  const float* codebook;    // (n_centroids, dim)
-  int dim, n_centroids;
-  __device__ __forceinline__ float operator()(int c, int k) const {
-    constexpr int VPB = 8 / BITS;
-    const int code = min(max((int)codes[c], 0), n_centroids - 1);
-    const float cent = __ldg(codebook + (size_t)code * dim + k);
-    const int u = (resq[(size_t)c * (dim / VPB) + k / VPB] >>
-                   ((k % VPB) * BITS)) & ((1 << BITS) - 1);
-    return __fadd_rn(cent,
-                     __fmul_rn((float)(u - (1 << (BITS - 1))), scale[c]));
   }
 };
 

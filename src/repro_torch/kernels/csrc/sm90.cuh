@@ -10,9 +10,11 @@
 // commit and wait as two calls, a lane-0 broadcast the compiler knows
 // to be warp-uniform, named barriers, a host encoder of 3-D tensor maps,
 // the three-term split pre-pass of the score kernels and their
-// two-accumulator 64 x 64 split tile (maxsim_sm90.cuh, colbert_maxsim.cu),
-// and, for a producer that writes wgmma operands itself (B5's decode),
-// 16-byte shared stores and the generic-to-async proxy fence.
+// two-accumulator 64 x 64 split tile (maxsim_sm90.cuh, colbert_maxsim.cu)
+// with its step-by-step, round-to-nearest variant (fp32 B3, B5, B6; A
+// blocks of 128 or 64 rows), and, for a producer that writes wgmma
+// operands itself (B5's and B6's decode), 16-byte shared stores and the
+// generic-to-async proxy fence.
 //
 // The three-term split.  For fp32 x let hi = RN_bf16(x), mid =
 // RN_bf16(x - hi) and lo = RN_bf16(x - hi - mid).  Both subtractions
@@ -438,23 +440,26 @@ __device__ __forceinline__ void wgmma_wait1() {
 // other is added — its flagged small products first and hi·hi last, so
 // that the step truncates once against its own partial sum, and the
 // steps are summed in fp32 on the CUDA cores, round to nearest.  On
-// return every product is complete and sum is readable.
-template <bool AF, bool BF>
+// return every product is complete and sum is readable.  A's block has
+// A_ROWS rows, its panels and planes that far apart: 128 as in
+// split_mma_n64, or 64 for a block of one warpgroup (B6).
+template <bool AF, bool BF, int A_ROWS = 128>
 __device__ __forceinline__ void split_mma_n64_rn(float (&sum)[32],
                                                  uint32_t a_hi,
                                                  uint32_t b_hi) {
+  constexpr uint32_t A_PLANE = A_ROWS * PLANE_DP * 2;
   float t0[32], t1[32];
   const auto desc = [](uint32_t x) { return smem_desc(x, 16, 1024); };
 #pragma unroll
   for (int kk = 0; kk < PLANE_DP / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
-    const uint32_t a = a_hi + (kk / 4) * 128 * 128 + off;
+    const uint32_t a = a_hi + (kk / 4) * A_ROWS * 128 + off;
     const uint32_t b = b_hi + (kk / 4) * 64 * 128 + off;
     float (&t)[32] = kk % 2 ? t1 : t0;
     int on = 0;        // the step's first product overwrites t
     wgmma_fence();     // t of step kk - 2 was read by the adds below
     if constexpr (AF && BF) {
-      wgmma_ss_n64(t, desc(a + SPLIT_A_PLANE), desc(b + SPLIT_B_PLANE), on);
+      wgmma_ss_n64(t, desc(a + A_PLANE), desc(b + SPLIT_B_PLANE), on);
       on = 1;
     }
     if constexpr (BF) {
@@ -463,8 +468,8 @@ __device__ __forceinline__ void split_mma_n64_rn(float (&sum)[32],
       on = 1;
     }
     if constexpr (AF) {
-      wgmma_ss_n64(t, desc(a + 2 * SPLIT_A_PLANE), desc(b), on);
-      wgmma_ss_n64(t, desc(a + SPLIT_A_PLANE), desc(b), 1);
+      wgmma_ss_n64(t, desc(a + 2 * A_PLANE), desc(b), on);
+      wgmma_ss_n64(t, desc(a + A_PLANE), desc(b), 1);
       on = 1;
     }
     wgmma_ss_n64(t, desc(a), desc(b), on);

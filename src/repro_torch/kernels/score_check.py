@@ -1,4 +1,4 @@
-"""Quick card check of the Hopper score kernels (B1, B2, bf16 B3, B5).
+"""Quick card check of the Hopper score kernels (B1, B2, B3, B5, B6).
 
     PYTHONPATH=src python -m repro_torch.kernels.score_check
 
@@ -22,7 +22,15 @@ after a warm-up):
   norm (randn, norm ~11; scores up to ~90), 6 queries x 32 against 37
   docs x 130 at 2 and 4 bits and 8 and 127 centroids: the codebooks,
   codes, residuals and masks of ``tests/test_torch_kernels.py``'s
-  residual case with unit-norm fp32 queries (printed, not gated).
+  residual case with unit-norm fp32 queries (printed, not gated);
+* B3 on fp32 docs: the same queries against the bf16 docs as int8
+  values times per-token fp32 scales (the int8 index's dense view, three
+  terms) and widened (one term), the split pre-pass timed alone; then
+  docs of norm ~11 against a float64 MaxSim (gated at 1e-5);
+* B6: 64 queries x 64 candidates x 128 of their own, 4-bit with 8
+  centroids and 2-bit with 127, four tables, codes and bucket ids out of
+  range in some candidates (clamped); then tables of norm ~11 against a
+  float64 MaxSim (gated at 1e-5).
 
 It needs a CUDA device and exits non-zero on a disagreement past the
 1e-5 gate.  ``chip_smoke.py`` holds the same kernels on the paths' own
@@ -190,6 +198,97 @@ def main() -> int:
                   f"{(r - e)[real].abs().max().item():.2e} (mean "
                   f"{(r - e)[real].mean().item():+.1e}), kernel vs plain "
                   f"{(o - r)[real].abs().max().item():.2e}")
+
+    # B3 on fp32 docs
+    n, mm = D.shape[:2]
+    scl = D.float().abs().amax(-1, keepdim=True) / 127
+    D8 = (D.float() / scl).round().to(torch.int8).float() * scl
+    for tag, dd in (("int8 x scale, three terms", D8),
+                    ("bf16 widened, one term", D.float())):
+        o = cm.colbert_maxsim_multi_op(q, dd, M)
+        r = cm_ref.colbert_maxsim_multi_ref(q, dd, M)
+        real = r > -1e29
+        err = (o - r)[real].abs().max().item()
+        rel = ((o - r) / r)[~real].abs().max().item()
+        ok &= err <= ATOL and rel <= 1e-6
+        print(f"B3 colbert_maxsim_multi fp32 docs ({tag}): max abs err "
+              f"{err:.3e}, sentinel rel err {rel:.1e}; "
+              f"{_ms(lambda: cm.colbert_maxsim_multi_op(q, dd, M)):.3f} ms")
+    lib = build.library("colbert_maxsim")
+    planes = torch.empty((3, n * mm, 128), dtype=torch.bfloat16,
+                         device="cuda")
+    flags = torch.empty((n,), dtype=torch.int32, device="cuda")
+    split_ms = _ms(lambda: build.check("colbert_maxsim",
+                                       lib.colbert_maxsim_split_planes(
+        D8.data_ptr(), n * mm, 128, mm, planes.data_ptr(), flags.data_ptr(),
+        build.stream_ptr(D8))))
+    print(f"B3 fp32 split pre-pass alone (three-term docs): {split_ms:.3f} "
+          f"ms")
+    del D8, planes, flags
+
+    def exact(eq, qq, dd, dm, qm):
+        s = torch.einsum(eq, qq.double(), dd.double())
+        s = torch.where(dm[..., None, :], s, -1e30)
+        return torch.where(qm[:, None, :], s.amax(-1), 0.0).sum(-1)
+
+    def near(tag, o, e):
+        real = e > -1e29
+        err = (o.double() - e)[real].abs().max().item()
+        rel = ((o.double() - e) / e)[~real].abs().max().item()
+        print(f"{tag} (|score| <= {e[real].abs().max().item():.1f}) against "
+              f"float64: {err:.2e}, sentinel rel err {rel:.1e}")
+        return err <= ATOL and rel <= 1e-6
+
+    qq = unit(6, 32, 128)
+    qm = torch.rand(6, 32, device="cuda", generator=g) < 0.9
+    dd = torch.randn(37, 130, 128, device="cuda", generator=g)
+    dm = torch.rand(37, 130, device="cuda", generator=g) < 0.8
+    dm[1] = False
+    ok &= near("B3 fp32 docs of norm ~11",
+               cm.colbert_maxsim_multi_op(qq, dd, dm, qm),
+               exact("qld,nmd->qnlm", qq, dd, dm, qm))
+
+    # B6
+    for bits, C in ((4, 8), (2, 127)):
+        tab = unit(4, C, 128)
+        cds = torch.randint(0, C, (64, 64, 128), device="cuda", generator=g,
+                            dtype=torch.int8)
+        bo = torch.randint(0, 4, (64, 64), device="cuda", generator=g,
+                           dtype=torch.int32)
+        resq, scale = quantize_residual(0.2 * unit(64, 64, 128, 128), bits)
+        rm = torch.rand(64, 64, 128, device="cuda", generator=g) < 0.7
+        rm[:, 3] = False
+        bad, bad_bo = cds.clone(), bo.clone()
+        bad[5, 7, :9], bad[6, 8, :9] = 127, -3
+        bad_bo[9, 10], bad_bo[11, 12] = 9, -1
+        args = (q, bad, resq, scale, tab, bad_bo, rm)
+        o = cm.colbert_maxsim_residual_rerank_op(*args, bits=bits)
+        r = cm_ref.colbert_maxsim_residual_rerank_ref(
+            q, bad.clamp(0, C - 1), resq, scale, tab, bad_bo.clamp(0, 3), rm,
+            bits=bits)
+        real = r > -1e29
+        err = (o - r)[real].abs().max().item()
+        rel = ((o - r) / r)[~real].abs().max().item()
+        ok &= err <= ATOL and rel <= 1e-6
+        ms = _ms(lambda: cm.colbert_maxsim_residual_rerank_op(*args,
+                                                              bits=bits))
+        print(f"B6 colbert_maxsim_residual_rerank {bits}-bit C {C}, 64 q x "
+              f"64 cand x 128: max abs err {err:.3e}, sentinel rel err "
+              f"{rel:.1e}; {ms:.3f} ms")
+    tab = torch.randn(3, 127, 128, device="cuda", generator=g)
+    cds = torch.randint(0, 127, (6, 37, 130), device="cuda", generator=g,
+                        dtype=torch.int8)
+    bo = torch.randint(0, 3, (6, 37), device="cuda", generator=g,
+                       dtype=torch.int32)
+    resq, scale = quantize_residual(
+        0.3 * torch.randn(6, 37, 130, 128, device="cuda", generator=g), 4)
+    rm = torch.rand(6, 37, 130, device="cuda", generator=g) < 0.8
+    rm[:, 1] = False
+    dec = dequantize_residual(resq, scale, bo.long()[..., None] * 127
+                              + cds.long(), tab.reshape(-1, 128), 4)
+    ok &= near("B6 tables of norm ~11", cm.colbert_maxsim_residual_rerank_op(
+        qq, cds, resq, scale, tab, bo, rm, qm, bits=4),
+        exact("qld,qnmd->qnlm", qq, dec, rm, qm))
     print("score_check: " + ("ok" if ok else "FAILED"))
     return 0 if ok else 1
 

@@ -271,27 +271,61 @@ class TestKernelsOnCard:
         assert (got - want)[real].abs().max() <= ATOL
 
 
-def _residual_case(dev, lead, m, dim, bits, C, seed=0):
+def _residual_case(dev, lead, m, dim, bits, C, seed=0, unit=False):
     """Codes, packed residuals, scales and codebook on ``dev`` through
-    the port's codec; doc masks with one empty doc."""
+    the port's codec; doc masks with one empty doc.  The codebook is
+    ``randn`` (norm ~11, scores up to ~90), or with ``unit`` its rows
+    normalized and the residuals scaled to norm ~0.3, as on the paths."""
     g = torch.Generator().manual_seed(seed)
     cb = torch.randn(C, dim, generator=g)
+    noise = 0.3 / dim ** 0.5 if unit else 0.3
+    if unit:
+        cb = cb / cb.norm(dim=-1, keepdim=True)
     codes = torch.randint(0, C, lead + (m,), generator=g, dtype=torch.int8)
-    d = cb[codes.long()] + 0.3 * torch.randn(lead + (m, dim), generator=g)
+    d = cb[codes.long()] + noise * torch.randn(lead + (m, dim), generator=g)
     resq, scale = compress.quantize_residual(d - cb[codes.long()], bits)
     dm = torch.rand(lead + (m,), generator=g) < 0.8
     dm.view(-1, m)[1] = False
     return [t.to(dev) for t in (codes, resq, scale, cb, dm)]
 
 
+def _exact_maxsim(eq, q, d, dm, qm):
+    """MaxSim in float64 of the same decoded tokens (``eq`` the einsum
+    of the query axis against the docs), masked as the kernels mask."""
+    s = torch.einsum(eq, q.double(), d.double())
+    s = torch.where(dm[..., None, :], s, -1e30)
+    return torch.where(qm[:, None, :], s.amax(-1), 0.0).sum(-1)
+
+
+def _assert_near(got, want, exact):
+    """The kernel against a float64 MaxSim (``exact``: a randn codebook,
+    scores up to ~90, where the fp32 plain version ``want`` is itself
+    ~1e-5 from the exact value) or, where ``exact`` is None (a unit
+    codebook), against the plain version; both at 1e-5.  All-masked docs
+    hold the plain version's sentinel within 1e-6."""
+    real = want > -1e29
+    assert (~real).any() and torch.isfinite(got).all()
+    ref = want.double() if exact is None else exact
+    assert (got.double() - ref)[real].abs().max() <= ATOL
+    assert torch.allclose(got[~real], want[~real], rtol=1e-6)
+
+
+# (C, bits, unit codebook): the ids of the randn cases are "C-bits"
+MULTI_CASES = [pytest.param(C, bits, False, id=f"{C}-{bits}")
+               for C in (1, 8, 127) for bits in (2, 4)] + [
+    pytest.param(8, 4, True, id="unit-8-4")]
+RERANK_CASES = [pytest.param(C, bits, False, id=f"{C}-{bits}")
+                for C in (1, 127) for bits in (2, 4)] + [
+    pytest.param(8, 4, True, id="unit-8-4")]
+
+
 @pytest.mark.cuda
 class TestResidualKernelsOnCard:
-    @pytest.mark.parametrize("bits", [2, 4])
-    @pytest.mark.parametrize("C", [1, 8, 127])
-    def test_multi_matches_plain(self, bits, C):
+    @pytest.mark.parametrize("C,bits,unit", MULTI_CASES)
+    def test_multi_matches_plain(self, C, bits, unit):
         dev = _cuda()
         codes, resq, scale, cb, dm = _residual_case(dev, (37,), 130, 128,
-                                                    bits, C)
+                                                    bits, C, unit=unit)
         q, _, _, qm = (_t(x).to(dev) for x in _colbert_case(
             5, n_q=6, l=32, n_docs=3, m=1, dim=128))
         before = cm.colbert_maxsim_residual_multi_op.launches
@@ -300,32 +334,42 @@ class TestResidualKernelsOnCard:
         assert cm.colbert_maxsim_residual_multi_op.launches == before + 1
         want = cm_ref.colbert_maxsim_residual_multi_ref(
             q, codes, resq, scale, cb, dm, qm, bits=bits)
-        real = want > -1e29
-        assert (~real).any() and torch.isfinite(got).all()
-        assert (got - want)[real].abs().max() <= ATOL
-        assert torch.allclose(got[~real], want[~real], rtol=1e-6)
+        exact = None if unit else _exact_maxsim(
+            "qld,nmd->qnlm", q,
+            compress.dequantize_residual(resq, scale, codes, cb, bits), dm,
+            qm)
+        _assert_near(got, want, exact)
 
-    @pytest.mark.parametrize("bits", [2, 4])
-    @pytest.mark.parametrize("C", [1, 127])
-    def test_rerank_matches_plain(self, bits, C):
+    @pytest.mark.parametrize("C,bits,unit", RERANK_CASES)
+    def test_rerank_matches_plain(self, C, bits, unit):
         dev = _cuda()
         n_q, n_cand, n_b = 4, 33, 3
         codes, resq, scale, _, dm = _residual_case(dev, (n_q, n_cand), 70,
-                                                   128, bits, C, seed=1)
+                                                   128, bits, C, seed=1,
+                                                   unit=unit)
         g = torch.Generator().manual_seed(2)
-        table = torch.randn(n_b, C, 128, generator=g).to(dev)
+        table = torch.randn(n_b, C, 128, generator=g)
+        if unit:
+            table = table / table.norm(dim=-1, keepdim=True)
+        table = table.to(dev)
         bucket_of = torch.randint(0, n_b, (n_q, n_cand), generator=g,
                                   dtype=torch.int32).to(dev)
         q, _, _, qm = (_t(x).to(dev) for x in _colbert_case(
             6, n_q=n_q, l=32, n_docs=3, m=1, dim=128))
+        before = cm.colbert_maxsim_residual_rerank_op.launches
         got = cm.colbert_maxsim_residual_rerank_op(
             q, codes, resq, scale, table, bucket_of, dm, qm, bits=bits)
+        assert cm.colbert_maxsim_residual_rerank_op.launches == before + 1
         want = cm_ref.colbert_maxsim_residual_rerank_ref(
             q, codes, resq, scale, table, bucket_of, dm, qm, bits=bits)
-        real = want > -1e29
-        assert (~real).any()
-        assert (got - want)[real].abs().max() <= ATOL
-        assert torch.allclose(got[~real], want[~real], rtol=1e-6)
+        # each candidate's table: codes into the flattened (n_b·C, dim)
+        flat = bucket_of.long()[..., None] * C + codes.long()
+        exact = None if unit else _exact_maxsim(
+            "qld,qnmd->qnlm", q,
+            compress.dequantize_residual(resq, scale, flat,
+                                         table.reshape(-1, 128), bits),
+            dm, qm)
+        _assert_near(got, want, exact)
 
     def test_out_of_range_indices_are_clamped(self):
         """A malformed code or bucket id reads inside its table (the
