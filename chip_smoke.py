@@ -40,12 +40,15 @@ passed — any failure exits non-zero):
    index's widest bucket (bf16 docs) and on the int8 index's as the
    dense fp32 view the int8 path scores (int8 values times fp32 scales,
    three terms); the bf16 docs widened to fp32 (one term) and the fp32
-   route's split pre-pass alone are timed beside it.  B4 runs on fp32
-   and bf16 candidates; B5/B6 at 4 and 2 bits and at 8 and 127
-   centroids.  Then B3 on fp32 docs and B6 on docs and tables far from
-   unit norm (randn, norm ~11) against a float64 MaxSim
-   (``[norm11]``).  These launches do not count.  The ptxas report of
-   B1's, B2's and B3-B6's sources.  One bound rule for B1-B6: an operand
+   route's split pre-pass alone are timed beside it.  B4 runs on the
+   int8 two-stage serve's candidates (fp32, three terms) and the main
+   path's (bf16); those widened to fp32 and one query against 1,024 of
+   them (``colbert_maxsim_op``) are timed beside.  B5/B6 at 4 and 2 bits
+   and at 8 and 127 centroids.  Then B3, B6 and B4 (fp32 and bf16 docs)
+   on docs and tables far from unit norm (randn, norm ~11) against a
+   float64 MaxSim (``[norm11]``).  These launches do not
+   count.  The ptxas report of B1's, B2's and B3-B6's sources.  One
+   bound rule for B1-B6: an operand
    takes 1 bf16 term when the run's tensor equals its own bf16 rounding,
    else 3; products of terms below 2^-24 relative are dropped (3 x 1
    terms: 3 products, 3 x 3: 6), and every product runs at the bf16
@@ -700,31 +703,46 @@ def main() -> int:
         log(f"[kernel] colbert_maxsim_multi_bf16 with fp32 queries "
             f"({terms(q3)} terms): {ms:.3f} ms")
         del q3
-        # B4 colbert_maxsim rerank — the two-stage rerank's candidate blocks
-        cand = _streaming_first_stage(packed, q_emb, 64).long()
-        g_embs, g_masks = packed.padded()
-        m_sub = g_masks[cand]
-        for name, d_sub in (("colbert_maxsim_rerank", g_embs[cand].float()),
-                            ("colbert_maxsim_rerank_bf16", g_embs[cand])):
-            o = cm_ops.colbert_maxsim_rerank_op(q_emb, d_sub, m_sub)
-            r = cm_ref.colbert_maxsim_rerank_ref(q_emb, d_sub, m_sub)
+        # B4 colbert_maxsim rerank — the two-stage rerank's candidate blocks:
+        # fp32 on the int8 index's (its dense view, three terms; the row),
+        # bf16 on the main path's; the bf16 candidates widened to fp32 and
+        # one query against 1,024 candidates (colbert_maxsim_op) are logged
+        def two_stage(index):
+            cand = _streaming_first_stage(index, q_emb, 64).long()
+            g_embs, g_masks = index.padded()
+            return g_embs[cand], g_masks[cand]
+
+        d8, m8 = two_stage(p8)
+        d16, m16 = two_stage(packed)
+        rerank = (cm_ops.colbert_maxsim_rerank_op,
+                  cm_ref.colbert_maxsim_rerank_ref, q_emb)
+        single = (cm_ops.colbert_maxsim_op, cm_ref.colbert_maxsim_ref,
+                  q_emb[0])
+        for name, (op, ref, qq), d_sub, m_sub in (
+                ("colbert_maxsim_rerank", rerank, d8, m8),
+                ("colbert_maxsim_rerank_bf16", rerank, d16, m16),
+                ("colbert_maxsim_rerank widened", rerank, d16.float(), m16),
+                ("colbert_maxsim_op one query", single,
+                 d16[:16].reshape(-1, *d16.shape[2:]),
+                 m16[:16].reshape(-1, m16.shape[-1]))):
+            o, r = op(qq, d_sub, m_sub), ref(qq, d_sub, m_sub)
             err, rel = score_err(o, r)
-            log(f"[kernel] {name} n_q={N_QUERIES} n_cand=64 "
-                f"m={g_masks.shape[1]} docs {d_sub.dtype}: sentinel rel err "
-                f"{rel:.2e}")
             expect(err <= ATOL and rel <= 1e-6, f"{name} disagrees with plain")
+            ms = cuda_ms(lambda: op(qq, d_sub, m_sub))
+            log(f"[kernel] {name}: queries {1 if qq.dim() == 2 else len(qq)}"
+                f", candidates {tuple(m_sub.shape)} of {d_sub.dtype} "
+                f"({terms(d_sub)} term(s)): max abs err {err:.3e} sentinel "
+                f"rel err {rel:.2e} kernel {ms:.3f} ms")
+            if " " in name:       # logged beside the rows
+                continue
             fl = (2.0 * N_QUERIES * l * d_sub.shape[1] * d_sub.shape[2] * dim
                   * split_products(q_emb, d_sub))
             row(name, "src/repro_torch/kernels/csrc/colbert_maxsim.cu",
                 "src/repro/kernels/colbert_maxsim/colbert_maxsim.py:69", err,
-                cuda_ms(lambda: cm_ops.colbert_maxsim_rerank_op(q_emb, d_sub,
-                                                                 m_sub)),
-                cuda_ms(lambda: cm_ref.colbert_maxsim_rerank_ref(q_emb, d_sub,
-                                                                  m_sub),
-                        reps=2),
-                fl,
+                ms, cuda_ms(lambda: ref(q_emb, d_sub, m_sub), reps=2), fl,
                 nbytes(q_emb, d_sub, m_sub) + N_QUERIES * d_sub.shape[1] * 4,
                 tc_flops=fl)
+        del d8, m8, d16, m16
         # B5/B6 — the residual sweeps, on the widest bucket (B5) and the
         # two-stage candidates (B6) of each residual index; the row is the
         # path's 4-bit, 8-centroid index, the others are held and logged
@@ -777,10 +795,11 @@ def main() -> int:
                 max(v[0] for v in store.values()), ms, plain, flops, nb,
                 tc_flops=flops)
 
-        # B3 on fp32 docs and B6 where the docs are far from unit norm
-        # (randn, norm ~11; scores up to ~90), the cases of their card
-        # tests: within 1e-5 of a float64 MaxSim of the same tokens, as the
-        # fp32 plain versions are themselves ~1e-5 from it there (logged)
+        # B3 (fp32 and bf16 docs), B6 and B4 (fp32 and bf16) where the docs
+        # are far from unit norm (randn, norm ~11; scores up to ~90), the
+        # cases of their card tests: within 1e-5 of a float64 MaxSim of the
+        # same tokens, as the fp32 plain versions are themselves ~1e-5 from
+        # it there (logged)
         g = torch.Generator(device="cuda").manual_seed(4)
         q11 = torch.randn(6, 32, dim, device="cuda", generator=g)
         q11 = q11 / q11.norm(dim=-1, keepdim=True)
@@ -799,16 +818,31 @@ def main() -> int:
         rm11[:, 1] = False
         dec = dequantize_residual(rq11, sc11, bo.long()[..., None] * 127
                                   + cds.long(), tab.reshape(-1, dim), 4)
+        c11 = torch.randn(6, 37, 130, dim, device="cuda", generator=g)
         a3 = (q11, d11, dm11, qm11)
+        a3b = (q11, d11.bfloat16(), dm11, qm11)
         a6 = (q11, cds, rq11, sc11, tab, bo, rm11, qm11)
+        a4 = (q11, c11, rm11, qm11)
+        a4b = (q11, c11.bfloat16(), rm11, qm11)
         for name, o, r, eq, dd, mk in (
                 ("colbert_maxsim_multi", cm_ops.colbert_maxsim_multi_op(*a3),
                  cm_ref.colbert_maxsim_multi_ref(*a3), "qld,nmd->qnlm", d11,
                  dm11),
+                ("colbert_maxsim_multi_bf16",
+                 cm_ops.colbert_maxsim_multi_op(*a3b),
+                 cm_ref.colbert_maxsim_multi_ref(*a3b), "qld,nmd->qnlm",
+                 a3b[1], dm11),
                 ("colbert_maxsim_residual_rerank",
                  cm_ops.colbert_maxsim_residual_rerank_op(*a6, bits=4),
                  cm_ref.colbert_maxsim_residual_rerank_ref(*a6, bits=4),
-                 "qld,qnmd->qnlm", dec, rm11)):
+                 "qld,qnmd->qnlm", dec, rm11),
+                ("colbert_maxsim_rerank", cm_ops.colbert_maxsim_rerank_op(*a4),
+                 cm_ref.colbert_maxsim_rerank_ref(*a4), "qld,qnmd->qnlm",
+                 c11, rm11),
+                ("colbert_maxsim_rerank_bf16",
+                 cm_ops.colbert_maxsim_rerank_op(*a4b),
+                 cm_ref.colbert_maxsim_rerank_ref(*a4b), "qld,qnmd->qnlm",
+                 a4b[1], rm11)):
             s_ = torch.where(mk[..., None, :], torch.einsum(
                 eq, q11.double(), dd.double()), -1e30).amax(-1)
             e = torch.where(qm11[:, None, :], s_, 0.0).sum(-1)
@@ -820,6 +854,7 @@ def main() -> int:
             expect(err <= ATOL and rel <= 1e-6,
                    f"{name} on norm-11 docs strays from float64")
         del g, q11, qm11, d11, dm11, tab, cds, bo, rq11, sc11, rm11, dec
+        del c11, a3, a3b, a4, a4b, a6
 
         # 6. fused pruning leg; first B1 at the leg's widest bucket, beside
         # the 2,908-doc shape above

@@ -57,7 +57,7 @@ SIGNATURES = {
         "colbert_maxsim_multi_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                         _I, _P, _P, _P, _P, _P, _P],
         "colbert_maxsim_rerank_launch": [_P, _P, _P, _P, _I, _I, _I, _I,
-                                         _I, _I, _P, _P],
+                                         _I, _I, _P, _P, _P, _P],
         "colbert_maxsim_residual_multi_launch": [
             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
             _P, _P],
@@ -174,10 +174,11 @@ def _kernel_name(mangled: str) -> str:
         ident, rest = rest[:size], rest[size:]
         if not ident.startswith("_GLOBAL__N"):
             parts.append(ident)
-    args = re.match(r"I((?:Li\d+E|f)+)E", rest)
+    args = re.match(r"I((?:Li\d+E|Lb[01]E|f)+)E", rest)
     if not args:
         return "::".join(parts)
-    vals = [n or "float" for n in re.findall(r"Li(\d+)E|f", args.group(1))]
+    vals = [n or ("float" if not b else ("false", "true")[int(b)])
+            for n, b in re.findall(r"Li(\d+)E|Lb([01])E|f", args.group(1))]
     return "::".join(parts) + f"<{', '.join(vals)}>"
 
 

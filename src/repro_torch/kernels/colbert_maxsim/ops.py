@@ -6,7 +6,7 @@ Counterpart of ``repro.kernels.colbert_maxsim.ops``:
 * :func:`colbert_maxsim_multi_op` — a query batch vs one doc array in
   one launch (the e2e / exact scoring sweep);
 * :func:`colbert_maxsim_rerank_op` — each query vs its OWN candidate
-  block (two-stage rerank), one launch over (candidates x queries);
+  block (two-stage rerank), one launch;
 * :func:`colbert_maxsim_op` — one query vs a doc batch, the
   ``n_q = 1`` case of the rerank kernel;
 * :func:`colbert_maxsim_residual_multi_op` and
@@ -15,8 +15,8 @@ Counterpart of ``repro.kernels.colbert_maxsim.ops``:
 
 Queries are fp32; dense docs are fp32 or bf16.  A CPU tensor runs the
 plain version (``ref.py``); a CUDA tensor launches the kernel.  Every
-route but the dense rerank is a Hopper kernel, which splits the queries
-(and fp32 docs) into three bf16 planes first, into scratch allocated
+route is a Hopper kernel, which splits the queries (and, in the multi
+sweep, fp32 docs) into three bf16 planes first, into scratch allocated
 here, and takes a dim that is a multiple of 8 up to 128.
 ``.launches`` on each launching wrapper counts its launches, and
 ``.bf16_launches`` on the two dense ones the share of them on bf16
@@ -32,7 +32,7 @@ from repro_torch.kernels.colbert_maxsim.ref import (
     colbert_maxsim_multi_ref, colbert_maxsim_rerank_ref,
     colbert_maxsim_residual_multi_ref, colbert_maxsim_residual_rerank_ref)
 
-L_MAX = 64   # query tokens per query the kernel takes (csrc RT)
+L_MAX = 64   # query tokens per query the kernels take (one wgmma M)
 BF16_DIM_MAX = 128   # the query planes' row length (csrc PLANE_DP)
 DOC_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -68,19 +68,23 @@ def _launch(entry, q_embs, d_embs, d_masks, q_masks, n_docs):
     build.require(d_embs, "d_embs", d_embs.dtype,
                   d_masks.shape + (dim,), dev)
     build.require(d_masks, "d_masks", torch.bool, d_masks.shape, dev)
-    scratch = ()
+    bf16 = d_embs.dtype == torch.bfloat16
     if entry == "colbert_maxsim_multi_launch":
-        bf16 = d_embs.dtype == torch.bfloat16
         if bf16 and d_embs.data_ptr() % 16:
             raise ValueError("bf16 d_embs must be 16-byte aligned")
         scratch = _query_planes(q_embs, 64 // l) + (
             (None, None) if bf16 else _doc_planes(d_embs))
+    else:
+        scratch = _query_planes(q_embs, 1)
+        # the rerank reads its candidates 16 bytes at a time (fp32) or
+        # through a tensor map (bf16)
+        if d_embs.data_ptr() % 16:
+            raise ValueError("d_subs must be 16-byte aligned")
     out = torch.empty((n_q, n_docs), dtype=torch.float32, device=dev)
     lib = build.library("colbert_maxsim")
     build.check("colbert_maxsim", getattr(lib, entry)(
         q_embs.data_ptr(), q_masks.data_ptr(), d_embs.data_ptr(),
-        d_masks.data_ptr(), n_q, l, n_docs, m, dim,
-        int(d_embs.dtype == torch.bfloat16),
+        d_masks.data_ptr(), n_q, l, n_docs, m, dim, int(bf16),
         *[None if s is None else s.data_ptr() for s in scratch],
         out.data_ptr(), build.stream_ptr(q_embs)))
     return out
@@ -89,7 +93,7 @@ def _launch(entry, q_embs, d_embs, d_masks, q_masks, n_docs):
 def _query_planes(q_embs, group):
     """Scratch of the Hopper kernels: the queries' three bf16 planes and
     one flag a group of ``group`` queries (a warpgroup's floor(64 / l) in
-    the multi sweeps, one in the residual rerank)."""
+    the multi sweeps, one in the reranks)."""
     n_q, l, dim = q_embs.shape
     if dim % 8 or dim > BF16_DIM_MAX:
         raise ValueError(f"dim={dim}: the Hopper kernel takes a multiple "
@@ -135,8 +139,9 @@ colbert_maxsim_multi_op.bf16_launches = 0
 
 def colbert_maxsim_rerank_op(q_embs, d_subs, m_subs, q_masks=None):
     """Query i vs its candidate block: q_embs (n_q, l, dim);
-    d_subs (n_q, n_cand, m, dim); m_subs (n_q, n_cand, m) ->
-    (n_q, n_cand)."""
+    d_subs (n_q, n_cand, m, dim) fp32 or bf16; m_subs (n_q, n_cand, m)
+    -> (n_q, n_cand).  On the card, dim is a multiple of 8 up to 128 and
+    d_subs 16-byte aligned."""
     if _device_of(d_subs).type == "cpu":
         return colbert_maxsim_rerank_ref(q_embs, d_subs, m_subs, q_masks)
     if m_subs.dim() != 3 or m_subs.shape[0] != q_embs.shape[0]:

@@ -6,8 +6,8 @@
 //     against a doc array (n_docs, m, dim) -> (n_q, n_docs);
 //   * colbert_maxsim (_kernel), which ops.colbert_maxsim_rerank_op vmaps
 //     over per-query candidate blocks: queries (n_q, l, dim) against
-//     their own docs (n_q, n_cand, m, dim) -> (n_q, n_cand), in ONE
-//     launch over (candidates x queries);
+//     their own docs (n_q, n_cand, m, dim) -> (n_q, n_cand), in one
+//     launch;
 //   * colbert_maxsim_residual_multi (_kernel_residual_multi): the multi
 //     sweep over one residual-codec bucket — codes (n_docs, m) int8,
 //     packed residuals (n_docs, m, dim*bits/8) uint8, per-token scales
@@ -24,90 +24,16 @@
 // sentinel the streaming pad audits rely on (never -inf or NaN).
 // Queries are fp32; dense docs are fp32 or bf16 (widened exactly).
 //
-// Every route but the rerank (B4) is a Hopper kernel on split-bf16
-// wgmma, below: colbert_maxsim_multi on bf16 docs (namespace
-// multi_bf16), on fp32 docs and colbert_maxsim_residual_multi (B5) —
-// one kernel, a TMA or a decoding producer (multi_sm90) — and
-// colbert_maxsim_residual_rerank (B6, rerank_sm90); the last three share
-// one consumer warpgroup (namespace sweep).  The rerank alone runs on
-// the fp32 tile engine of score_tile.cuh:
-//
-// Bound on the H100: bytes at the serving shapes (the candidates read
-// once, 4 or 2 bytes a token value).
-// Design: a block owns one candidate and one query (64-row tile, its l
-// rows used) and sweeps the candidate's tokens in 64-column tiles
-// (score_tile.cuh), so a doc of any length fits in 25 KB of static
-// shared memory; the loader widens bf16 while the tile is staged.  Each
-// of 64 threads keeps its row's running fp32 max; the per-query sum over
-// l token maxes runs in double and is rounded once, so it does not
-// depend on a summation order.  The 4-D (n_q, n_cand, l, m) tensor of
-// the plain version never exists.
+// Every route is a Hopper kernel on split-bf16 wgmma, below:
+// colbert_maxsim_multi on bf16 docs (namespace multi_bf16), on fp32 docs
+// and colbert_maxsim_residual_multi (B5) — one kernel, a TMA or a
+// decoding producer (multi_sm90) — colbert_maxsim_residual_rerank (B6,
+// rerank_sm90) and the dense rerank (B4, rerank_dense); the last four
+// share one consumer warpgroup (namespace sweep).
 
-#include "score_tile.cuh"
 #include "sm90.cuh"
 
-using namespace repro;
-
-// Candidates of the rerank, row-major (n_q, n_cand, m, dim), fp32 or
-// bf16: doc(d) is the loader of flat candidate d.
-template <class T>
-struct DenseDocs {
-  const T* docs;
-  int m, dim;
-  __device__ __forceinline__ DenseCols<T> doc(size_t d) const {
-    return {docs + d * m * dim, dim};
-  }
-};
-
-// Block (candidate d, query qi).
-template <class Docs>
-__global__ void __launch_bounds__(NT)
-colbert_maxsim_kernel(const float* __restrict__ q,
-                      const uint8_t* __restrict__ qmask, Docs docs,
-                      const uint8_t* __restrict__ dmask, int l,
-                      int n_docs, int m, int dim, float* __restrict__ out) {
-  __shared__ TileSmem sm;
-  __shared__ float rowmax[RT];
-  const int d = blockIdx.x;
-  const int qi = blockIdx.y;
-  const float* A = q + (size_t)qi * l * dim;
-  const size_t doc = (size_t)qi * n_docs + d;
-  const auto D = docs.doc(doc);
-  const uint8_t* dm = dmask + doc * m;
-  const int tid = threadIdx.x;
-
-  float rmax = -INFINITY;
-  for (int c0 = 0; c0 < m; c0 += CT) {
-    const int nc = min(CT, m - c0);
-    score_tile(A, l, D, c0, nc, dim, sm);
-    if (tid < RT) {
-      for (int c = 0; c < nc; ++c)
-        rmax = fmaxf(rmax, dm[c0 + c] ? sm.s[tid][c] : NEG);
-    }
-    __syncthreads();
-  }
-  if (tid < RT) rowmax[tid] = rmax;
-  __syncthreads();
-  if (tid == 0) {
-    double acc = 0.0;
-    for (int t = 0; t < l; ++t)
-      if (qmask[(size_t)qi * l + t]) acc += (double)rowmax[t];
-    out[(size_t)qi * n_docs + d] = (float)acc;
-  }
-}
-
-template <class Docs>
-static int launch_rerank(const float* q, const uint8_t* qmask, Docs docs,
-                         const uint8_t* dmask, int n_q, int l, int n_docs,
-                         int m, int dim, float* out, void* stream) {
-  if (l < 1 || l > RT) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_q > 0 && n_docs > 0) {
-    colbert_maxsim_kernel<Docs>
-        <<<dim3(n_docs, n_q), NT, 0, static_cast<cudaStream_t>(stream)>>>(
-            q, qmask, docs, dmask, l, n_docs, m, dim, out);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
+constexpr float NEG = -1e30f;     // a masked doc token's score
 
 // ---- colbert_maxsim_multi on bf16 docs: the Hopper kernel ----
 //
@@ -121,9 +47,8 @@ static int launch_rerank(const float* q, const uint8_t* qmask, Docs docs,
 // and a score costs one bf16 product: 2·n_q·l·n_docs·m·dim flops, 0.251
 // ms for 64 queries x 32 tokens against 3,695 docs x 128 tokens (989
 // TFLOP/s), against 0.036 ms of bytes.  General fp32 queries add
-// q_mid·d and q_lo·d, summed in a second fp32 accumulator and added
-// once: exact products, fp32 sums — the plain version's function within
-// its 1e-5 gate.
+// q_mid·d and q_lo·d: exact products, fp32 sums — the plain version's
+// function within its 1e-5 gate.
 //
 // Design.  Queries are stationary: a block holds 2 x qpw whole queries
 // (qpw = floor(64 / l) to a warpgroup, so no query straddles two), as
@@ -133,9 +58,15 @@ static int launch_rerank(const float* q, const uint8_t* qmask, Docs docs,
 // tensor map over (dim, m, n_docs): a tile is G = 128 / m_pad docs of
 // m_pad = pow2(m) <= 128 rows (rows past m zero-filled), or one 128-row
 // slice of a doc with m > 128.  A consumer warpgroup computes its
-// 64 x 128 scores with wgmma m64n128k16 (both operands K-major from
-// shared memory) — the two warpgroups take turns issuing theirs, so one's
-// epilogue runs under the other's products — releases the stage, masks
+// 64 x 128 scores as two 64 x 64 halves with wgmma m64n64k16 (both
+// operands K-major from shared memory), each k16 step in a fresh
+// accumulator and the steps added in fp32 round to nearest
+// (sm90::split_mma_n64_rn): summed in one tensor-core accumulator, the
+// eight steps, added with truncation, put the scores of docs of norm
+// ~11 up to 1.4e-5 from a float64 MaxSim (tests/test_torch_score_sm90.py
+// on the H100).
+// The two warpgroups issue their steps as they go, so one's adds and
+// epilogue run under the other's products.  It releases the stage, masks
 // the columns (doc mask bits by ballot; columns past m or n_docs are
 // dead), and takes each row's max over each doc's columns with quad
 // shuffles — the docs of a tile sit on whole groups of 8 columns, so the
@@ -177,34 +108,21 @@ struct Args {
   float* out;               // (n_q, n_docs)
 };
 
-// Issue one 64 x 128 score tile of a warpgroup: q_hi·d into acc and,
-// for a flagged query group (QF), q_mid·d + q_lo·d into acc2, each
-// accumulator overwritten by its first product; one straight-line group
-// per case, committed here and waited for by the caller.  K-major
-// operands: 64-column panels of 128-byte rows, 32 bytes a k16 step.
+// One 64 x 128 score tile of a warpgroup as two 64 x 64 halves, acc[h]
+// the tile's rows 64 h .. 64 h + 63: q_hi·d and, for a flagged query
+// group (QF), q_mid·d + q_lo·d, summed step by step.  K-major operands:
+// 64-column panels of 128-byte rows, 32 bytes a k16 step.
 template <bool QF>
-__device__ __forceinline__ void tile_mma(float (&acc)[64], float (&acc2)[64],
-                                         uint32_t q_hi, uint32_t tile) {
-  wgmma_fence();
+__device__ __forceinline__ void tile_mma(float (&acc)[2][32], uint32_t q_hi,
+                                         uint32_t tile) {
 #pragma unroll
-  for (int kk = 0; kk < PLANE_DP / 16; ++kk) {
-    const uint32_t off = (kk % 4) * 32;
-    const uint32_t q = q_hi + (kk / 4) * QROWS * 128 + off;
-    const uint64_t d = smem_desc(tile + (kk / 4) * TN * 128 + off, 16, 1024);
-    wgmma_ss_n128(acc, smem_desc(q, 16, 1024), d, kk > 0);
-    if constexpr (QF) {
-      wgmma_ss_n128(acc2, smem_desc(q + PLANE_Q, 16, 1024), d, kk > 0);
-      wgmma_ss_n128(acc2, smem_desc(q + 2 * PLANE_Q, 16, 1024), d, 1);
-    }
-  }
-  wgmma_commit();
+  for (int h = 0; h < 2; ++h)
+    split_mma_n64_rn<QF, false, QROWS, TN>(acc[h], q_hi, tile + h * 64 * 128);
 }
 
-// Each row's max over each of the tile's G docs, masked columns at NEG;
-// acc2 is read only for a flagged query group (QF).
-template <int G, bool QF>
-__device__ __forceinline__ void row_max(const float (&acc)[64],
-                                        const float (&acc2)[64],
+// Each row's max over each of the tile's G docs, masked columns at NEG.
+template <int G>
+__device__ __forceinline__ void row_max(const float (&acc)[2][32],
                                         const uint32_t (&w)[4], float (&g0)[G],
                                         float (&g1)[G]) {
   constexpr int I_PER_DOC = 16 / G;     // 8-column groups a doc
@@ -216,17 +134,15 @@ __device__ __forceinline__ void row_max(const float (&acc)[64],
     for (int e = 0; e < 2; ++e) {
       const bool live = (w[i / 4] >> (8 * (i % 4) + e)) & 1u;
       const int g = i / I_PER_DOC;
-      const float s0 = QF ? acc[4 * i + e] + acc2[4 * i + e] : acc[4 * i + e];
-      const float s1 = QF ? acc[4 * i + 2 + e] + acc2[4 * i + 2 + e]
-                          : acc[4 * i + 2 + e];
-      g0[g] = fmaxf(g0[g], live ? s0 : NEG);
-      g1[g] = fmaxf(g1[g], live ? s1 : NEG);
+      g0[g] = fmaxf(g0[g], live ? acc[i / 8][4 * (i % 8) + e] : NEG);
+      g1[g] = fmaxf(g1[g], live ? acc[i / 8][4 * (i % 8) + 2 + e] : NEG);
     }
 }
 
 // One consumer warpgroup.  Thread (warp w, lane) owns local rows
 // r0 = 16 w + lane / 4 and r1 = r0 + 8; column 8 i + 2 (lane % 4) + e of
-// the tile sits in register 4 i + e (r0) and 4 i + 2 + e (r1).
+// the tile sits in register 4 (i % 8) + e (r0) and 4 (i % 8) + 2 + e (r1)
+// of half i / 8.
 template <int G>
 __device__ __forceinline__ void consume(uint32_t base, uint8_t* smem, int wg,
                                         int n_tiles, int d_begin,
@@ -252,10 +168,6 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* smem, int wg,
   const bool live0 = row_live(r0), live1 = row_live(r1);
   int buf = 0;
   float run0 = -INFINITY, run1 = -INFINITY;
-  // Ping-pong: the warpgroups take turns issuing their tiles' wgmmas
-  // (named barriers 3 and 4), so that one's epilogue runs while the
-  // tensor cores work for the other; warpgroup 0 goes first.
-  if (wg == 1 && n_tiles > 0) bar_arrive(3, 256);
 
   mbar_wait(bars, 0);                                   // query planes
   for (int it = 0; it < n_tiles; ++it) {
@@ -275,17 +187,12 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* smem, int wg,
     }
     const int s = it % STAGES;
     const uint32_t tile = base + OFF_D + s * STAGE_D;
-    float acc[64], acc2[64];
+    float acc[2][32];
     mbar_wait(bars + 8 + 8 * s, (it / STAGES) & 1);
-    bar_sync(3 + wg, 256);                              // my turn
     if (qf)
-      tile_mma<true>(acc, acc2, q_hi, tile);
+      tile_mma<true>(acc, q_hi, tile);
     else
-      tile_mma<false>(acc, acc2, q_hi, tile);
-    if (wg == 0 || it + 1 < n_tiles) bar_arrive(4 - wg, 256);  // yours
-    wgmma_wait0();
-    fence_regs(acc);
-    fence_regs(acc2);
+      tile_mma<false>(acc, q_hi, tile);
     __syncwarp();
     if (lane == 0) mbar_arrive(bars + 8 + 8 * (STAGES + s));
 
@@ -296,10 +203,7 @@ __device__ __forceinline__ void consume(uint32_t base, uint8_t* smem, int wg,
       w[j] = __ballot_sync(0xffffffffu, live[j]) >> cl;
 
     float g0[G], g1[G];
-    if (qf)
-      row_max<G, true>(acc, acc2, w, g0, g1);
-    else
-      row_max<G, false>(acc, acc2, w, g0, g1);
+    row_max<G>(acc, w, g0, g1);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       g0[g] = quad_max(g0[g]);
@@ -449,13 +353,14 @@ int launch(const float* q, const uint8_t* qmask, const void* docs,
 
 // ---- the split-bf16 sweep of one consumer warpgroup ----
 //
-// Shared by the three Hopper kernels on 64-token doc tiles: B3 on fp32
-// docs and B5 (multi_sm90), and B6 (rerank_sm90).  A tile is G = 64 /
+// Shared by the four Hopper kernels on 64-token doc tiles: B3 on fp32
+// docs and B5 (multi_sm90), B6 (rerank_sm90) and B4 (rerank_dense).  A
+// tile is G = 64 /
 // m_pad docs of m_pad = pow2(m) <= 64 rows, or one 64-row slice of a doc
 // with m > 64, so the doc of a register is static for a given G.  A
 // consumer warpgroup holds qpw whole queries in its 64 rows of the query
-// planes (three bf16 terms, sm90.cuh) and, per tile of three doc planes,
-// computes its 64 x 64 scores with wgmma m64n64k16
+// planes (three bf16 terms, sm90.cuh) and, per tile of three doc planes
+// (one for bf16 docs), computes its 64 x 64 scores with wgmma m64n64k16
 // (sm90::split_mma_n64_rn): the products of the terms the flags ask for
 // one k16 step at a time, each step in a fresh accumulator, the steps
 // added in fp32 round to nearest.  The docs are the caller's, so they
@@ -484,6 +389,11 @@ constexpr int MAX_G = 8;      // docs a tile: m_pad 8
 constexpr uint32_t PLANE_D = TN * PLANE_DP * 2;
 constexpr uint32_t STAGE_D = 3 * PLANE_D;
 static_assert(PLANE_D == SPLIT_B_PLANE, "split_mma_n64's plane strides");
+
+// The doc terms of a consumer's tiles: three (hi + mid + lo, a stage of
+// STAGE_D), as many as the tile group's zero-term flag asks for (three
+// planes a stage), or one exact bf16 term (a stage of PLANE_D).
+enum DocTerms { THREE, FLAGGED, ONE };
 
 // A launch's docs and scores.  Rows of the query planes: a warpgroup's
 // 64 start at its first query.
@@ -544,12 +454,12 @@ __device__ __forceinline__ void row_max(const float (&acc)[32],
 // flag qf) in its 64 rows of the QROWS-row query planes at q_hi, against
 // the docs [d_begin, d_end) of `dmask` in n_tiles tiles of a ring of
 // STAGES at `ring`; barriers at `bars`: the query planes', full[STAGES],
-// empty[STAGES].  FLAGGED: a tile's doc terms follow its group's flag,
-// else the docs take three.  rm: two buffers of MAX_G x QROWS row maxima.
+// empty[STAGES]; the tiles' doc terms TERMS.  rm: two buffers of MAX_G x
+// QROWS row maxima.
 // Thread (warp w, lane) owns local rows r0 = 16 w + lane / 4 and r1 =
 // r0 + 8; column 8 i + 2 (lane % 4) + e of the tile sits in register
 // 4 i + e (r0) and 4 i + 2 + e (r1).
-template <int G, int QROWS, int WGS, int STAGES, bool FLAGGED>
+template <int G, int QROWS, int WGS, int STAGES, DocTerms TERMS>
 __device__ __forceinline__ void consume(uint32_t q_hi, uint32_t ring,
                                         uint32_t bars, float* rm, int wg,
                                         int q_first, bool qf, int n_tiles,
@@ -585,9 +495,10 @@ __device__ __forceinline__ void consume(uint32_t q_hi, uint32_t ring,
       const int tok = G == 1 ? t * TN + c : c % a.m_pad;
       live[j] = doc < d_end && tok < a.m && dmask[(size_t)doc * a.m + tok];
     }
-    const bool df = !FLAGGED || uniform(a.dflags[doc0 / G]);
+    const bool df = TERMS == THREE ||
+                    (TERMS == FLAGGED && uniform(a.dflags[doc0 / G]));
     const int s = it % STAGES;
-    const uint32_t tile = ring + s * STAGE_D;
+    const uint32_t tile = ring + s * (TERMS == ONE ? PLANE_D : STAGE_D);
     float acc[32];
     mbar_wait(bars + 8 + 8 * s, (it / STAGES) & 1);
     if (WGS == 2) bar_sync(3 + wg, 256);                // my turn
@@ -656,6 +567,22 @@ __device__ __forceinline__ void consume(uint32_t q_hi, uint32_t ring,
   }
 }
 
+// Eight values split into hi + mid + lo and packed two a word.
+__device__ __forceinline__ void split_chunk(const float (&x)[8],
+                                            uint32_t (&h)[4],
+                                            uint32_t (&md)[4],
+                                            uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat16 th[2], tm[2], tl[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) split3(x[2 * i + e], th[e], tm[e], tl[e]);
+    h[i] = pack_bf16(th[0], th[1]);
+    md[i] = pack_bf16(tm[0], tm[1]);
+    lo[i] = pack_bf16(tl[0], tl[1]);
+  }
+}
+
 // The residual decode of one 8-value chunk, value i at bit BITS · i of
 // u, against its centroid values: the product and the sum rounded apart
 // (__fmul_rn, __fadd_rn: no fma contraction) — the eager decode's
@@ -668,20 +595,13 @@ __device__ __forceinline__ void decode_chunk(uint32_t u,
                                              uint32_t (&md)[4],
                                              uint32_t (&lo)[4]) {
   constexpr int HALF = 1 << (BITS - 1);
+  float x[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    __nv_bfloat16 th[2], tm[2], tl[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int v = (u >> (BITS * (2 * i + e))) & ((1 << BITS) - 1);
-      const float x = __fadd_rn(cent[2 * i + e],
-                                __fmul_rn((float)(v - HALF), sc));
-      split3(x, th[e], tm[e], tl[e]);
-    }
-    h[i] = pack_bf16(th[0], th[1]);
-    md[i] = pack_bf16(tm[0], tm[1]);
-    lo[i] = pack_bf16(tl[0], tl[1]);
+  for (int i = 0; i < 8; ++i) {
+    const int v = (u >> (BITS * i)) & ((1 << BITS) - 1);
+    x[i] = __fadd_rn(cent[i], __fmul_rn((float)(v - HALF), sc));
   }
+  split_chunk(x, h, md, lo);
 }
 
 // A chunk's three terms into the tile's three planes at `dst`.
@@ -912,7 +832,7 @@ kernel(const __grid_constant__ CUtensorMap tq,
     const int wg = warp / 4, qg = 2 * blockIdx.x + wg;
     const int n_groups = (a.s.n_q + a.s.qpw - 1) / a.s.qpw;
     const bool qf = uniform(qg < n_groups && a.qflags[qg]);
-    consume<G, QROWS, 2, STAGES, BITS == 0>(
+    consume<G, QROWS, 2, STAGES, BITS == 0 ? FLAGGED : THREE>(
         base + wg * 64 * 128, base + OFF_D, bars,
         reinterpret_cast<float*>(smem + OFF_RM), wg, qg * a.s.qpw, qf,
         n_tiles, d_begin, d_end, a.s.dmask, a.s);
@@ -1181,7 +1101,7 @@ kernel(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(bars + 8 + 8 * s);
     }
   } else {
-    consume<G, QROWS, 1, STAGES, false>(
+    consume<G, QROWS, 1, STAGES, THREE>(
         base, base + OFF_D, bars, reinterpret_cast<float*>(smem + OFF_RM),
         0, qi, uniform(a.qflags[qi]), n_tiles, d_begin, d_end,
         a.s.dmask + (size_t)qi * a.s.n_docs * a.s.m, a.s);
@@ -1245,6 +1165,257 @@ int launch(const float* q, const uint8_t* qmask, const int8_t* codes,
 
 }  // namespace rerank_sm90
 
+// ---- colbert_maxsim rerank (B4): the Hopper kernel ----
+//
+// Replaces the Pallas TPU kernel
+//   src/repro/kernels/colbert_maxsim/colbert_maxsim.py:69
+//   ::colbert_maxsim (_kernel; pallas_call at :90), which
+//   ops.colbert_maxsim_rerank_op vmaps over per-query candidate blocks:
+//   queries (n_q, l, dim) against their own candidates (n_q, n_cand, m,
+//   dim), fp32 or bf16 -> (n_q, n_cand); colbert_maxsim itself is the
+//   n_q = 1 case.
+//
+// Bound on the H100: bytes, each candidate read once: 0.080 ms for 64
+// queries x 64 candidates x 128 tokens x 128 in fp32 (4 bytes a value),
+// 0.040 ms in bf16, against 0.013 ms of products at three terms
+// (3.35 TB/s; 989 TFLOP/s).
+//
+// Design.  B6 without the decode: one query a block, its rows padded to
+// wgmma's M of 64 (rows past l dead), a group of its candidates sized
+// for about four blocks an SM (sweep::docs_per_block, so one query
+// alone still fills the card), the query's three planes from the split
+// pre-pass loaded once by TMA with one flag a query, and one consumer
+// warpgroup running the sweep.  Only the producer differs, by the
+// candidates' dtype:
+//  * fp32: the producer warpgroup loads the tiles itself, each thread
+//    one 8-value chunk (two 16-byte loads) of eight rows; it splits each
+//    value into hi + mid + lo (sweep::split_chunk), stores the three
+//    128B-swizzled planes (sweep::store_chunk), fences the generic proxy
+//    against the async one, arrives, and then issues every load of the
+//    next tile, which run under this tile's products (there is one
+//    stage), as B6 issues a tile's loads before its stores.  No pre-pass
+//    scratch, as fp32 B3 needs for its 16 query blocks reading every
+//    doc tile: here each candidate tile is read by one block, and a
+//    scratch would move 4 + 6 + 6 bytes a value against a bound of 4.
+//    The docs always take three terms, as in B6: products are not the
+//    bound.  One stage, about 100 KB, so two blocks share an SM.
+//  * bf16: one exact term.  One producer thread streams the hi plane by
+//    TMA from a 3-D tensor map over the candidates (dim, m, n_q·n_cand),
+//    box 64 x m_pad x G, rows past m zero-filled, as multi_bf16 maps its
+//    docs, into a ring of BF16_STAGES, and the consumer issues the
+//    products of one doc term (sweep::ONE).
+
+namespace rerank_dense {
+
+using namespace sm90;
+using namespace sweep;
+
+// B6's block: one query's 64 rows, a consumer and a producer warpgroup
+using rerank_sm90::CONSUMER_WARPS;
+using rerank_sm90::NT;
+using rerank_sm90::OFF_D;
+using rerank_sm90::PLANE_Q;
+using rerank_sm90::PRODUCERS;
+using rerank_sm90::QROWS;
+using rerank_sm90::RM_BUF;
+// bf16: 85 KB a block, two blocks an SM; a ring of 1, 3 or 4 (4: one
+// block an SM) measured slower on the H100
+constexpr int BF16_STAGES = 2;
+
+// A block's shared memory on bf16 (BF16) or fp32 candidates: the query
+// planes, the ring, two row-max buffers, then the barriers q_full,
+// full[STAGES], empty[STAGES].
+template <bool BF16>
+struct Layout {
+  static constexpr int STAGES = BF16 ? BF16_STAGES : 1;
+  static constexpr uint32_t OFF_RM = OFF_D + STAGES * (BF16 ? PLANE_D
+                                                             : STAGE_D);
+  static constexpr uint32_t OFF_BARS = OFF_RM + 2 * RM_BUF;
+  static constexpr uint32_t SMEM_DYNAMIC =
+      OFF_BARS + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+struct Args {
+  Sweep s;                  // qpw 1; n_docs the candidates a query
+  const int* qflags;        // a flag a query
+  const float* docs;        // fp32 candidates (n_q, n_cand, m, dim)
+  int dim, docs_per_block;
+};
+
+// A producer thread's share of a tile: chunk c = p % 16 (values 8c ..
+// 8c + 7) of rows p / 16 + 8 j, j < 8.
+struct Chunks {
+  float4 x0[TN / 8], x1[TN / 8];
+};
+
+// Thread p's chunks of tile `it` of query qi's block, every load issued
+// before any is used; rows past m or the block's last candidate, and
+// chunks past dim, as zeros.
+template <int G>
+__device__ __forceinline__ void load_tile(const Args& a, int qi, int d_begin,
+                                          int d_end, int it, int p,
+                                          Chunks& x) {
+  const int c = p % 16, rr = p / 16;
+  const bool col_ok = 8 * c < a.dim;
+  const size_t cand0 = (size_t)qi * a.s.n_docs;
+  int doc0, t;
+  tile_of<G>(a.s, d_begin, it, doc0, t);
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+    const int r = rr + 8 * j;
+    const int doc = G == 1 ? doc0 : doc0 + r / a.s.m_pad;
+    const int tok = G == 1 ? t * TN + r : r % a.s.m_pad;
+    x.x0[j] = x.x1[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (col_ok && doc < d_end && tok < a.s.m) {
+      const float4* src = reinterpret_cast<const float4*>(
+          a.docs + ((cand0 + doc) * a.s.m + tok) * a.dim + 8 * c);
+      x.x0[j] = __ldg(src);
+      x.x1[j] = __ldg(src + 1);
+    }
+  }
+}
+
+// Thread p's chunks split into hi + mid + lo, stored in the three
+// 128B-swizzled planes of the tile at `tile`.  Every row of a thread has
+// the same row mod 8, so one swizzled chunk offset serves all eight.
+__device__ __forceinline__ void store_tile(uint32_t tile, int p,
+                                           const Chunks& x) {
+  const int c = p % 16, rr = p / 16;
+  const uint32_t chunk = tile + (c / 8) * TN * 128 + ((c % 8) ^ rr) * 16;
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+    const float v[8] = {x.x0[j].x, x.x0[j].y, x.x0[j].z, x.x0[j].w,
+                        x.x1[j].x, x.x1[j].y, x.x1[j].z, x.x1[j].w};
+    uint32_t h[4], md[4], lo[4];
+    split_chunk(v, h, md, lo);
+    store_chunk(chunk + (rr + 8 * j) * 128, h, md, lo);
+  }
+}
+
+// Block (query blockIdx.x, candidate group blockIdx.y); td maps the
+// bf16 candidates (unused on fp32).
+template <bool BF16, int G>
+__global__ void __launch_bounds__(NT, 2)
+kernel(const __grid_constant__ CUtensorMap tq,
+       const __grid_constant__ CUtensorMap td,
+       const __grid_constant__ Args a) {
+  using L = Layout<BF16>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t bars = base + L::OFF_BARS;
+  const int qi = blockIdx.x;
+  const int d_begin = blockIdx.y * a.docs_per_block;
+  const int d_end = min(a.s.n_docs, d_begin + a.docs_per_block);
+  const int n_tiles = G == 1 ? (d_end - d_begin) * a.s.tiles_per_doc
+                             : (d_end - d_begin + G - 1) / G;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 + 8 * s, BF16 ? 1 : PRODUCERS);
+      mbar_init(bars + 8 + 8 * (STAGES + s), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = uniform(threadIdx.x / 32);
+  if (warp >= CONSUMER_WARPS) {
+    const int p = threadIdx.x - CONSUMER_WARPS * 32;
+    if (p == 0) {
+      // the query's rows and the next 64 - l, which are dead
+      mbar_expect_tx(bars, 3 * PLANE_Q);
+      for (int pl = 0; pl < 3; ++pl)
+        for (int pn = 0; pn < PLANE_DP / 64; ++pn)
+          tma_load_3d(base + pl * PLANE_Q + pn * QROWS * 128, &tq, bars,
+                      pn * 64, qi * a.s.l, pl);
+    }
+    if (BF16 && p != 0) return;
+    Chunks x;                   // fp32: the next tile's chunks
+    if (!BF16 && n_tiles > 0) load_tile<G>(a, qi, d_begin, d_end, 0, p, x);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES;
+      const uint32_t full = bars + 8 + 8 * s;
+      const uint32_t tile = base + OFF_D + s * (BF16 ? PLANE_D : STAGE_D);
+      int doc0, t;
+      tile_of<G>(a.s, d_begin, it, doc0, t);
+      mbar_wait(bars + 8 + 8 * (STAGES + s), ((it / STAGES) & 1) ^ 1);
+      if constexpr (BF16) {
+        mbar_expect_tx(full, PLANE_D);
+        for (int pn = 0; pn < PLANE_DP / 64; ++pn)
+          tma_load_3d(tile + pn * TN * 128, &td, full, pn * 64, t * TN,
+                      qi * a.s.n_docs + doc0);
+      } else {
+        store_tile(tile, p, x);
+        fence_proxy_async();
+        mbar_arrive(full);
+        // the next tile's loads run under this one's products
+        if (it + 1 < n_tiles)
+          load_tile<G>(a, qi, d_begin, d_end, it + 1, p, x);
+      }
+    }
+  } else {
+    consume<G, QROWS, 1, STAGES, BF16 ? ONE : THREE>(
+        base, base + OFF_D, bars, reinterpret_cast<float*>(smem + L::OFF_RM),
+        0, qi, uniform(a.qflags[qi]), n_tiles, d_begin, d_end,
+        a.s.dmask + (size_t)qi * a.s.n_docs * a.s.m, a.s);
+  }
+}
+
+template <bool BF16, int G>
+int run(const CUtensorMap& tq, const CUtensorMap& td, const Args& a,
+        dim3 grid, cudaStream_t stream) {
+  constexpr uint32_t smem = Layout<BF16>::SMEM_DYNAMIC;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel<BF16, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<BF16, G><<<grid, NT, smem, stream>>>(tq, td, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool BF16>
+int run_g(int G, const CUtensorMap& tq, const CUtensorMap& td,
+          const Args& a, dim3 grid, cudaStream_t stream) {
+  switch (G) {
+    case 1: return run<BF16, 1>(tq, td, a, grid, stream);
+    case 2: return run<BF16, 2>(tq, td, a, grid, stream);
+    case 4: return run<BF16, 4>(tq, td, a, grid, stream);
+    default: return run<BF16, 8>(tq, td, a, grid, stream);
+  }
+}
+
+int launch(const float* q, const uint8_t* qmask, const void* docs,
+           const uint8_t* dmask, int n_q, int l, int n_cand, int m, int dim,
+           int bf16, void* q_planes, int* q_flags, float* out,
+           cudaStream_t stream) {
+  // 16-byte loads of fp32 chunks; 16-byte rows of the bf16 tensor map
+  if (l < 1 || l > 64 || m < 1 || dim < 8 || dim % 8 || dim > PLANE_DP ||
+      reinterpret_cast<uintptr_t>(docs) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_q < 1 || n_cand < 1) return static_cast<int>(cudaGetLastError());
+  Args a{};
+  a.s = Sweep{qmask, dmask, nullptr, out, n_q, l, 1, n_cand, m, 0, 1};
+  a.qflags = q_flags;
+  a.docs = static_cast<const float*>(docs);
+  a.dim = dim;
+  CUtensorMap tq, td;
+  const int err = query_side(q, n_q, l, dim, 1, q_planes, q_flags, &tq,
+                             stream);
+  if (err) return err;
+  const int G = geometry(a.s);
+  a.docs_per_block = docs_per_block(n_cand, G, n_q);
+  const dim3 grid(n_q, (n_cand + a.docs_per_block - 1) / a.docs_per_block);
+  if (!bf16) return run_g<false>(G, tq, tq, a, grid, stream);
+  if (!encode_3d(&td, docs, dim, m, (uint64_t)n_q * n_cand, dim * 2ull,
+                 dim * 2ull * m, a.s.m_pad, G))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return run_g<true>(G, tq, td, a, grid, stream);
+}
+
+}  // namespace rerank_dense
+
 // The caller's scratch: the query planes, (3, n_q·l, 128) bf16, and
 // flags, (ceil(n_q / floor(64 / l)),) int32; for fp32 docs also the doc
 // planes, (3, n_docs·m, 128) bf16, and flags, (n_docs,) int32 (null for
@@ -1264,22 +1435,15 @@ extern "C" int colbert_maxsim_multi_launch(
                                 static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int colbert_maxsim_rerank_launch(const float* q,
-                                            const uint8_t* qmask,
-                                            const void* docs,
-                                            const uint8_t* dmask, int n_q,
-                                            int l, int n_cand, int m,
-                                            int dim, int bf16, float* out,
-                                            void* stream) {
-  if (bf16)
-    return launch_rerank(q, qmask,
-                         DenseDocs<__nv_bfloat16>{
-                             static_cast<const __nv_bfloat16*>(docs), m, dim},
-                         dmask, n_q, l, n_cand, m, dim, out, stream);
-  return launch_rerank(q, qmask,
-                       DenseDocs<float>{static_cast<const float*>(docs), m,
-                                        dim},
-                       dmask, n_q, l, n_cand, m, dim, out, stream);
+// The caller's scratch: the query planes, (3, n_q·l, 128) bf16, and
+// flags, (n_q,) int32.
+extern "C" int colbert_maxsim_rerank_launch(
+    const float* q, const uint8_t* qmask, const void* docs,
+    const uint8_t* dmask, int n_q, int l, int n_cand, int m, int dim,
+    int bf16, void* q_planes, int* q_flags, float* out, void* stream) {
+  return rerank_dense::launch(q, qmask, docs, dmask, n_q, l, n_cand, m, dim,
+                              bf16, q_planes, q_flags, out,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // The caller's scratch: the query planes, (3, n_q·l, 128) bf16, and
@@ -1320,4 +1484,6 @@ extern "C" int colbert_maxsim_split_planes(const float* x, int rows, int dim,
                             static_cast<cudaStream_t>(stream));
 }
 
-REPRO_ERROR_STRING(colbert_maxsim)
+extern "C" const char* colbert_maxsim_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -11,10 +11,10 @@
 // to be warp-uniform, named barriers, a host encoder of 3-D tensor maps,
 // the three-term split pre-pass of the score kernels and their
 // two-accumulator 64 x 64 split tile (maxsim_sm90.cuh, colbert_maxsim.cu)
-// with its step-by-step, round-to-nearest variant (fp32 B3, B5, B6; A
-// blocks of 128 or 64 rows), and, for a producer that writes wgmma
-// operands itself (B5's and B6's decode), 16-byte shared stores and the
-// generic-to-async proxy fence.
+// with its step-by-step, round-to-nearest variant (B3-B6; A blocks of
+// 128 or 64 rows, B panels 64 or 128 rows apart), and, for a producer
+// that writes wgmma operands itself (B4's split, B5's and B6's decode),
+// 16-byte shared stores and the generic-to-async proxy fence.
 //
 // The three-term split.  For fp32 x let hi = RN_bf16(x), mid =
 // RN_bf16(x - hi) and lo = RN_bf16(x - hi - mid).  Both subtractions
@@ -442,8 +442,11 @@ __device__ __forceinline__ void wgmma_wait1() {
 // steps are summed in fp32 on the CUDA cores, round to nearest.  On
 // return every product is complete and sum is readable.  A's block has
 // A_ROWS rows, its panels and planes that far apart: 128 as in
-// split_mma_n64, or 64 for a block of one warpgroup (B6).
-template <bool AF, bool BF, int A_ROWS = 128>
+// split_mma_n64, or 64 for a block of one warpgroup (B4, B6).  B's
+// panels are B_ROWS rows apart: 64, or 128 for a 64-row half of bf16
+// B3's 128-row tiles (b_hi at the half's first row; B's mid and lo
+// planes, read for BF, are SPLIT_B_PLANE apart).
+template <bool AF, bool BF, int A_ROWS = 128, int B_ROWS = 64>
 __device__ __forceinline__ void split_mma_n64_rn(float (&sum)[32],
                                                  uint32_t a_hi,
                                                  uint32_t b_hi) {
@@ -454,7 +457,7 @@ __device__ __forceinline__ void split_mma_n64_rn(float (&sum)[32],
   for (int kk = 0; kk < PLANE_DP / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
     const uint32_t a = a_hi + (kk / 4) * A_ROWS * 128 + off;
-    const uint32_t b = b_hi + (kk / 4) * 64 * 128 + off;
+    const uint32_t b = b_hi + (kk / 4) * B_ROWS * 128 + off;
     float (&t)[32] = kk % 2 ? t1 : t0;
     int on = 0;        // the step's first product overwrites t
     wgmma_fence();     // t of step kk - 2 was read by the adds below

@@ -1,4 +1,4 @@
-"""Quick card check of the Hopper score kernels (B1, B2, B3, B5, B6).
+"""Quick card check of the Hopper score kernels (B1-B6).
 
     PYTHONPATH=src python -m repro_torch.kernels.score_check
 
@@ -30,7 +30,18 @@ after a warm-up):
 * B6: 64 queries x 64 candidates x 128 of their own, 4-bit with 8
   centroids and 2-bit with 127, four tables, codes and bucket ids out of
   range in some candidates (clamped); then tables of norm ~11 against a
-  float64 MaxSim (gated at 1e-5).
+  float64 MaxSim (gated at 1e-5);
+* B4: the same queries against 64 candidates x 128 of their own (one
+  all masked), bf16 and fp32 (int8 values times per-token fp32 scales,
+  three terms), and one query against 1,024 bf16 candidates; the two
+  64-query kernels' device time alone from ``torch.profiler``; then
+  candidates of norm ~11 against a float64 MaxSim (gated at 1e-5);
+* the accumulation of B1, B2 and bf16 B3, which keep a k16 step sum in
+  the tensor cores' accumulator: unit samples against 5 docs x 180
+  tokens of norm ~11 (randn; fp32 and bf16-exact), B2's top-16 and B1's
+  best and second values, and unit queries (fp32 and bf16-exact) against
+  37 bf16 docs x 130 of norm ~11, against float64 (gated at 1e-5), the
+  fp32 plain version's error beside.
 
 It needs a CUDA device and exits non-zero on a disagreement past the
 1e-5 gate.  ``chip_smoke.py`` holds the same kernels on the paths' own
@@ -231,12 +242,16 @@ def main() -> int:
         s = torch.where(dm[..., None, :], s, -1e30)
         return torch.where(qm[:, None, :], s.amax(-1), 0.0).sum(-1)
 
-    def near(tag, o, e):
+    def near(tag, o, e, plain=None):
+        """o within 1e-5 of float64 e; the plain version's error beside."""
         real = e > -1e29
         err = (o.double() - e)[real].abs().max().item()
         rel = ((o.double() - e) / e)[~real].abs().max().item()
+        beside = ("" if plain is None else
+                  f"; the plain version "
+                  f"{(plain.double() - e)[real].abs().max().item():.2e}")
         print(f"{tag} (|score| <= {e[real].abs().max().item():.1f}) against "
-              f"float64: {err:.2e}, sentinel rel err {rel:.1e}")
+              f"float64: {err:.2e}, sentinel rel err {rel:.1e}{beside}")
         return err <= ATOL and rel <= 1e-6
 
     qq = unit(6, 32, 128)
@@ -289,6 +304,81 @@ def main() -> int:
     ok &= near("B6 tables of norm ~11", cm.colbert_maxsim_residual_rerank_op(
         qq, cds, resq, scale, tab, bo, rm, qm, bits=4),
         exact("qld,qnmd->qnlm", qq, dec, rm, qm))
+    # B4
+    cand = unit(64, 64, 128, 128).bfloat16()
+    cmask = torch.rand(64, 64, 128, device="cuda", generator=g) < 0.7
+    cmask[:, 3] = False
+    scl = cand.float().abs().amax(-1, keepdim=True) / 127
+    c8 = (cand.float() / scl).round() * scl
+    for tag, dd, dm_, qq_ in (
+            ("bf16, 64 q x 64 cand x 128", cand, cmask, q),
+            ("fp32 (int8 x scale, three terms), 64 q x 64 cand x 128", c8,
+             cmask, q),
+            ("bf16, 1 q x 1,024 cand x 128", cand[:16].reshape(1, 1024, 128,
+                                                               128),
+             cmask[:16].reshape(1, 1024, 128), q[:1])):
+        o = cm.colbert_maxsim_rerank_op(qq_, dd, dm_)
+        r = cm_ref.colbert_maxsim_rerank_ref(qq_, dd, dm_)
+        real = r > -1e29
+        err = (o - r)[real].abs().max().item()
+        rel = ((o - r) / r)[~real].abs().max().item()
+        ok &= err <= ATOL and rel <= 1e-6
+        ms = _ms(lambda: cm.colbert_maxsim_rerank_op(qq_, dd, dm_))
+        print(f"B4 colbert_maxsim_rerank {tag}: max abs err {err:.3e}, "
+              f"sentinel rel err {rel:.1e}; {ms:.3f} ms")
+    # the kernels' device time alone: a ~0.1 ms launch does not hide the
+    # wrapper's host work (scratch, tensor maps), which the event times
+    # above include
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            cm.colbert_maxsim_rerank_op(q, cand, cmask)
+            cm.colbert_maxsim_rerank_op(q, c8, cmask)
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if "rerank_dense" in ev.key or "split_planes" in ev.key:
+            name = ev.key.replace("(anonymous namespace)::", "")
+            print(f"B4 device time (torch.profiler), "
+                  f"{name.split('(')[0].removeprefix('void ')}: "
+                  f"{ev.count} launches, {ev.device_time:.1f} us each")
+    del cand, cmask, c8
+    d11 = torch.randn(6, 37, 130, 128, device="cuda", generator=g)
+    m11 = torch.rand(6, 37, 130, device="cuda", generator=g) < 0.8
+    m11[:, 1] = False
+    for tag, dd in (("fp32", d11), ("bf16", d11.bfloat16())):
+        ok &= near(f"B4 {tag} candidates of norm ~11",
+                   cm.colbert_maxsim_rerank_op(qq, dd, m11, qm),
+                   exact("qld,qnmd->qnlm", qq, dd, m11, qm),
+                   cm_ref.colbert_maxsim_rerank_ref(qq, dd, m11, qm))
+
+    # the accumulation of B1, B2 and bf16 B3 on tokens of norm ~11
+    S = unit(300, 128)
+    al = torch.rand(5, 180, device="cuda", generator=g) < 0.8
+    for tag, T in (("fp32", torch.randn(5, 180, 128, device="cuda",
+                                        generator=g)),
+                   ("bf16-exact", torch.randn(5, 180, 128, device="cuda",
+                                              generator=g).bfloat16()
+                    .float())):
+        ex = torch.where(al[:, None], torch.einsum(
+            "nd,bmd->bnm", S.double(), T.double()), -1e30).topk(16).values
+        b1, b1r = maxsim_top2_op(S, T, al), maxsim_top2_ref(S, T, al)
+        for name, got, plain, want in (
+                ("B2 top-16", maxsim_topk_op(S, T, al, k=16)[0],
+                 maxsim_topk_ref(S, T, al, 16)[0], ex),
+                ("B1 best", b1[0], b1r[0], ex[..., 0]),
+                ("B1 second", b1[1], b1r[1], ex[..., 1])):
+            err = (got.double() - want).abs().max().item()
+            ok &= err <= ATOL
+            print(f"{name}, unit samples vs {tag} tokens of norm ~11 "
+                  f"(|value| <= {want.abs().max().item():.1f}) against "
+                  f"float64: kernel {err:.2e}, plain "
+                  f"{(plain.double() - want).abs().max().item():.2e}")
+    db = torch.randn(37, 130, 128, device="cuda", generator=g).bfloat16()
+    for tag, qq_ in (("fp32", qq), ("bf16-exact", qq.bfloat16().float())):
+        ok &= near(f"B3 bf16 docs of norm ~11, {tag} queries",
+                   cm.colbert_maxsim_multi_op(qq_, db, dm, qm),
+                   exact("qld,nmd->qnlm", qq_, db, dm, qm),
+                   cm_ref.colbert_maxsim_multi_ref(qq_, db, dm, qm))
     print("score_check: " + ("ok" if ok else "FAILED"))
     return 0 if ok else 1
 

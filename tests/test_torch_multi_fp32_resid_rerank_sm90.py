@@ -47,8 +47,9 @@ except ImportError:     # a GPU host without JAX: the cuda tests still run
 from repro_torch.kernels.colbert_maxsim import ops as cm
 from repro_torch.kernels.colbert_maxsim import ref as cm_ref
 from repro_torch.train import compress
-from test_torch_prune_resid_sm90 import _decode, _scores_by_step
-from test_torch_score_sm90 import _bf16_exact, _cuda, _split, _unit
+from test_torch_prune_resid_sm90 import _decode
+from test_torch_score_sm90 import (_bf16_exact, _cuda, _scores_by_step,
+                                   _split, _unit)
 
 ATOL = 1e-5
 NEG = np.float32(-1e30)

@@ -52,7 +52,7 @@ from repro_torch.kernels.maxsim_top2.ref import maxsim_top2_ref
 from repro_torch.kernels.maxsim_topk.ref import maxsim_topk_ref
 from repro_torch.train import compress
 from test_torch_score_sm90 import (_before, _bf16_exact, _cuda, _scores,
-                                   _split, _unit)
+                                   _scores_by_step, _split, _unit)
 
 ATOL = 1e-5
 NEG = np.float32(-1e30)
@@ -260,25 +260,6 @@ def _decode(codes, resq, scale, codebook, bits):
                      for i in range(8)], -1).reshape(n, m, -1)
     code = codes.long().clamp(0, codebook.shape[0] - 1)
     return codebook[code] + (u - 2 ** (bits - 1)).float() * scale
-
-
-def _scores_by_step(a, b, terms=3):
-    """B5's split scores (csrc sm90::split_mma_n64_rn): each 16-column
-    step's products summed on their own, the small ones first (mid·mid,
-    then hi·lo and hi·mid of b's terms, then a's) and hi·hi last, and the
-    steps added in fp32 in order."""
-    ah, am, al = _split(a)
-    bh, bm, bl = _split(b)
-    if terms == 2:
-        al, bl = torch.zeros_like(al), torch.zeros_like(bl)
-    acc = None
-    for k in range(0, a.shape[1], 16):
-        c = slice(k, k + 16)
-        t = am[:, c] @ bm[:, c].T
-        for x, y in ((ah, bl), (ah, bm), (al, bh), (am, bh), (ah, bh)):
-            t = t + x[:, c] @ y[:, c].T
-        acc = t if acc is None else acc + t
-    return acc
 
 
 def _b5_emulate(q, codes, resq, scale, codebook, dm, qm, bits, terms=3):

@@ -3,9 +3,13 @@
 
 Both kernels split their fp32 operands into three bf16 terms (hi + mid +
 lo == x), multiply terms on the tensor cores (each product exact in
-fp32), keep hi·hi in one fp32 accumulator and the smaller products in a
-second, and skip the mid and lo terms of a row group whose flag says
-they are all zero.  ``_scores`` repeats that in torch fp32; B2's
+fp32) and skip the mid and lo terms of a row group whose flag says they
+are all zero.  B2 keeps hi·hi in one fp32 accumulator and the smaller
+products in a second (``_scores``); bf16 B3 sums each 16-column step's
+products on their own and adds the steps in fp32 (``_scores_by_step``:
+one running accumulator, which the tensor cores add to with truncation,
+put its scores of docs of norm ~11 1.4e-5 from float64,
+``TestLargeScoresOnCard``).  Both are repeated in torch fp32; B2's
 register epilogue (per-thread lists, the quad's bitonic merge under the
 explicit (value desc, index asc) order) is mirrored step for step by
 ``_b2_epilogue``.  Both are held against the JAX op (Pallas in interpret
@@ -31,6 +35,8 @@ except ImportError:     # a GPU host without JAX: the cuda tests still run
     jnp = None
 from repro_torch.kernels.colbert_maxsim import ops as cm
 from repro_torch.kernels.colbert_maxsim import ref as cm_ref
+from repro_torch.kernels.maxsim_top2 import ops as t2
+from repro_torch.kernels.maxsim_top2.ref import maxsim_top2_ref
 from repro_torch.kernels.maxsim_topk import ops as tk
 from repro_torch.kernels.maxsim_topk.ref import (maxsim_topk_ref,
                                                  topk_lowest_index)
@@ -71,6 +77,25 @@ def _scores(a, b, *, terms=3):
     acc = ah @ bh.T
     acc2 = am @ bh.T + al @ bh.T + ah @ bm.T + ah @ bl.T + am @ bm.T
     return acc + acc2
+
+
+def _scores_by_step(a, b, terms=3):
+    """The split scores of B3-B6 (csrc sm90::split_mma_n64_rn): each
+    16-column step's products summed on their own, the small ones first
+    (mid·mid, then hi·lo and hi·mid of b's terms, then a's) and hi·hi
+    last, and the steps added in fp32 in order.  ``terms=2`` drops lo."""
+    ah, am, al = _split(a)
+    bh, bm, bl = _split(b)
+    if terms == 2:
+        al, bl = torch.zeros_like(al), torch.zeros_like(bl)
+    acc = None
+    for k in range(0, a.shape[1], 16):
+        c = slice(k, k + 16)
+        t = am[:, c] @ bm[:, c].T
+        for x, y in ((ah, bl), (ah, bm), (al, bh), (am, bh), (ah, bh)):
+            t = t + x[:, c] @ y[:, c].T
+        acc = t if acc is None else acc + t
+    return acc
 
 
 def _before(va, ia, vb, ib):
@@ -305,11 +330,11 @@ def _colbert_case(seed, n_q, l, n_docs, m, dim, *, exact_q):
 
 
 def _b3_emulate(q, d, dm, qm, terms=3):
-    """(n_q, n_docs) as the bf16 B3 kernel computes it: split scores,
-    masked doc tokens at -1e30, each row's max, the live query tokens'
-    maxima summed in double and rounded once."""
+    """(n_q, n_docs) as the bf16 B3 kernel computes it: split scores
+    summed step by step, masked doc tokens at -1e30, each row's max, the
+    live query tokens' maxima summed in double and rounded once."""
     n_q, l, dim = q.shape
-    s = _scores(q.reshape(-1, dim), d.reshape(-1, dim), terms=terms)
+    s = _scores_by_step(q.reshape(-1, dim), d.reshape(-1, dim), terms=terms)
     s = s.reshape(n_q, l, d.shape[0], d.shape[1])
     s = torch.where(dm[None, None], s, torch.tensor(NEG))
     best = s.amax(-1).double()
@@ -445,3 +470,69 @@ class TestColbertMultiBf16OnCard:
         with pytest.raises(ValueError, match="dim=36"):
             cm.colbert_maxsim_multi_op(q, d, torch.ones(3, 8, dtype=torch.bool,
                                                         device=dev))
+
+
+@pytest.mark.cuda
+class TestLargeScoresOnCard:
+    """B1, B2 and bf16 B3 where the tokens are far from unit norm (randn,
+    norm ~11) and the samples and queries unit: each value within 1e-5 of
+    a float64 reference of the same operands, the fp32 plain version's own
+    error printed beside.  The tensor cores add each product group to
+    their fp32 accumulator with truncation, which puts sums of 32 maxima
+    (scores up to ~90) up to 2e-5 low unless the kernel sums its k16
+    steps apart."""
+
+    @pytest.mark.parametrize("exact_tokens", [True, False])
+    def test_pruning_values_stay_near_exact(self, exact_tokens):
+        dev = _cuda()
+        rng = np.random.default_rng(11)
+        D = rng.normal(size=(5, 180, 128)).astype(np.float32)
+        if exact_tokens:
+            D = _bf16_exact(D)
+        s, d = (torch.from_numpy(x).to(dev) for x in (_unit(rng, 300, 128),
+                                                       D))
+        al = torch.from_numpy(rng.random((5, 180)) < 0.8).to(dev)
+        exact = torch.where(al[:, None], torch.einsum(
+            "nd,bmd->bnm", s.double(), d.double()), -1e30).topk(16).values
+        for name, got, plain in (
+                ("B2 top-16", tk.maxsim_topk_op(s, d, al, k=16)[0],
+                 maxsim_topk_ref(s, d, al, 16)[0]),
+                ("B1 best", t2.maxsim_top2_op(s, d, al)[0],
+                 maxsim_top2_ref(s, d, al)[0]),
+                ("B1 second", t2.maxsim_top2_op(s, d, al)[1],
+                 maxsim_top2_ref(s, d, al)[1])):
+            want = (exact if name.startswith("B2")
+                    else exact[..., int(name.endswith("second"))])
+            err = (got.double() - want).abs().max().item()
+            print(f"{name}, tokens bf16-exact {exact_tokens} (|value| <= "
+                  f"{want.abs().max().item():.1f}): kernel {err:.2e}, plain "
+                  f"{(plain.double() - want).abs().max().item():.2e}")
+            assert err <= ATOL
+
+    @pytest.mark.parametrize("exact_q", [True, False])
+    @pytest.mark.parametrize("m", [8, 130])
+    def test_bf16_multi_stays_near_exact(self, m, exact_q):
+        dev = _cuda()
+        rng = np.random.default_rng(m)
+        q = _unit(rng, 6, 32, 128)
+        if exact_q:
+            q = _bf16_exact(q)
+        q = torch.from_numpy(q).to(dev)
+        d = torch.from_numpy(rng.normal(size=(37, m, 128)).astype(
+            np.float32)).to(dev).bfloat16()
+        dm = torch.from_numpy(rng.random((37, m)) < 0.8).to(dev)
+        dm[1] = False
+        qm = torch.from_numpy(rng.random((6, 32)) < 0.9).to(dev)
+        s = torch.where(dm[:, None, :], torch.einsum(
+            "qld,nmd->qnlm", q.double(), d.double()), -1e30).amax(-1)
+        exact = torch.where(qm[:, None, :], s, 0.0).sum(-1)
+        got = cm.colbert_maxsim_multi_op(q, d, dm, qm)
+        plain = cm_ref.colbert_maxsim_multi_ref(q, d, dm, qm)
+        real = exact > -1e29
+        err = (got.double() - exact)[real].abs().max().item()
+        print(f"bf16 B3 m {m}, queries bf16-exact {exact_q} (|score| <= "
+              f"{exact[real].abs().max().item():.1f}): kernel {err:.2e}, "
+              f"plain {(plain.double() - exact)[real].abs().max().item():.2e}")
+        assert exact[real].abs().max() > 20
+        assert err <= ATOL
+        assert ((got.double() - exact) / exact)[~real].abs().max() <= 1e-6
