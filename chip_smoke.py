@@ -59,7 +59,28 @@ passed — any failure exits non-zero):
    bucket beside the 2,908-doc shape of phase 5; those launches also
    warm the leg's kernel before its timer.
    The retrieval phases' tensors are freed before the next phase.
-7. Dense LM path (``[lm]``) at minitron-4b's full ``CONFIG`` (32
+7. ColBERT training (``[train]``) at the full ``colbert`` config (bf16,
+   seed 0) through ``launch.train.run``: batch 128 (of the config's
+   2,048: the 4-D MaxSim score tensor and its backward at 2,048 do not
+   fit the card), 40 steps on the AdamW schedule, checkpoints every 10
+   steps.  A run stopped after step 20 and resumed by the same call
+   without ``stop_after`` (it must print that it resumed from step 20)
+   against an uninterrupted run into another directory: final
+   parameters and AdamW moments equal bit for bit.  Every loss finite;
+   the mean of the last 5 losses below the mean of the first 5; no
+   kernel of the port launched during training (every op's launch
+   count read before and after).  Step ms (median, max), tokens/s (the
+   padded query and doc tokens of a step) and peak device memory.
+   ``restore_latest`` into a fresh encoder: parameters and moments
+   equal to the trained ones bit for bit, the manifest
+   ``compression: "none"``.  Then the restored encoder and the seed-0
+   random one each served by ``serve_retrieval`` (1,024 docs, 64
+   queries, keep 0.5): two-stage (B2, bf16 B4) and e2e (bf16 B3), each
+   top-10 held against the ``reference`` backend as in phase 3, and
+   MRR@10 against the corpus's topic relevance printed for both
+   (reported, not gated).  The phase's tensors and checkpoints are
+   freed before the next phase.
+8. Dense LM path (``[lm]``) at minitron-4b's full ``CONFIG`` (32
    layers, d_model 3072, 24 heads / 8 KV, head_dim 128, vocab 256,000,
    bf16; random weights from seed 0, initialised on the card):
    ``prefill_lm`` on 4 prompts x 2,048 tokens on ``fused`` and on
@@ -71,7 +92,7 @@ passed — any failure exits non-zero):
    ``serve_lm`` (greedy, batch 2 x 32 tokens) with its ms/token beside
    the weight-read bound; the last greedy id must be the prefill argmax
    of its own prefix.
-8. B7 (``flash_attention``) against its plain version at the prefill
+9. B7 (``flash_attention``) against its plain version at the prefill
    shape, stablelm-3b's (32 heads, head_dim 80), a 512 sliding window
    and qwen2.5-32b's (40 heads / 8 KV, head_dim 128), causal, bf16 (the
    sm90 kernel) and widened to fp32 (the CUDA-core kernel), timed beside
@@ -81,7 +102,7 @@ passed — any failure exits non-zero):
    visible pair on the bf16 tensor cores (Q·Kᵀ, P_hi·V and P_lo·V); the
    earlier bound (P·V at the fp32 rate) and a single bf16 P·V's are
    logged beside it.
-9. Recsys CTR path (``[recsys]``), after the LM's tensors are freed:
+10. Recsys CTR path (``[recsys]``), after the LM's tensors are freed:
    dlrm-rm2 at its full ``CONFIG`` (26 tables of 1,048,576 x 64 fp32,
    6.98 GB, stacked into one (F·V, 64) matrix; random weights from seed
    0 drawn on the card): ``serve_ctr`` at ``serve_p99`` (512) and
@@ -99,14 +120,14 @@ passed — any failure exits non-zero):
    dcn-v2 and wide-deep at their full configs, each built after the
    previous model is freed: ``serve_ctr`` at ``serve_p99`` on both
    backends, bit for bit, 1 and 2 B8 launches a ``fused`` forward.
-10. B8 (``embedding_bag``) against its plain version at three of the
+11. B8 (``embedding_bag``) against its plain version at three of the
    paths' own shapes: dlrm-rm2's ``serve_bulk`` lookup (6,815,744 bags
    of one id, D 64), the user-tower mean at batch 262,144 (26 ids, D
    64) and wide-deep's wide sum (262,144 bags of 40 ids, D 1), timed
    beside the plain version and ``torch.nn.functional.embedding_bag``
    (the library yardstick, which the port never calls).  Bound: the
    gathered rows, the ids and the output once each at 3.35 TB/s.
-11. The ``kernels`` JSON line; ``path_ms`` is each kernel's summed
+12. The ``kernels`` JSON line; ``path_ms`` is each kernel's summed
    event time over the launches ``launches`` counts: the main path (B2,
    bf16 B3/B4), the fused pruning leg (B1), the compressed and routed
    path (fp32 B3/B4, B5, B6), the fused prefill (B7) and the median of
@@ -123,16 +144,25 @@ the two backends' probabilities equal bit for bit (the lookups are
 gathers and bags added in one order on both; the rest is the same
 code); top-100 ids equal wherever the gap to a neighbour exceeds 1e-6,
 scores within 1e-6; B8 within 1e-6 of its plain version (it adds in the
-plain version's order, so it is expected to be equal).  A kernel row's
-``max_abs_err`` is the largest over the variants held.
+plain version's order, so it is expected to be equal).  Training: the
+resumed and uninterrupted runs' parameters and moments equal bit for
+bit, and the restored ones equal to the trained ones bit for bit (a
+step is a pure function of the state and the step-indexed batch, and
+the checkpoint stores raw bytes); served top-10s as in phase 3.  A
+kernel row's ``max_abs_err`` is the largest over the variants held.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -151,6 +181,10 @@ LM_BATCH, LM_SEQ, DEC_PROMPT = 4, 2048, 64
 # layers alike; 0.25 is ~0.23 std at this width.
 LOGIT_TOL = 0.25
 N_DOCS, N_QUERIES, FUSED_DOCS = 4096, 64, 256
+# [train]: batch 128 of the config's 2,048 (the 4-D MaxSim score tensor,
+# (B, B, 32, 180), and its backward grow with B^2); 40 steps, stopped
+# after 20 and resumed; the trained encoder served on 1,024 docs.
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_STOP, TRAIN_DOCS = 128, 40, 20, 1024
 
 
 def log(*a):
@@ -312,6 +346,11 @@ def main() -> int:
                                              topk_search)
     from repro_torch.serve.routing import RoutingIndex
     from repro_torch.core.backend import shortlist_knobs
+    from repro_torch.core.metrics import mrr_at_k
+    from repro_torch.data.synthetic import token_corpus
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models.colbert import init_params as colbert_init
+    from repro_torch.train import checkpoint, optimizer, train_step
     from repro_torch.train.compress import (dequantize_residual,
                                             quantize_residual,
                                             residual_values)
@@ -350,6 +389,18 @@ def main() -> int:
         lib = "" if library_ms is None else f" library {library_ms:.3f} ms"
         log(f"[kernel] {name}: max_abs_err {max_err:.3e} kernel {ms:.3f} ms "
             f"plain {plain_ms:.3f} ms{lib} bound {b_ms:.3f} ms ({b_by})")
+
+    def hold_to_reference(tag, index, q_emb, n_first, i, s):
+        """A served top-10 against the reference backend's top-11 (the
+        11th score tells a tie at rank 10 apart)."""
+        ri, rs = search(index, q_emb, k=11, n_first=n_first,
+                        backend="reference", return_full=False)
+        err = (torch.as_tensor(s) - rs[:, :10].cpu()).abs().max().item()
+        agree, bad = ids_ok(torch.as_tensor(i), ri[:, :10].cpu(), rs.cpu())
+        log(f"{tag} top-10 vs reference backend: ids equal {agree:.4f}, "
+            f"untied mismatches {bad}, max |score err| {err:.3e}")
+        expect(bad == 0 and err <= ATOL,
+               f"{tag} top-10 disagrees with the reference backend")
 
     def retrieval_phases():
         """Phases 3-6: the retrieval paths of the earlier slices and
@@ -435,21 +486,10 @@ def main() -> int:
                    f"{name} ids out of range")
             expect(bool(np.isfinite(s).all()), f"{name} scores not finite")
 
-        def hold_to_reference(tag, index, n_first, i, s):
-            """A served top-10 against the reference backend's top-11 (the
-            11th score tells a tie at rank 10 apart)."""
-            ri, rs = search(index, q_emb, k=11, n_first=n_first,
-                            backend="reference", return_full=False)
-            err = (torch.as_tensor(s) - rs[:, :10].cpu()).abs().max().item()
-            agree, bad = ids_ok(torch.as_tensor(i), ri[:, :10].cpu(), rs.cpu())
-            log(f"{tag} top-10 vs reference backend: ids equal {agree:.4f}, "
-                f"untied mismatches {bad}, max |score err| {err:.3e}")
-            expect(bad == 0 and err <= ATOL,
-                   f"{tag} top-10 disagrees with the reference backend")
-
-        hold_to_reference("[main] e2e", packed, packed.n_docs, e2e_idx,
-                          e2e_scores)
-        hold_to_reference("[main] two-stage", packed, 64, res.idx, res.scores)
+        hold_to_reference("[main] e2e", packed, q_emb, packed.n_docs,
+                          e2e_idx, e2e_scores)
+        hold_to_reference("[main] two-stage", packed, q_emb, 64, res.idx,
+                          res.scores)
 
         # 4. compressed and routed path on the main path's pruned corpus
         pruned = TokenIndex.build(res.d_emb, res.d_mask).with_keep(res.keep)
@@ -551,6 +591,7 @@ def main() -> int:
             expect(i.shape == (N_QUERIES, 10) and bool(np.isfinite(s).all()),
                    f"{name} {route} top-k malformed")
             hold_to_reference(f"[compressed] {name} {route}", packs[name],
+                              q_emb,
                               packs[name].n_docs if route == "e2e" else 64,
                               i, s)
         ex_idx, ex_scores = served["residual4", "e2e"]
@@ -918,10 +959,214 @@ def main() -> int:
             r_["path_ms"] = (path_ms if on_main
                              else comp_ms).get(r_["name"], 0.0)
 
+    def train_phase():
+        """Phase 7, ``[train]``: the ColBERT encoder trained at its full
+        config through ``launch.train.run`` (stopped, resumed, and
+        against an uninterrupted run), restored from its checkpoint and
+        served beside the seed-0 random encoder."""
+        cfg = colbert_base.CONFIG
+        ops = (maxsim_top2_op, maxsim_topk_op, cm_ops.colbert_maxsim_multi_op,
+               cm_ops.colbert_maxsim_rerank_op,
+               cm_ops.colbert_maxsim_residual_multi_op,
+               cm_ops.colbert_maxsim_residual_rerank_op,
+               fa_ops.flash_attention_op, embedding_bag_op)
+
+        def total_launches():
+            return sum(fn.launches for fn in ops)
+
+        def leaves(state):
+            return checkpoint.tree_flatten(train_step.state_tree(state))
+
+        def unequal(a, b):
+            """Names of the train-state leaves that differ in any bit."""
+            return [n for (n, x), (_, y) in zip(a, b)
+                    if not torch.equal(x, y)] + (
+                ["leaf count"] if len(a) != len(b) else [])
+
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train."))
+        tokens = TRAIN_BATCH * (cfg.query_len + cfg.doc_len)
+        log(f"[train] {cfg.name}: {cfg.n_layers} layers, width "
+            f"{cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, out_dim "
+            f"{cfg.out_dim}, {cfg.param_dtype}; batch {TRAIN_BATCH} x "
+            f"({cfg.query_len} query + {cfg.doc_len} doc tokens) = {tokens} "
+            f"tokens a step; checkpoints under a temporary directory "
+            f"({shutil.disk_usage(tmp).free / 1e9:.1f} GB free)")
+        kw = dict(preset="full", steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                  ckpt_every=10, log_every=10)
+        try:
+            n0 = total_launches()
+            part = train_lib.run("colbert", ckpt_dir=str(tmp / "a"),
+                                 stop_after=TRAIN_STOP, **kw)
+            part_losses, part_wall = part["losses"], part["wall_s"]
+            del part
+            out = io.StringIO()
+            real = sys.stdout
+
+            class Tee(io.TextIOBase):
+                def write(self, text):
+                    real.write(text)
+                    return out.write(text)
+
+            with contextlib.redirect_stdout(Tee()):
+                resumed = train_lib.run("colbert", ckpt_dir=str(tmp / "a"),
+                                        **kw)
+            said = f"[train] resumed from step {TRAIN_STOP}"
+            expect(said in out.getvalue() and resumed["start"] == TRAIN_STOP,
+                   f"the resumed run did not print {said!r}")
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            full = train_lib.run("colbert", ckpt_dir=str(tmp / "b"), **kw)
+            peak = torch.cuda.max_memory_allocated()
+            fresh = train_step.make_train_state(colbert_init(
+                torch.Generator(device="cpu").manual_seed(1), cfg, "cuda"))
+            t = time.perf_counter()
+            step, tree = checkpoint.restore_latest(
+                str(tmp / "b"), train_step.state_tree(fresh))
+            if tree is not None:
+                fresh = train_step.load_state_tree(fresh, tree)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t
+            n1 = total_launches()
+            with open(tmp / "b" / f"step_{TRAIN_STEPS:09d}"
+                      / "manifest.json") as f:
+                manifest = json.load(f)
+            ck_bytes = sum(p.stat().st_size for p in
+                           (tmp / "b" / f"step_{TRAIN_STEPS:09d}").iterdir())
+        finally:
+            checkpoint.wait_pending()
+            shutil.rmtree(tmp, ignore_errors=True)
+
+        losses = full["losses"]
+        log(f"[train] losses (uninterrupted): "
+            f"{json.dumps([round(x, 5) for x in losses])}")
+        log(f"[train] wall s: stopped run {part_wall:.2f} (steps 0-"
+            f"{TRAIN_STOP - 1}), resumed run {resumed['wall_s']:.2f}, "
+            f"uninterrupted run {full['wall_s']:.2f} (checkpoint saves "
+            f"included)")
+        step_ms = [x * 1e3 for x in full["step_s"]]
+        med = statistics.median(step_ms)
+        log(f"[train] step ms (uninterrupted run, {len(step_ms)} steps, "
+            f"host clock to the loss on the host): median {med:.2f}, max "
+            f"{max(step_ms):.2f} (step {step_ms.index(max(step_ms))}), first "
+            f"{step_ms[0]:.2f}; {tokens / med * 1e3:.0f} tokens/s at the "
+            f"median")
+        log(f"[train] peak device memory of the uninterrupted run "
+            f"{peak / 1e9:.3f} GB (max_memory_allocated; {base / 1e9:.3f} GB "
+            f"allocated when it started)")
+        expect(all(np.isfinite(x) for x in part_losses + resumed["losses"]
+                   + losses), "a training loss is not finite")
+        expect(len(losses) == TRAIN_STEPS, f"{len(losses)} training steps")
+        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+        log(f"[train] mean loss of the first 5 steps {first:.5f}, of the "
+            f"last 5 {last:.5f}")
+        expect(last < first, "the mean training loss did not fall")
+        expect(n1 == n0, f"{n1 - n0} kernel launches during training")
+        log(f"[train] kernel launches during training and restore: "
+            f"{n1 - n0}")
+        same_losses = part_losses + resumed["losses"] == losses
+        diff = unequal(leaves(resumed["state"]), leaves(full["state"]))
+        log(f"[train] resumed vs uninterrupted: losses equal {same_losses}, "
+            f"train-state leaves that differ {diff}")
+        expect(not diff, "the resumed run differs from the uninterrupted one")
+        diff = unequal(leaves(fresh), leaves(full["state"]))
+        log(f"[train] restore_latest into a fresh encoder: step {step}, "
+            f"{restore_s:.2f} s, {ck_bytes / 1e9:.3f} GB on disk, "
+            f"compression {manifest['compression']!r}, leaves that differ "
+            f"{diff}")
+        expect(step == TRAIN_STEPS and not diff,
+               "the restored train state differs from the trained one")
+        expect(manifest["compression"] == "none",
+               f"checkpoint compression {manifest['compression']!r}")
+
+        # where a step's time goes: two more steps of the trained state
+        # under torch.profiler (a measurement, not a gate)
+        _, step_fn, make_batch = train_lib.build_trainable(
+            "colbert", "full", TRAIN_BATCH, 32, optimizer.AdamWConfig(
+                lr=1e-3, warmup_steps=min(20, TRAIN_STEPS // 5),
+                total_steps=TRAIN_STEPS), "cuda")
+        state = full["state"]
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in make_batch(TRAIN_STEPS).items()}
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t = time.perf_counter()
+            for _ in range(2):
+                state, metrics = step_fn(state, batch)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            prof_s = (time.perf_counter() - t) / 2
+        events = prof.key_averages()
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0))
+        gpu = torch.autograd.DeviceType.CUDA
+        busy = sum(dev_us(e) for e in events if e.device_type == gpu) / 2e3
+        ops = sorted((e for e in events if e.device_type != gpu
+                      and dev_us(e) > 0), key=dev_us, reverse=True)
+        log(f"[train] profiled step (torch.profiler, 2 steps): wall "
+            f"{prof_s * 1e3:.2f} ms a step, device busy {busy:.2f} ms, idle "
+            f"share {max(0.0, 1 - busy / (prof_s * 1e3)):.3f}; "
+            f"{sum(e.count for e in events if e.device_type == gpu) // 2} "
+            f"kernel launches a step")
+        for e in ops[:14]:
+            log(f"[train]   {e.key}: {dev_us(e) / 2e3:.2f} ms a step "
+                f"({dev_us(e) / 2e3 / max(busy, 1e-9):.1%} of device time), "
+                f"{e.count // 2} calls")
+        del resumed, full, state, batch, prof, events, ops
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the restored encoder and the seed-0 random one, served
+        rel = torch.as_tensor(token_corpus(
+            0, n_docs=TRAIN_DOCS, n_q=N_QUERIES, vocab=cfg.vocab,
+            m=cfg.doc_len, l=cfg.query_len).rel)
+
+        def mrr10(idx):
+            idx = torch.as_tensor(idx).long()
+            scores = torch.full(rel.shape, float("-inf"))
+            scores.scatter_(1, idx, torch.arange(10, 0, -1.0).expand(
+                idx.shape))
+            return float(mrr_at_k(scores, rel, 10))
+
+        serve_ops = {"maxsim_topk": maxsim_topk_op,
+                     "colbert_maxsim_multi_bf16":
+                         cm_ops.colbert_maxsim_multi_op,
+                     "colbert_maxsim_rerank_bf16":
+                         cm_ops.colbert_maxsim_rerank_op}
+        for tag, model in (("trained", fresh["params"]), ("random", None)):
+            before = {n: getattr(fn, "bf16_launches", fn.launches)
+                      for n, fn in serve_ops.items()}
+            res = serve_retrieval(cfg, keep_fraction=0.5,
+                                  n_queries=N_QUERIES, seed=0, n_first=64,
+                                  n_docs=TRAIN_DOCS, model=model)
+            packed, q_emb = res.packed, res.q_emb
+            e2e_idx, e2e_scores = RetrievalServer(
+                packed, k=10, n_first=packed.n_docs).query_batch(q_emb)
+            n = {k: getattr(fn, "bf16_launches", fn.launches) - before[k]
+                 for k, fn in serve_ops.items()}
+            log(f"[train] {tag} encoder served: launches {json.dumps(n)}")
+            for k, v in n.items():
+                expect(v > 0, f"{k} not launched serving the {tag} encoder")
+            hold_to_reference(f"[train] {tag} two-stage", packed, q_emb, 64,
+                              res.idx, res.scores)
+            hold_to_reference(f"[train] {tag} e2e", packed, q_emb,
+                              packed.n_docs, e2e_idx, e2e_scores)
+            log(f"[train] {tag} encoder MRR@10 against topic relevance "
+                f"({TRAIN_DOCS} docs, {N_QUERIES} queries, keep 0.5): "
+                f"two-stage {mrr10(res.idx):.4f}, e2e {mrr10(e2e_idx):.4f}")
+            del res, packed, q_emb
+        del fresh, model
+
     def lm_phase():
-        """Phase 7, ``[lm]``: minitron-4b at its full config on the
+        """Phase 8, ``[lm]``: minitron-4b at its full config on the
         card — prefill on both backends, decode against prefill, greedy
-        decode — and phase 8, the B7 rows."""
+        decode — and phase 9, the B7 rows."""
         cfg = minitron_4b.CONFIG
         t = time.perf_counter()
         model = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
@@ -941,7 +1186,7 @@ def main() -> int:
             lm_batch(0, 0, LM_BATCH, LM_SEQ, cfg.vocab)["tokens"],
             device="cuda")
 
-        # 7a. prefill, fused then reference; launch counts zeroed just
+        # 8a. prefill, fused then reference; launch counts zeroed just
         # before each run and read just after
         for backend in ("fused", "reference"):       # warm-up
             prefill_lm(model, prompts[:1, :128], backend=backend)
@@ -977,7 +1222,7 @@ def main() -> int:
         expect(err <= LOGIT_TOL and bad == 0,
                "fused prefill disagrees with the reference backend")
 
-        # 7b. decode against prefill
+        # 8b. decode against prefill
         prompt = prompts[:2, :DEC_PROMPT]
         want, _ = prefill_lm(model, prompt, backend="fused")
         cache = model.init_cache(2, DEC_PROMPT)
@@ -998,7 +1243,7 @@ def main() -> int:
                "token-by-token decode disagrees with prefill")
         del cache
 
-        # 7c. greedy decode, the reference's serve_lm defaults
+        # 8c. greedy decode, the reference's serve_lm defaults
         ids, tm = serve_lm(cfg, n_tokens=32, batch=2, model=model)
         log(f"[lm] serve_lm batch 2 x 32 tokens: {tm['decode_s']:.3f} s, "
             f"{tm['ms_per_token']:.3f} ms/token; weight-read bound "
@@ -1018,7 +1263,7 @@ def main() -> int:
         del model, logits, fused, ref, got, want, last
         torch.cuda.empty_cache()
 
-        # 8. B7 against its plain version at four shapes (bf16): the
+        # 9. B7 against its plain version at four shapes (bf16): the
         # prefill's, stablelm-3b's (MHA, head_dim 80), a sliding window
         # and qwen2.5-32b's (40 heads / 8 KV); the row is the prefill's,
         # the others are held and logged.  A bf16 output may differ from
@@ -1105,7 +1350,7 @@ def main() -> int:
 
     @torch.no_grad()
     def recsys_phase():
-        """Phases 9 and 10, ``[recsys]``: dlrm-rm2, dcn-v2 and wide-deep
+        """Phases 10 and 11, ``[recsys]``: dlrm-rm2, dcn-v2 and wide-deep
         at their full configs on the card, one at a time, and the B8
         rows."""
         def build(cfg):
@@ -1231,7 +1476,7 @@ def main() -> int:
             return err, ms, plain_ms, flops, nb, lib_ms
 
         held = []
-        # 9a. dlrm-rm2
+        # 10a. dlrm-rm2
         cfg = dlrm_rm2.CONFIG
         V, n_f, D = cfg.table_rows, cfg.n_sparse, cfg.embed_dim
         model = build(cfg)
@@ -1306,7 +1551,7 @@ def main() -> int:
             f"rows {nan_rows}")
         expect(ok and nan_rows == [0, 1], "ids out of range")
 
-        # 10. B8 rows on dlrm-rm2's tensors
+        # 11. B8 rows on dlrm-rm2's tensors
         sparse = ctr_batch(0, 0, bulk, cfg.n_dense, n_f, V,
                            device="cuda")["sparse_ids"]
         g = recsys.stacked_ids(sparse, V)
@@ -1318,7 +1563,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-        # 9b. dcn-v2, then wide-deep (the wide sum is B8 at D = 1)
+        # 10b. dcn-v2, then wide-deep (the wide sum is B8 at D = 1)
         for mod, want_launches in ((dcn_v2, 1), (wide_deep, 2)):
             model = build(mod.CONFIG)
             serve_both(mod.CONFIG, model, "serve_p99", want_launches)
@@ -1345,12 +1590,15 @@ def main() -> int:
     retrieval_phases()
     gc.collect()
     torch.cuda.empty_cache()
+    train_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
     lm_phase()
     gc.collect()
     torch.cuda.empty_cache()
     recsys_phase()
 
-    # 11. kernels line
+    # 12. kernels line
     log(json.dumps({"kernels": rows}))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

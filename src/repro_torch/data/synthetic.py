@@ -1,5 +1,13 @@
-"""Synthetic data: a token-level corpus with planted relevance, LM
-prompt batches and CTR batches.
+"""Synthetic data: embedding- and token-level corpora with planted
+relevance, LM prompt batches and CTR batches.
+
+``embedding_corpus`` and ``domain_shifted`` are copies of the
+reference's (pure numpy): documents are bags of token vectors built
+from topic directions, per-token noise and repeated "stopword"
+directions that carry no topic signal; queries are noisy topic probes;
+relevance is topic match.  They drive the pruning benchmarks without an
+encoder.  The same seed gives the same arrays as the reference (numpy
+arrays here, float32 embeddings).
 
 ``token_corpus`` is a copy of ``repro.data.synthetic.token_corpus``
 (pure numpy; the port keeps its own copy rather than importing the
@@ -20,6 +28,89 @@ import dataclasses
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbCorpus:
+    d_embs: np.ndarray       # (n_docs, m, dim) float32
+    d_masks: np.ndarray      # (n_docs, m) bool
+    q_embs: np.ndarray       # (n_q, l, dim) float32
+    q_topics: np.ndarray     # (n_q,)
+    d_topics: np.ndarray     # (n_docs,)
+    rel: np.ndarray          # (n_q, n_docs) bool
+    gains: np.ndarray        # (n_q, n_docs) float32
+    stop_frac: float
+
+
+def embedding_corpus(seed: int = 0, *, n_docs: int = 256, n_q: int = 64,
+                     n_topics: int = 16, dim: int = 32, m: int = 48,
+                     l: int = 8, stop_frac: float = 0.4,
+                     noise: float = 0.35, n_stop_dirs: int = 8,
+                     jitter: float = 0.12,
+                     norm: str = "sphere") -> EmbCorpus:
+    """Planted-topic embedding corpus with redundancy: documents repeat
+    low-information tokens (stopword directions, many times, slightly
+    jittered) while topical content lives in low-multiplicity subtopic
+    directions.  ``norm="sphere"`` puts tokens on the unit sphere,
+    ``"ball"`` inside the ball (topical tokens longer)."""
+    rng = np.random.default_rng(seed)
+    topics = rng.normal(size=(n_topics, dim))
+    topics /= np.linalg.norm(topics, axis=-1, keepdims=True)
+    stops = rng.normal(size=(n_stop_dirs, dim))
+    stops /= np.linalg.norm(stops, axis=-1, keepdims=True)
+
+    d_topics = rng.integers(0, n_topics, size=n_docs)
+    tok = np.zeros((n_docs, m, dim))
+    tok_is_stop = np.zeros((n_docs, m), bool)
+    n_stop_tok = int(round(stop_frac * m))
+    n_content_tok = m - n_stop_tok
+    # each doc's content = few unique subtopic directions, multiplicity 1-2
+    n_sub = max(2, int(np.ceil(n_content_tok / 1.5)))
+    for i in range(n_docs):
+        subdirs = topics[d_topics[i]][None, :] + noise * rng.normal(
+            size=(n_sub, dim))
+        subdirs /= np.linalg.norm(subdirs, axis=-1, keepdims=True)
+        content_pick = subdirs[np.arange(n_content_tok) % n_sub]
+        # stop tokens: 2-3 shared directions, repeated many times
+        doc_stop_dirs = stops[rng.choice(n_stop_dirs,
+                                         size=max(1, n_stop_dirs // 3),
+                                         replace=False)]
+        stop_pick = doc_stop_dirs[rng.integers(0, len(doc_stop_dirs),
+                                               size=n_stop_tok)]
+        toks = np.concatenate([content_pick, stop_pick], axis=0)
+        is_stop = np.concatenate([np.zeros(n_content_tok, bool),
+                                  np.ones(n_stop_tok, bool)])
+        perm = rng.permutation(m)
+        tok[i] = toks[perm]
+        tok_is_stop[i] = is_stop[perm]
+    tok = tok + jitter * rng.normal(size=(n_docs, m, dim))
+    nrm = np.linalg.norm(tok, axis=-1, keepdims=True)
+    if norm == "sphere":
+        tok = tok / nrm
+    else:  # ball: scale into (0,1) radius, topical tokens longer
+        r = 0.35 + 0.6 * (~tok_is_stop[..., None])
+        tok = tok / nrm * r
+    # ragged doc lengths
+    lens = rng.integers(int(0.6 * m), m + 1, size=n_docs)
+    d_masks = np.arange(m)[None, :] < lens[:, None]
+
+    q_topics = rng.integers(0, n_topics, size=n_q)
+    q = topics[q_topics][:, None, :] + noise * rng.normal(size=(n_q, l, dim))
+    q = q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+    rel = q_topics[:, None] == d_topics[None, :]
+    return EmbCorpus(d_embs=tok.astype(np.float32), d_masks=d_masks,
+                     q_embs=q.astype(np.float32), q_topics=q_topics,
+                     d_topics=d_topics, rel=rel,
+                     gains=rel.astype(np.float32), stop_frac=stop_frac)
+
+
+def domain_shifted(corpus_seed: int, shift_seed: int, **kw) -> EmbCorpus:
+    """BEIR-style zero-shot domain: new topics/stopword geometry drawn with
+    a different seed + heavier noise (out-of-domain evaluation)."""
+    kw.setdefault("noise", 0.5)
+    kw.setdefault("stop_frac", 0.55)
+    return embedding_corpus(seed=shift_seed * 7919 + corpus_seed, **kw)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,6 +14,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from repro_torch.core.regularizers import ball_projection
 from repro_torch.models.common import dense_init, embed_init
 from repro_torch.models.transformer import LMConfig, Transformer
 
@@ -42,14 +43,6 @@ class ColBERTConfig:
                         vocab=self.vocab, causal=False, tie_embeddings=True,
                         param_dtype=self.param_dtype,
                         compute_dtype=self.compute_dtype, remat=False)
-
-
-def ball_projection(raw):
-    """x -> x * tanh(||x||)(1 - 1e-3) / ||x||: norms strictly inside the
-    unit ball (copy of ``repro.core.regularizers.ball_projection``)."""
-    n = torch.linalg.vector_norm(raw, dim=-1, keepdim=True)
-    scale = torch.tanh(n) * (1.0 - 1e-3)
-    return raw * torch.where(n > 0, scale / n.clamp_min(1e-9), 0.0)
 
 
 class ColBERT(nn.Module):

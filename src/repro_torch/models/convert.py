@@ -23,6 +23,13 @@ to numpy by the caller — and each returns a ``state_dict`` for
   ``embed.T`` in both packages.
 * ``ln1``/``ln2`` (d_model,) per layer and ``ln_f`` stay vectors.
 
+``params_to_jax(sd)`` is the inverse of ``params_from_jax``: it takes a
+``ColBERT`` state_dict, or any dict of tensors under its names (AdamW's
+moments), and returns the reference's nested dict of tensors, layers
+stacked and matrices (in, out), so the port's train state is written
+under the reference's leaf names and layouts.  ``jax_ranks(sd)`` gives
+each entry's rank in that tree (the optimizer's decay rule reads it).
+
 ``recsys_params_from_jax(tree, arch_id)`` takes the tree of
 ``repro.models.recsys.dlrm_init``, ``dcn_init`` or ``widedeep_init``
 (``arch_id`` "dlrm-rm2", "dcn-v2" or "wide-deep") and returns a
@@ -39,15 +46,24 @@ to numpy by the caller — and each returns a ``state_dict`` for
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
 
 def _tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":   # numpy has no bf16: widen exactly
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(np.array(a))
+
+
+def _layer(a, i) -> torch.Tensor:
+    """Layer i of a stacked (n_layers, ...) leaf."""
+    return a[i] if isinstance(a, torch.Tensor) else _tensor(np.asarray(a)[i])
 
 
 def lm_params_from_jax(tree) -> dict[str, torch.Tensor]:
@@ -57,20 +73,19 @@ def lm_params_from_jax(tree) -> dict[str, torch.Tensor]:
           "ln_f": _tensor(tree["ln_f"])}
     if tree.get("lm_head") is not None:
         sd["lm_head.weight"] = _tensor(tree["lm_head"]).T.contiguous()
-    n_layers = np.asarray(layers["ln1"]).shape[0]
+    n_layers = layers["ln1"].shape[0]
     for i in range(n_layers):
         p = f"layers.{i}."
-        sd[p + "ln1"] = _tensor(np.asarray(layers["ln1"])[i])
-        sd[p + "ln2"] = _tensor(np.asarray(layers["ln2"])[i])
+        sd[p + "ln1"] = _layer(layers["ln1"], i)
+        sd[p + "ln2"] = _layer(layers["ln2"], i)
         for name in ("wq", "wk", "wv", "wo"):
-            sd[p + f"attn.{name}.weight"] = _tensor(
-                np.asarray(attn[name])[i]).T.contiguous()
+            sd[p + f"attn.{name}.weight"] = _layer(attn[name],
+                                                   i).T.contiguous()
         for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")):
             if attn.get(b) is not None:
-                sd[p + f"attn.{w}.bias"] = _tensor(np.asarray(attn[b])[i])
+                sd[p + f"attn.{w}.bias"] = _layer(attn[b], i)
         for name in ("w_gate", "w_up", "w_down"):
-            sd[p + f"{name}.weight"] = _tensor(
-                np.asarray(ffn[name])[i]).T.contiguous()
+            sd[p + f"{name}.weight"] = _layer(ffn[name], i).T.contiguous()
     return sd
 
 
@@ -79,6 +94,70 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
           for k, t in lm_params_from_jax(tree["backbone"]).items()}
     sd["proj.weight"] = _tensor(tree["proj"]).T.contiguous()
     return sd
+
+
+_LAYER_LEAF = re.compile(r"backbone\.layers\.(\d+)\.(.+)")
+_LAYER_PATHS = {"ln1": ("ln1",), "ln2": ("ln2",),
+                "attn.wq.weight": ("attn", "wq"),
+                "attn.wk.weight": ("attn", "wk"),
+                "attn.wv.weight": ("attn", "wv"),
+                "attn.wo.weight": ("attn", "wo"),
+                "w_gate.weight": ("ffn", "w_gate"),
+                "w_up.weight": ("ffn", "w_up"),
+                "w_down.weight": ("ffn", "w_down")}
+_TOP_PATHS = {"backbone.embed.weight": ("backbone", "embed"),
+              "backbone.ln_f": ("backbone", "ln_f"),
+              "proj.weight": ("proj",)}
+
+
+def jax_place(name: str) -> tuple[tuple[str, ...], int | None, bool]:
+    """Where a ``ColBERT`` state_dict entry lives in the reference's
+    tree: (key path, layer index on the stacked axis or None, whether
+    the reference holds it transposed: every matrix but the
+    embeddings)."""
+    transposed = name.endswith(".weight") and name != "backbone.embed.weight"
+    m = _LAYER_LEAF.fullmatch(name)
+    if m:
+        return (("backbone", "layers") + _LAYER_PATHS[m.group(2)],
+                int(m.group(1)), transposed)
+    return _TOP_PATHS[name], None, transposed
+
+
+def jax_ranks(sd: dict[str, torch.Tensor]) -> dict[str, int]:
+    """Each entry's rank in the reference's tree: one more than its own
+    for a layer's entry (the reference stacks layers on a leading
+    axis)."""
+    return {n: t.dim() + (jax_place(n)[1] is not None)
+            for n, t in sd.items()}
+
+
+def params_to_jax(sd: dict[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`params_from_jax`: a ``ColBERT`` state_dict
+    (or any dict of tensors under its names, such as AdamW's moments) ->
+    the reference's nested dict, layers stacked on a leading axis and
+    matrices (in, out).  Stacked and transposed leaves are new tensors;
+    the others are the entries themselves, detached."""
+    tree: dict = {}
+    stacks: dict[tuple[str, ...], dict[int, torch.Tensor]] = {}
+    for name, t in sd.items():
+        path, layer, transposed = jax_place(name)
+        t = t.detach()
+        if transposed:
+            t = t.T.contiguous()
+        if layer is None:
+            _put(tree, path, t)
+        else:
+            stacks.setdefault(path, {})[layer] = t
+    for path, by_layer in stacks.items():
+        _put(tree, path, torch.stack([by_layer[i]
+                                      for i in range(len(by_layer))]))
+    return tree
+
+
+def _put(tree: dict, path: tuple[str, ...], leaf) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
 
 
 _RECSYS_MLPS = {"dlrm-rm2": ("bot", "top"), "dcn-v2": ("mlp",),

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
-package ``repro``, and its entry points run on the GPU unless the caller
-asks for the CPU explicitly.
+package ``repro`` (nor ``msgpack`` or ``ml_dtypes``, and ``zstandard``
+only inside the function that reads a zstd checkpoint), and its entry
+points run on the GPU unless the caller asks for the CPU explicitly.
 """
 
 import re
@@ -12,12 +13,16 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+IMPORT_RE = re.compile(
+    r"^\s*(import|from)\s+(jax|repro|msgpack|ml_dtypes)(\.|\s|$)", re.M)
+MODULE_IMPORT_RE = re.compile(r"^(import|from)\s+zstandard(\.|\s|$)", re.M)
 
 _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any import of jax now raises
 sys.modules["repro"] = None        # ... and of the JAX package
+for name in ("msgpack", "zstandard", "ml_dtypes"):   # absent on the card
+    sys.modules[name] = None
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -53,6 +58,26 @@ else:
 probs, _ = serve_ctr(dlrm_rm2.SMOKE, 4, device="cpu")
 assert probs.shape == (4,), probs.shape
 print("serve_ctr cpu ok")
+
+import tempfile
+from repro_torch.launch import train
+from repro_torch.train import checkpoint
+try:
+    train.run("colbert", steps=1, batch=2, log_every=0)
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+    print("train raised without cuda")
+else:
+    raise SystemExit("train.run ran without CUDA and without device='cpu'")
+with tempfile.TemporaryDirectory() as d:
+    out = train.run("colbert", steps=2, batch=2, log_every=0, ckpt_dir=d,
+                    ckpt_every=1, device="cpu")
+    step, tree = checkpoint.restore_latest(d, {"w": torch.zeros(1)})
+    assert step is None     # the leaves are a train state's, not {"w"}
+    checkpoint.save(d, 9, {"w": torch.ones(3, dtype=torch.bfloat16)})
+    step, tree = checkpoint.restore_latest(d, {"w": torch.zeros(3)})
+    assert step == 9 and tree["w"].dtype == torch.bfloat16, tree
+print("train and checkpoint cpu ok")
 """
 
 
@@ -60,7 +85,9 @@ print("serve_ctr cpu ok")
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
-    assert not IMPORT_RE.search(path.read_text()), path
+    text = path.read_text()
+    assert not IMPORT_RE.search(text), path
+    assert not MODULE_IMPORT_RE.search(text), path
 
 
 def test_port_imports_and_runs_with_jax_blocked():
@@ -76,6 +103,8 @@ def test_port_imports_and_runs_with_jax_blocked():
     assert "cpu ok" in out.stdout
     assert "serve_ctr raised without cuda" in out.stdout
     assert "serve_ctr cpu ok" in out.stdout
+    assert "train raised without cuda" in out.stdout
+    assert "train and checkpoint cpu ok" in out.stdout
 
 
 def test_kernel_wrappers_take_plain_version_on_cpu():
