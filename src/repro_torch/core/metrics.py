@@ -1,4 +1,5 @@
-"""Retrieval metrics (MRR@k, nDCG@k, Recall@k).
+"""Retrieval metrics (MRR@k, nDCG@k, Recall@k) and the Mean-Error /
+metric linear fit of paper §6.4 (Fig. 6).
 
 Counterpart of ``repro.core.metrics``.  Orderings are stable sorts, so
 tied scores rank by ascending doc index as ``jnp.argsort`` does.
@@ -41,6 +42,17 @@ def ndcg_at_k(scores, gains, k: int = 10):
     return torch.where(idcg > 0, dcg / idcg.clamp_min(1e-9), 0.0).mean()
 
 
+def relevance_recall_at_k(scores, rel, k: int = 10):
+    """Fraction of queries with a relevant doc in the score top-k (the
+    judgment-based recall; the routed-serving gate uses the id-overlap
+    :func:`recall_at_k` instead).  0 when no query has a relevant doc."""
+    hit = rel.gather(-1, _order(scores)[:, :k]).any(-1)
+    has = int(rel.any(-1).sum())
+    if has == 0:
+        return torch.zeros((), dtype=torch.float32, device=scores.device)
+    return hit.sum().float() / has
+
+
 def recall_at_k(ids_pruned, ids_oracle) -> float:
     """Mean per-query ``|top-k(pruned) ∩ top-k(oracle)| / |top-k(oracle)|``.
     Negative ids are pad sentinels and never count as docs on either
@@ -63,3 +75,17 @@ def recall_at_k(ids_pruned, ids_oracle) -> float:
         got = {int(i) for i in p_row if i >= 0}
         per_q.append(len(want & got) / len(want))
     return float(np.mean(per_q)) if per_q else 1.0
+
+
+def linear_fit(x, y) -> dict:
+    """Least-squares line and R^2 for the ME vs nDCG@10 analysis (§6.4),
+    in float64 numpy as the reference's."""
+    x = np.asarray(x, np.float64)
+    y = np.asarray(y, np.float64)
+    A = np.stack([x, np.ones_like(x)], axis=1)
+    (slope, intercept), *_ = np.linalg.lstsq(A, y, rcond=None)
+    pred = slope * x + intercept
+    ss_res = float(np.sum((y - pred) ** 2))
+    ss_tot = float(np.sum((y - np.mean(y)) ** 2))
+    r2 = 1.0 - ss_res / ss_tot if ss_tot > 0 else 1.0
+    return {"slope": float(slope), "intercept": float(intercept), "r2": r2}

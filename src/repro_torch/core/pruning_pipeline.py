@@ -83,12 +83,15 @@ def _order_len(width: int, step_size: int) -> int:
 
 
 def pruning_order_bucketed(d_embs, d_masks, samples, *, step_size: int = 1,
+                           fast: bool = False, bf16_scores: bool = False,
+                           shortlist: bool = False,
                            backend: str | None = None,
                            granularity: int | str = "pow2",
                            min_width: int = 8):
-    """Length-bucketed equivalent of ``voronoi.pruning_order_batch``:
-    the same (ranks, errs, orders), with bucket-local "never removed"
-    sentinels (rank == width) translated to the corpus-global ``m``."""
+    """Length-bucketed equivalent of ``voronoi.pruning_order_batch``
+    (the same backend knobs): the same (ranks, errs, orders), with
+    bucket-local "never removed" sentinels (rank == width) translated to
+    the corpus-global ``m``."""
     n_docs, m = d_masks.shape
     dev = d_embs.device
     ranks = torch.full((n_docs, m), m, dtype=torch.int32, device=dev)
@@ -105,7 +108,8 @@ def pruning_order_bucketed(d_embs, d_masks, samples, *, step_size: int = 1,
         e = d_embs[idx, :w].contiguous()
         k = d_masks[idx, :w].contiguous()
         r, er, o = voronoi.pruning_order_batch(
-            e, k, samples, step_size=step_size, backend=backend)
+            e, k, samples, step_size=step_size, fast=fast,
+            bf16_scores=bf16_scores, shortlist=shortlist, backend=backend)
         ranks[idx, :w] = torch.where(r >= w, m, r).to(torch.int32)
         errs[idx, :w] = er
         orders[idx, :o.shape[1]] = o

@@ -74,5 +74,6 @@ def top2_from_scores(scores, alive):
 
 def top2_scores(samples, d_emb, d_mask):
     """Per-sample (best, second, argbest, argsecond) of samples @ d_emb.T
-    — the oracle for the ``maxsim_top2`` kernel."""
-    return top2_from_scores(samples @ d_emb.T, d_mask)
+    — the oracle for the ``maxsim_top2`` kernel.  ``d_emb`` (m, dim) or a
+    batch (B, m, dim) with ``d_mask`` (B, m)."""
+    return top2_from_scores(samples @ d_emb.transpose(-1, -2), d_mask)

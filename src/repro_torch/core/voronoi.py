@@ -6,7 +6,10 @@ Counterpart of ``repro.core.voronoi``:
 * ``Error(d_i) = E_{q in V_i}[q.d_i - second_best(q)]`` (Eq. 6-8),
   estimated over N unit-sphere samples;
 * greedy removal with incremental cell reassignment (Alg. 1);
-* corpus-level pruning by merging per-document orders (§4.2).
+* corpus-level pruning by merging per-document orders (§4.2);
+* the ablation variants of §6.2: step size > 1, beam search, the
+  single-pass and bf16 reference reductions, and the Mean Error of a
+  pruned document (§6.4).
 
 Batching: the reference runs ``m - 1`` greedy steps as a ``lax.scan``
 vmapped over documents.  Here the document axis is a batch dimension
@@ -24,25 +27,44 @@ errors would then flip on near-ties from one run to the next.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core import backend as backend_lib
-from repro_torch.core.scoring import NEG_INF, top2_from_scores
+from repro_torch.core.scoring import NEG_INF, top2_from_scores, top2_scores
 from repro_torch.kernels.maxsim_top2.ops import (maxsim_top2_op,
                                                  maxsim_top2_update_op)
 from repro_torch.kernels.maxsim_topk.ops import maxsim_topk_op
 from repro_torch.kernels.maxsim_topk.ref import topk_lowest_index
 
 __all__ = [
+    "CellState",
+    "assign_cells",
+    "beam_pruning_order",
     "estimate_errors",
     "global_keep_masks",
     "keep_mask_from_order",
+    "mean_error",
+    "mean_error_batch",
+    "prune_to_size",
     "pruning_order",
     "pruning_order_batch",
     "pruning_order_shortlist",
     "resolve_pruning_backend",
     "token_errors",
 ]
+
+
+class CellState(NamedTuple):
+    """Per-sample Voronoi bookkeeping under the current alive-token set;
+    each field (..., N)."""
+
+    best: torch.Tensor     # best dot product
+    second: torch.Tensor   # second-best dot product
+    bi: torch.Tensor       # index of the best token (cell membership)
+    si: torch.Tensor       # index of the second-best token
+
 
 # Elements of the transient (docs, N, m) one-hot per accumulation chunk.
 _ONEHOT_BUDGET = 1 << 28
@@ -74,10 +96,27 @@ def token_errors(state, alive, n_samples: int):
     return torch.where(alive, err.reshape(*lead, m), torch.inf)
 
 
+def assign_cells(d_emb, d_mask, samples) -> CellState:
+    """Initial cell assignment of every sample (Eq. 5); ``d_emb`` (m, dim)
+    or a batch (B, m, dim)."""
+    return CellState(*top2_scores(samples, d_emb, d_mask))
+
+
 def estimate_errors(d_emb, d_mask, samples):
     """One-shot (non-iterative) Monte-Carlo error estimate per token."""
-    state = top2_from_scores(samples @ d_emb.transpose(-1, -2), d_mask)
+    state = assign_cells(d_emb, d_mask, samples)
     return token_errors(state, d_mask, samples.shape[0])
+
+
+def _top2_single_pass(scores, alive) -> CellState:
+    """The reference's single-pass top-2 (``fast``/``single_pass``): one
+    fp32 top-2 reduction over the row, exact up to the order of exactly
+    equal scores (the reference's variadic reduce breaks those in its
+    own order)."""
+    s = torch.where(alive[..., None, :], scores, NEG_INF).float()
+    vals, idx = s.topk(2, dim=-1)
+    return CellState(vals[..., 0], vals[..., 1], idx[..., 0].to(torch.int32),
+                     idx[..., 1].to(torch.int32))
 
 
 def _select_removals(err, alive, step_size: int):
@@ -139,22 +178,29 @@ def _greedy_loop(state, alive, n, step_size, rescan):
     return _order_to_rank(order, err, m)
 
 
-def _pruning_order_reference(d_embs, d_masks, samples, *, step_size):
+def _pruning_order_reference(d_embs, d_masks, samples, *, step_size,
+                             single_pass=False, bf16_scores=False):
     """Materializing path: the (B, N, m) score tensor is computed once;
     each step re-reduces it under the new alive mask and keeps the old
-    cell state for samples whose best and second survived."""
+    cell state for samples whose best and second survived.
+    ``bf16_scores`` caches the masked scores in bf16, so every reduction
+    and the errors run in bf16 as in the reference; ``single_pass``
+    reduces each row once (:func:`_top2_single_pass`)."""
     scores = samples @ d_embs.transpose(-1, -2)
     scores = torch.where(d_masks[:, None, :], scores, NEG_INF)
+    if bf16_scores:
+        scores = scores.bfloat16()
+    top2 = _top2_single_pass if single_pass else top2_from_scores
 
     def rescan(alive, state, removed_any):
-        fresh = top2_from_scores(scores, alive)
+        fresh = top2(scores, alive)
         affected = ((~alive.gather(-1, state[2].long())
                      | ~alive.gather(-1, state[3].long()))
                     & removed_any[:, None])
         return tuple(torch.where(affected, f, s)
                      for f, s in zip(fresh, state))
 
-    state = top2_from_scores(scores, d_masks)
+    state = top2(scores, d_masks)
     return _greedy_loop(state, d_masks, samples.shape[0], step_size, rescan)
 
 
@@ -170,13 +216,14 @@ def _pruning_order_fused(d_embs, d_masks, samples, *, step_size):
 
 
 def _pruning_order_shortlist(d_embs, d_masks, samples, *, shortlist,
-                             rescan_every, rescan):
+                             rescan_every, rescan, bf16_scores=False):
     """Exact top-K shortlist pruning over a bucket.  Each sample keeps
     its top-K alive tokens from the last rescan; between rescans at most
     ``rescan_every - 1`` tokens die, so the true top-2 of the alive set
     stays inside the shortlist (K >= R + 1).  ``rescan="dense"`` caches
-    the (B, N, m) score tensor and rescans it with a stable sort;
-    ``rescan="topk"`` rescans through the ``maxsim_topk`` kernel."""
+    the (B, N, m) score tensor (in bf16 with ``bf16_scores``) and
+    rescans it with a stable sort in fp32; ``rescan="topk"`` rescans
+    through the ``maxsim_topk`` kernel."""
     B, m = d_masks.shape
     n = samples.shape[0]
     K, R = min(shortlist, m), rescan_every
@@ -184,10 +231,12 @@ def _pruning_order_shortlist(d_embs, d_masks, samples, *, shortlist,
     if rescan == "dense":
         scores = torch.where(d_masks[:, None, :],
                              samples @ d_embs.transpose(-1, -2), NEG_INF)
+        if bf16_scores:
+            scores = scores.bfloat16()
 
         def rescan_fn(alive):
             return topk_lowest_index(
-                torch.where(alive[:, None, :], scores, NEG_INF), K)
+                torch.where(alive[:, None, :], scores, NEG_INF).float(), K)
     else:
         def rescan_fn(alive):
             return maxsim_topk_op(samples, d_embs, alive, k=K)
@@ -237,11 +286,21 @@ def _resolve_shortlist_knobs(shortlist, rescan_every, *, m):
     return shortlist, rescan_every
 
 
-def resolve_pruning_backend(backend: str | None, *, step_size: int = 1,
-                            device="cuda") -> str:
-    """The batch entry's backend policy: the per-``step_size`` allow set
-    (shortlist paths remove one token per step), then the platform
-    default of ``device``."""
+def resolve_pruning_backend(backend: str | None, *, shortlist: bool = False,
+                            fast: bool = False, bf16_scores: bool = False,
+                            step_size: int = 1, device="cuda") -> str:
+    """The batch entry's backend policy, as the reference's:
+    ``backend="shortlist"`` is an alias of ``shortlist=True``;
+    ``shortlist`` with no backend selects ``shortlist`` at step 1;
+    ``fast`` or ``bf16_scores`` with no backend selects ``reference``;
+    then the per-``step_size`` allow set (shortlist paths remove one
+    token per step) and the platform default of ``device``."""
+    if backend == backend_lib.SHORTLIST:
+        backend, shortlist = None, True
+    if backend is None and shortlist and step_size == 1:
+        backend = backend_lib.SHORTLIST
+    elif backend is None and (fast or bf16_scores):
+        backend = backend_lib.REFERENCE
     allow = (backend_lib.PRUNING if step_size == 1
              else (backend_lib.REFERENCE, backend_lib.FUSED))
     return backend_lib.resolve_backend(backend, allow=allow, device=device)
@@ -256,74 +315,119 @@ def _check_bucket(d_embs, d_masks, samples):
 
 
 def pruning_order_batch(d_embs, d_masks, samples, *, step_size: int = 1,
-                        backend: str | None = None, bucketed: bool = False):
+                        fast: bool = False, bf16_scores: bool = False,
+                        shortlist: bool = False, backend: str | None = None,
+                        bucketed: bool = False):
     """Alg. 1 over a document batch: ``(ranks, errs, orders)``, (B, m),
     (B, m), (B, n_steps * step_size).  ``rank[i]`` is token i's removal
     step (m for never removed), ``err[i]`` its Eq. 8 error when removed
     (+inf otherwise), ``order[s]`` the token removed at step s (-1 for
-    none).  ``bucketed=True`` routes through the length-bucketed
-    pipeline (``core.pruning_pipeline``): the same ranks and orders,
-    errors equal to fp32 rounding."""
+    none).  ``fast`` takes the single-pass top-2 and ``bf16_scores`` a
+    bf16 score cache (reference-path knobs; ``bf16_scores`` also on the
+    dense ``shortlist``); ``shortlist=True`` selects the dense shortlist
+    path (:func:`resolve_pruning_backend`).  ``bucketed=True`` routes
+    through the length-bucketed pipeline (``core.pruning_pipeline``):
+    the same ranks and orders, errors equal to fp32 rounding."""
     if bucketed:
         from repro_torch.core import pruning_pipeline
         return pruning_pipeline.pruning_order_bucketed(
-            d_embs, d_masks, samples, step_size=step_size, backend=backend)
+            d_embs, d_masks, samples, step_size=step_size, fast=fast,
+            bf16_scores=bf16_scores, shortlist=shortlist, backend=backend)
     _check_bucket(d_embs, d_masks, samples)
-    backend = resolve_pruning_backend(backend, step_size=step_size,
+    backend = resolve_pruning_backend(backend, shortlist=shortlist,
+                                      fast=fast, bf16_scores=bf16_scores,
+                                      step_size=step_size,
                                       device=d_embs.device)
+    if backend in (backend_lib.FUSED, backend_lib.SHORTLIST_TOPK) and (
+            fast or bf16_scores):
+        raise ValueError(
+            "fast/bf16_scores are materializing-path knobs with no "
+            f"{backend}-kernel equivalent; drop them or choose "
+            "backend='reference'/'shortlist'")
     if backend in (backend_lib.SHORTLIST, backend_lib.SHORTLIST_TOPK):
         K, R = _resolve_shortlist_knobs(None, None, m=d_masks.shape[1])
         return _pruning_order_shortlist(
             d_embs, d_masks, samples, shortlist=K, rescan_every=R,
             rescan="topk" if backend == backend_lib.SHORTLIST_TOPK
-            else "dense")
+            else "dense", bf16_scores=bf16_scores)
     if backend == backend_lib.FUSED:
         return _pruning_order_fused(d_embs, d_masks, samples,
                                     step_size=step_size)
     return _pruning_order_reference(d_embs, d_masks, samples,
-                                    step_size=step_size)
+                                    step_size=step_size, single_pass=fast,
+                                    bf16_scores=bf16_scores)
 
 
 def pruning_order_shortlist(d_emb, d_mask, samples, *,
                             shortlist: int | None = None,
                             rescan_every: int | None = None,
+                            bf16_scores: bool = False,
                             rescan: str = "dense"):
     """The exact shortlist path for ONE document, with pinnable knobs."""
     if rescan not in ("dense", "topk"):
         raise ValueError(f"rescan={rescan!r}: one of ('dense', 'topk')")
+    if rescan == "topk" and bf16_scores:
+        raise ValueError(
+            "bf16_scores caches a bf16 dense score matrix and has no "
+            "topk-kernel equivalent; drop it or use rescan='dense'")
     K, R = _resolve_shortlist_knobs(shortlist, rescan_every,
                                     m=d_emb.shape[0])
     out = _pruning_order_shortlist(d_emb[None], d_mask[None], samples,
                                    shortlist=K, rescan_every=R,
-                                   rescan=rescan)
+                                   rescan=rescan, bf16_scores=bf16_scores)
     return tuple(o[0] for o in out)
 
 
 def pruning_order(d_emb, d_mask, samples, *, step_size: int = 1,
+                  single_pass: bool = False, bf16_scores: bool = False,
                   backend: str | None = None,
                   shortlist: int | None = None,
                   rescan_every: int | None = None):
     """Alg. 1 for ONE document (m, dim): ``(rank, err_at_removal,
-    order)``; see :func:`pruning_order_batch`.  ``shortlist`` /
-    ``rescan_every`` pin the shortlist schedule on the shortlist
+    order)``; see :func:`pruning_order_batch`.  ``single_pass`` and
+    ``bf16_scores`` name reference-path variants (with no ``backend``
+    they select ``reference``; ``fused`` raises on them).  ``shortlist``
+    / ``rescan_every`` pin the shortlist schedule on the shortlist
     backends."""
-    backend = resolve_pruning_backend(backend, step_size=step_size,
-                                      device=d_emb.device)
+    if backend is None and (single_pass or bf16_scores):
+        backend = backend_lib.REFERENCE
+    allow = (backend_lib.PRUNING if step_size == 1
+             else (backend_lib.REFERENCE, backend_lib.FUSED))
+    backend = backend_lib.resolve_backend(backend, allow=allow,
+                                          device=d_emb.device)
     if backend in (backend_lib.SHORTLIST, backend_lib.SHORTLIST_TOPK):
         return pruning_order_shortlist(
             d_emb, d_mask, samples, shortlist=shortlist,
-            rescan_every=rescan_every,
+            rescan_every=rescan_every, bf16_scores=bf16_scores,
             rescan="topk" if backend == backend_lib.SHORTLIST_TOPK
             else "dense")
+    if backend == backend_lib.FUSED and (single_pass or bf16_scores):
+        raise ValueError(
+            "single_pass/bf16_scores are reference-path knobs and have no "
+            "fused-kernel equivalent; drop them or pass "
+            "backend='reference'")
     out = pruning_order_batch(d_emb[None], d_mask[None], samples,
-                              step_size=step_size, backend=backend)
+                              step_size=step_size, fast=single_pass,
+                              bf16_scores=bf16_scores, backend=backend)
     return tuple(o[0] for o in out)
 
 
 def keep_mask_from_order(rank, d_mask, n_keep):
-    """Keep the ``n_keep`` last-removed real tokens of each document."""
+    """Keep the ``n_keep`` last-removed real tokens of each document
+    (``n_keep`` an int or one count per document)."""
+    if torch.is_tensor(n_keep) and n_keep.dim():
+        n_keep = n_keep[..., None]
     n_prune = (d_mask.sum(-1, keepdim=True) - n_keep).clamp_min(0)
     return d_mask & (rank >= n_prune)
+
+
+def prune_to_size(d_emb, d_mask, samples, target: int, *,
+                  step_size: int = 1, backend: str | None = None):
+    """Alg. 1 entry point: the keep mask of exactly min(target, n_real)
+    tokens of one document."""
+    rank, _, _ = pruning_order(d_emb, d_mask, samples, step_size=step_size,
+                               backend=backend)
+    return keep_mask_from_order(rank, d_mask, target)
 
 
 def _monotone_merge_errs(ranks, errs, d_masks):
@@ -360,3 +464,74 @@ def global_keep_masks(ranks, errs, d_masks, keep_fraction: float):
     pruned = torch.zeros_like(flat, dtype=torch.bool)
     pruned[order[:n_prune]] = True
     return d_masks & ~pruned.reshape(n_docs, m)
+
+
+def mean_error(d_emb, d_mask, keep_mask, samples, *,
+               ball_normalized: bool = False):
+    """ME of a pruned document: E_q[max_D q.d - max_keep q.d] over the
+    sphere sample set (Eq. 8 aggregated over the pruned set); with
+    ``ball_normalized`` the Eq. 7 factor 1/2 converts it to the ball
+    measure.  ``d_emb`` (m, dim) or a batch (B, m, dim): one ME per
+    document."""
+    s = samples @ d_emb.transpose(-1, -2)
+    s_all = torch.where(d_mask[..., None, :], s, NEG_INF)
+    s_keep = torch.where((d_mask & keep_mask)[..., None, :], s, NEG_INF)
+    me = (s_all.amax(-1) - s_keep.amax(-1)).mean(-1)
+    return 0.5 * me if ball_normalized else me
+
+
+def mean_error_batch(d_embs, d_masks, keep_masks, samples, **kw):
+    """:func:`mean_error` of every document of a batch: (B,)."""
+    return mean_error(d_embs, d_masks, keep_masks, samples, **kw)
+
+
+# Elements of the transient (docs, beam, N, m) score tensor per doc chunk
+# of the beam search.
+_BEAM_BUDGET = 1 << 28
+
+
+def beam_pruning_order(d_emb, d_mask, samples, *, beam: int = 3,
+                       target: int = 1):
+    """Beam search over removal sequences (§6.2, ablation only): the
+    (keep_mask, total_err) of the best beam at |D'| = target.  Each step
+    expands every beam by each alive token's Eq. 8 error and keeps the
+    ``beam`` cheapest (beam, token) pairs, lowest flat index first on
+    ties (``lax.top_k``'s order).  ``d_emb`` (m, dim), or a batch
+    (B, m, dim) searched doc by doc in one loop of steps."""
+    if d_emb.dim() == 2:
+        keep, err = beam_pruning_order(d_emb[None], d_mask[None], samples,
+                                       beam=beam, target=target)
+        return keep[0], err[0]
+    B, m, _ = d_emb.shape
+    step = max(1, _BEAM_BUDGET // max(beam * samples.shape[0] * m, 1))
+    out = [_beam_chunk(d_emb[c:c + step], d_mask[c:c + step], samples,
+                       beam, target) for c in range(0, B, step)]
+    return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+
+
+def _beam_chunk(d_emb, d_mask, samples, beam, target):
+    B, m, _ = d_emb.shape
+    n = samples.shape[0]
+    dev = d_emb.device
+    scores = torch.where(d_mask[:, None, :],
+                         samples @ d_emb.transpose(-1, -2), NEG_INF)
+    alive = d_mask[:, None, :].expand(B, beam, m).clone()
+    cum = torch.full((B, beam), torch.inf, device=dev)
+    cum[:, 0] = 0.0                    # only beam 0 is live at the start
+    rows = torch.arange(B, device=dev)[:, None]
+    for _ in range(m - max(target, 1)):
+        errs = token_errors(top2_from_scores(scores[:, None], alive), alive,
+                            n)                                # (B, beam, m)
+        n_alive = alive.sum(-1, keepdim=True)
+        cand = torch.where((n_alive > target) & alive, errs, torch.inf)
+        flat = (cum[..., None] + cand).reshape(B, beam * m)
+        vals, flat_ix = torch.sort(flat, dim=-1, stable=True)
+        vals, flat_ix = vals[:, :beam], flat_ix[:, :beam]
+        new_alive = alive[rows, flat_ix // m]                 # (B, beam, m)
+        new_alive.scatter_(-1, (flat_ix % m)[..., None], False)
+        # no finite candidate (already at target): keep the old beam
+        live = torch.isfinite(vals)
+        alive = torch.where(live[..., None], new_alive, alive)
+        cum = torch.where(live, vals, cum)
+    best = cum.argmin(-1)
+    return alive[rows[:, 0], best], cum[rows[:, 0], best]

@@ -21,8 +21,8 @@ The full-sequence branch has two backends (``core.backend.SERVING``):
   backends, as in the reference: the kernel takes no key mask.
 
 The default is ``fused`` on CUDA and ``reference`` on the CPU.  Decode
-is plain torch on both, as in the reference.  ``attention_weights_
-received`` (the attention pruning baseline) is not ported yet.
+is plain torch on both, as in the reference, and so is
+:func:`attention_weights_received` (the attention pruning baseline).
 
 Cache layout (per layer): k, v (batch, kv_heads, cache_len, head_dim);
 cache_len is max_len for full attention and ``window`` (a ring buffer)
@@ -134,6 +134,25 @@ def _attend(qg, k, v, row0, causal, window, attn_mask):
         s = torch.where(attn_mask[:, None, None, None, :], s, NEG)
     w = torch.softmax(s.float(), dim=-1).to(qg.dtype)
     return torch.einsum("bkgij,bjkh->bikgh", w, v)
+
+
+def attention_weights_received(attn: Attention, x, *, attn_mask=None,
+                               rope_theta: float | None = None):
+    """Mean attention mass each token receives (column sums), for the
+    attention-score pruning baseline [17, 20]; bidirectional.  x (B, S,
+    D), attn_mask (B, S) key padding -> (B, S) fp32: the key-masked fp32
+    softmax of every query row, averaged over heads and query rows."""
+    B, S, _ = x.shape
+    H, KV, hd = attn.n_heads, attn.n_kv_heads, attn.head_dim
+    q, k, _ = attn._project_qkv(x)
+    if rope_theta is not None:
+        pos = torch.arange(S, device=x.device)[None, :]
+        q, k = rope(q, pos, rope_theta), rope(k, pos, rope_theta)
+    qg = q.view(B, S, KV, H // KV, hd)
+    s = _scaled(torch.einsum("bikgh,bjkh->bkgij", qg, k), hd)
+    if attn_mask is not None:
+        s = torch.where(attn_mask[:, None, None, None, :], s, NEG)
+    return torch.softmax(s.float(), dim=-1).mean(dim=(1, 2, 3))
 
 
 class KVCache(NamedTuple):

@@ -4,7 +4,9 @@ Counterpart of ``repro.models.colbert``: a bidirectional transformer
 backbone plus a linear projection to the late-interaction dim, then
 ``norm="sphere"`` (L2 onto S^{n-1}) or ``norm="ball"`` ([27]'s
 projection into the unit ball).  Queries are augmented to ``query_len``
-with [MASK] tokens; documents carry padding masks.
+with [MASK] tokens; documents carry padding masks.  The encoder also
+exports each doc token's received attention (layer 0) for the
+attention-score pruning baseline.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import torch
 from torch import nn
 
 from repro_torch.core.regularizers import ball_projection
-from repro_torch.models.common import dense_init, embed_init
+from repro_torch.models.attention import attention_weights_received
+from repro_torch.models.common import dense_init, embed_init, rms_norm
 from repro_torch.models.transformer import LMConfig, Transformer
 
 MASK_ID = 3  # reserved vocab ids: 0=pad, 1=[Q], 2=[D], 3=[MASK]
@@ -84,6 +87,20 @@ class ColBERT(nn.Module):
     def encode_docs(self, token_ids):
         mask = token_ids != 0
         return self.encode(token_ids, mask), mask
+
+    def encode_docs_with_attention(self, token_ids):
+        """Doc embeddings, masks and each token's received attention in
+        the first layer (the embedding in the compute dtype, ``ln1``,
+        q/k with rope, the key-masked fp32 softmax): (emb, mask, recv
+        (B, S) fp32)."""
+        mask = token_ids != 0
+        emb = self.encode(token_ids, mask)
+        bb = self.backbone
+        layer0 = bb.layers[0]
+        h = rms_norm(bb._embed(token_ids), layer0.ln1)
+        recv = attention_weights_received(layer0.attn, h, attn_mask=mask,
+                                          rope_theta=bb.cfg.rope_theta)
+        return emb, mask, recv
 
 
 @torch.no_grad()

@@ -12,7 +12,7 @@ The full-sequence attention of every layer takes a ``backend``
 updates the stacked KV cache in place.
 
 Not ported yet: MoE blocks (``moe_experts > 0`` raises; ROADMAP § A item
-16) and training, so ``remat``, ``remat_attn_chunk`` and
+8) and training, so ``remat``, ``remat_attn_chunk`` and
 ``capacity_factor`` are carried for parity with the reference's config
 and read by nothing here.
 """
@@ -121,7 +121,7 @@ class Transformer(nn.Module):
         if cfg.moe_experts:
             raise NotImplementedError(
                 f"{cfg.name}: MoE blocks (models/moe.py) are not ported yet "
-                f"(ROADMAP § A item 16)")
+                f"(ROADMAP § A item 8)")
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab, cfg.d_model,
                                   dtype=cfg.param_dtype)
