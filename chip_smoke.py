@@ -34,6 +34,37 @@ passed — any failure exits non-zero):
    ``path_ms`` holds kernel time only.  Launch counts are zeroed just
    before and read just after; every top-10 is then held against the
    ``reference`` backend.
+4b. Persistence and live mutation (``[persist]``, ``serve.index_io``,
+   ``serve.mutation``) on phase 3's encoder (seed 0 again), pruned
+   corpus and queries, in a temporary directory removed at the end.
+   Save and load four packs (bf16 as the encoder emits, the same docs
+   widened to fp32, int8, residual 4-bit): every leaf bit-equal, the
+   e2e and two-stage top-10s of the loaded index equal to the in-memory
+   one's bit for bit; bytes on disk beside ``storage()``'s, save and
+   load seconds; one ``async_save`` joined by ``wait_pending``.  Then
+   on the bf16, fp32 and residual-4 legs: 256 fresh docs
+   (``token_corpus(1)``, the same encoder; bf16, widened on the fp32
+   leg) upserted as 128 new ids and 128 that shadow base docs, 64 ids
+   deleted (32 base-only, 16 shadowed, 16 new), 8 of them upserted
+   again; ``load_state``, ``swap_index(base, mutation=view)``, e2e on
+   ``fused``: ids and scores bit-equal to a from-scratch repack of
+   ``materialize(log)`` (narrowed back to bf16 on the bf16 leg), and
+   held against the ``reference`` backend as in phase 3.  Launch counts
+   are zeroed just before each view serve and read just after: bf16 B3
+   (bf16 leg), fp32 B3 (fp32 leg), B5 and bf16 B3 (residual leg: the
+   base decodes in B5, the deltas are ``"none"``), nothing else.  On
+   the residual leg a routing sidecar is saved into the live epoch and
+   loaded: ``bounded`` under the view equals the exhaustive view bit
+   for bit.  ``Compactor.run`` on each leg, then the epoch-1 index
+   reloaded and served e2e: fp32 bit-equal to the view and to the
+   offline repack; bf16 (compacted to fp32, as the reference does)
+   within 1e-5, ids equal beyond ties; residual re-encoded (recall@10
+   against the view reported); no orphans; compact seconds and bytes
+   before and after.  Last, a copy of the mutated fp32 artifact is
+   compacted by a child process on the card killed by SIGKILL at
+   ``compact-swap``; ``recover`` must land it on the pre- or
+   post-mutation epoch with no orphans and that epoch's top-10, bit
+   for bit.
 5. Kernels against their plain PyTorch versions on the card, on the
    paths' own tensors: max abs error, index agreement, kernel and plain
    times (CUDA events), and each kernel's bound.  B3 runs on the bf16
@@ -155,7 +186,8 @@ passed — any failure exits non-zero):
    path (fp32 B3/B4, B5, B6), the fused prefill (B7) and the median of
    three ``fused`` dlrm-rm2 ``serve_bulk`` forwards (B8); B1, B2 and fp32
    B3 also carry a ``paper`` key: their launches and summed kernel ms
-   over phase 8's drivers.
+   over phase 8's drivers; every row carries a ``mutation`` key: its
+   launches and summed kernel ms over phase 4b's three view serves.
 
 Tolerances: retrieval values within 1e-5 abs (unit-norm fp32 inputs,
 dim 128; on norm-11 docs, of a float64 MaxSim); token/doc ids equal
@@ -182,7 +214,9 @@ import contextlib
 import gc
 import io
 import json
+import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -417,17 +451,326 @@ def main() -> int:
         log(f"[kernel] {name}: max_abs_err {max_err:.3e} kernel {ms:.3f} ms "
             f"plain {plain_ms:.3f} ms{lib} bound {b_ms:.3f} ms ({b_by})")
 
-    def hold_to_reference(tag, index, q_emb, n_first, i, s):
+    def hold_to_reference(tag, index, q_emb, n_first, i, s, mutation=None):
         """A served top-10 against the reference backend's top-11 (the
         11th score tells a tie at rank 10 apart)."""
         ri, rs = search(index, q_emb, k=11, n_first=n_first,
-                        backend="reference", return_full=False)
+                        backend="reference", return_full=False,
+                        mutation=mutation)
         err = (torch.as_tensor(s) - rs[:, :10].cpu()).abs().max().item()
         agree, bad = ids_ok(torch.as_tensor(i), ri[:, :10].cpu(), rs.cpu())
         log(f"{tag} top-10 vs reference backend: ids equal {agree:.4f}, "
             f"untied mismatches {bad}, max |score err| {err:.3e}")
         expect(bad == 0 and err <= ATOL,
                f"{tag} top-10 disagrees with the reference backend")
+
+    mutation_counts = {}
+
+    def persist_phase(res, pruned, packs, zero_counts, read_counts):
+        """Phase 4b, ``[persist]``: index persistence and live mutation
+        (``serve.index_io``, ``serve.mutation``) on phase 3's encoder,
+        pruned corpus and queries, in a temporary directory removed at
+        the end."""
+        from repro_torch.serve import index_io
+        from repro_torch.serve import mutation as mut
+
+        cfg = colbert_base.CONFIG
+        q_emb, packed = res.q_emb, res.packed
+        n_docs = packed.n_docs
+        root = tempfile.mkdtemp(prefix="persist_")
+        phase_t = time.perf_counter()
+        log(f"[persist] card {smi}; artifacts under a temporary directory")
+
+        def disk_bytes(path):
+            return sum(os.path.getsize(os.path.join(d, f))
+                       for d, _, fs in os.walk(path) for f in fs)
+
+        def same_leaves(a, b):
+            if (a.n_docs, a.m, a.dim, a.tokens_total, a.compression,
+                    a.epoch, a.residual_bits, len(a.buckets)) != (
+                    b.n_docs, b.m, b.dim, b.tokens_total, b.compression,
+                    b.epoch, b.residual_bits, len(b.buckets)):
+                return False
+            for x, y in zip(a.buckets, b.buckets):
+                if x.cap != y.cap:
+                    return False
+                for k in ("doc_ids", "masks", "embs", "q8", "scales",
+                          "codes", "resq", "rscale", "codebook"):
+                    u, v = getattr(x, k), getattr(y, k)
+                    if (u is None) != (v is None):
+                        return False
+                    if u is not None and not (
+                            u.dtype == v.dtype and u.device == v.device
+                            and torch.equal(u, v)):
+                        return False
+            return True
+
+        def serve(index, n_first, mutation=None, route="exhaustive",
+                  routing=None):
+            srv = RetrievalServer(index, k=10, n_first=n_first,
+                                  backend="fused", route=route,
+                                  routing=routing)
+            if mutation is not None:
+                srv.apply_mutation(mutation)
+            t = time.perf_counter()
+            out = srv.query_batch(q_emb)
+            return out, time.perf_counter() - t
+
+        def bitwise(a, b):
+            return (np.array_equal(np.asarray(a[0]), np.asarray(b[0]))
+                    and np.array_equal(np.asarray(a[1]), np.asarray(b[1])))
+
+        # 1. save and load, four ways
+        legs = {"bf16": packed,
+                "fp32": TokenIndex.build(res.d_emb.float(), res.d_mask
+                                         ).with_keep(res.keep).pack(),
+                "int8": packs["int8"], "residual4": packs["residual4"]}
+        loaded, paths = {}, {}
+        for leg, p in legs.items():
+            paths[leg] = path = os.path.join(root, leg)
+            t = time.perf_counter()
+            index_io.save_index(path, p)
+            save_s = time.perf_counter() - t
+            t = time.perf_counter()
+            loaded[leg] = q = index_io.load_index(path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+            expect(same_leaves(q, p), f"[persist] {leg} leaves differ after "
+                   "save and load")
+            eq = {}
+            for route, n_first in (("e2e", n_docs), ("two-stage", 64)):
+                mem, _ = serve(p, n_first)
+                got, _ = serve(q, n_first)
+                eq[route] = bitwise(got, mem)
+                expect(eq[route], f"[persist] {leg} {route} top-10 of the "
+                       "loaded index differs from the in-memory one")
+            log(f"[persist] {leg}: disk {disk_bytes(path)} bytes, "
+                f"storage() bytes_stored {p.storage()['bytes_stored']}; "
+                f"save {save_s:.3f} s, load {load_s:.3f} s; leaves "
+                f"bit-equal, top-10 equal bit for bit: {json.dumps(eq)}")
+        apath = os.path.join(root, "async")
+        t = time.perf_counter()
+        index_io.save_index(apath, packed, async_save=True)
+        call_s = time.perf_counter() - t
+        checkpoint.wait_pending()
+        joined_s = time.perf_counter() - t
+        expect(same_leaves(index_io.load_index(apath), packed),
+               "[persist] async_save leaves differ")
+        log(f"[persist] async_save: the call {call_s:.3f} s, joined by "
+            f"wait_pending at {joined_s:.3f} s; leaves bit-equal")
+        shutil.rmtree(apath)
+
+        # 2. mutate: 256 fresh docs by the same encoder
+        model = colbert_init(torch.Generator(device="cpu").manual_seed(0),
+                             cfg, "cuda")
+        fresh = token_corpus(1, n_docs=256, n_q=1, vocab=cfg.vocab,
+                             m=cfg.doc_len, l=cfg.query_len)
+        with torch.no_grad():
+            n_emb, n_mask = model.encode_docs(
+                torch.as_tensor(fresh.doc_ids, device="cuda"))
+        del model
+        rng = np.random.default_rng(7)
+        shadow = np.sort(rng.choice(n_docs, 128, replace=False))
+        new = np.arange(n_docs, n_docs + 128)
+        up_ids = np.concatenate([new, shadow])
+        base_only = np.setdiff1d(np.arange(n_docs), shadow)
+        deleted = np.concatenate([rng.choice(base_only, 32, replace=False),
+                                  rng.choice(shadow, 16, replace=False),
+                                  rng.choice(new, 16, replace=False)])
+        back = deleted[::8]
+        n_live = n_docs + 128 - 64 + 8
+        mutated = {}
+        counts, ms = {}, {}
+        others = (fa_ops.flash_attention_op, embedding_bag_op)
+        for leg in ("bf16", "fp32", "residual4"):
+            path = paths[leg]
+            e = n_emb.float() if leg == "fp32" else n_emb
+            t = time.perf_counter()
+            mut.append_upsert(path, e, n_mask, up_ids)
+            upsert_s = time.perf_counter() - t
+            t = time.perf_counter()
+            mut.append_delete(path, deleted)
+            delete_s = time.perf_counter() - t
+            mut.append_upsert(path, e[:8], n_mask[:8], back)
+            t = time.perf_counter()
+            lg = mut.load_state(path)
+            torch.cuda.synchronize()
+            state_s = time.perf_counter() - t
+            view = lg.view()
+            expect(lg.n_live == n_live and view.n_live == n_live,
+                   f"[persist] {leg} n_live {lg.n_live}, not {n_live}")
+            srv = RetrievalServer(loaded[leg], k=10, n_first=64,
+                                  backend="fused")
+            srv.query_batch(q_emb)
+            _, base_s = serve(lg.base, n_docs)
+            srv.swap_index(lg.base, mutation=view)
+            srv.query_batch(q_emb)          # the deltas' first launches
+            zero_counts()
+            for op in others:
+                op.launches = 0
+            timer.start()
+            t = time.perf_counter()
+            vi, vs = out = srv.query_batch(q_emb)
+            view_s = time.perf_counter() - t
+            c = read_counts()
+            c.update(flash_attention=others[0].launches,
+                     embedding_bag=others[1].launches)
+            leg_ms = timer.stop()
+            for n, v in c.items():
+                counts[n] = counts.get(n, 0) + v
+            for n, v in leg_ms.items():
+                ms[n] = ms.get(n, 0.0) + v
+            want = {"bf16": {"colbert_maxsim_multi_bf16"},
+                    "fp32": {"colbert_maxsim_multi"},
+                    "residual4": {"colbert_maxsim_residual_multi",
+                                  "colbert_maxsim_multi_bf16"}}[leg]
+            expect(all(c[n] > 0 for n in want) and all(
+                v == 0 for n, v in c.items() if n not in want),
+                f"[persist] {leg} view serve launches {c}")
+            E, M, ids = mut.materialize(lg)
+            rep = mut._pack_with_ids(E.bfloat16() if leg == "bf16" else E,
+                                     M, ids, lg.n_total, compression="none",
+                                     granularity="pow2", min_width=8)
+            oracle = topk_search(rep, q_emb, k=10, backend="fused")
+            exact = bitwise(out, (oracle[0].cpu(), oracle[1].cpu()))
+            expect(exact, f"[persist] {leg} view top-10 differs from the "
+                   "repack of materialize(log)")
+            expect(vi.shape == (N_QUERIES, 10) and bool(np.isfinite(vs).all()),
+                   f"[persist] {leg} view top-10 malformed")
+            hold_to_reference(f"[persist] {leg} view", lg.base, q_emb,
+                              n_docs, vi, vs, mutation=view)
+            deltas = [[(b.n_docs, b.cap, str(b.embs.dtype)[6:])
+                       for b in d.buckets] for d in lg.deltas]
+            log(f"[persist] {leg}: upsert 256 {upsert_s:.3f} s, delete 64 "
+                f"{delete_s:.3f} s, load_state {state_s:.3f} s; n_live "
+                f"{lg.n_live}, delta buckets (docs, cap, dtype) {deltas}; "
+                f"e2e serve: base alone {base_s * 1e3:.2f} ms, view "
+                f"{view_s * 1e3:.2f} ms; launches {json.dumps(c)}; kernel "
+                f"ms {json.dumps(leg_ms)}; equal to the repack bit for bit: "
+                f"{exact}")
+            mutated[leg] = (lg, view, out, oracle)
+            del E, M, rep
+        kill_path = os.path.join(root, "fp32_kill")
+        shutil.copytree(paths["fp32"], kill_path)
+
+        # 5. routed mutation on the residual-4 leg, before its compaction
+        lg, view, vout, _ = mutated["residual4"]
+        path = paths["residual4"]
+        table = RoutingIndex.build(lg.base, n_centroids=4)
+        index_io.save_routing(index_io.live_epoch_dir(path), table)
+        table2 = index_io.load_routing(path)
+        expect(all(torch.equal(a, table2.body_tree()[k])
+                   for k, a in table.body_tree().items())
+               and table2.meta() == table.meta(),
+               "[persist] routing sidecar differs after save and load")
+        bout, routed_s = serve(lg.base, n_docs, mutation=view,
+                               route="bounded", routing=table2)
+        stats = {}
+        topk_search(lg.base, q_emb, k=10, backend="fused", route="bounded",
+                    routing=table2, mutation=view, route_stats=stats)
+        exact = bitwise(bout, vout)
+        expect(exact, "[persist] bounded routed view differs from the "
+               "exhaustive view")
+        log(f"[persist] residual4 bounded under the view: equal to the "
+            f"exhaustive view bit for bit: {exact}; buckets scored "
+            f"{stats['buckets_scored']} of {stats['n_buckets']} (+ "
+            f"{sum(len(d.buckets) for d in view.deltas)} delta buckets); "
+            f"serve {routed_s * 1e3:.2f} ms")
+
+        # 3. compact and reload
+        for leg in ("bf16", "fp32", "residual4"):
+            lg, view, vout, oracle = mutated[leg]
+            path = paths[leg]
+            before = disk_bytes(path)
+            t = time.perf_counter()
+            new_index = mut.Compactor(path).run()
+            torch.cuda.synchronize()
+            compact_s = time.perf_counter() - t
+            re = index_io.load_index(path)
+            expect(re.epoch == 1 and new_index.epoch == 1,
+                   f"[persist] {leg} compacted epoch {re.epoch}")
+            orphans = index_io.list_orphans(path)
+            expect(orphans == [], f"[persist] {leg} orphans {orphans}")
+            cout, _ = serve(re, re.n_docs)
+            vi, vs = vout
+            kind = (re.compression if re.buckets[0].embs is None
+                    else str(re.buckets[0].embs.dtype))
+            if leg == "fp32":
+                off = (oracle[0].cpu(), oracle[1].cpu())
+                note = (f"equal bit for bit to the view {bitwise(cout, vout)}"
+                        f" and to the offline repack {bitwise(cout, off)}")
+                expect(bitwise(cout, vout) and bitwise(cout, off),
+                       "[persist] fp32 compacted top-10 differs")
+            elif leg == "bf16":
+                err = np.abs(cout[1] - vs).max()
+                v11 = topk_search(lg.base, q_emb, k=11, backend="fused",
+                                  mutation=view)[1].cpu()
+                agree, bad = ids_ok(torch.as_tensor(cout[0]),
+                                    torch.as_tensor(vi), v11)
+                note = (f"fp32 epoch: max |score - view| {err:.3e}, ids "
+                        f"equal {agree:.4f}, untied mismatches {bad}, bit "
+                        f"for bit {bitwise(cout, vout)}")
+                expect(err <= ATOL and bad == 0,
+                       "[persist] bf16 compacted top-10 strays from the view")
+            else:
+                rec = np.mean([len(set(a) & set(b)) / 10
+                               for a, b in zip(cout[0], vi)])
+                note = f"re-encoded: recall@10 vs the view {rec:.4f}"
+                rt = index_io.load_routing(path)
+                expect(rt is not None and rt.epoch == 1,
+                       "[persist] residual4 routing sidecar not rebuilt")
+                rt.validate_for(re)
+            log(f"[persist] {leg} compact {compact_s:.3f} s: disk {before} "
+                f"-> {disk_bytes(path)} bytes, bytes_stored "
+                f"{lg.base.storage()['bytes_stored']} + deltas "
+                f"{sum(d.storage()['bytes_stored'] for d in lg.deltas)} -> "
+                f"{re.storage()['bytes_stored']} ({kind}); {note}")
+
+        # 4. kill a compaction at compact-swap and recover
+        env = dict(os.environ, PYTHONPATH=str(
+            Path(__file__).resolve().parent / "src"))
+        code = ("from repro_torch.serve import mutation\n"
+                "from repro_torch.serve.health import CrashPlan\n"
+                f"mutation.Compactor({kill_path!r}, "
+                "crash=CrashPlan('compact-swap'), "
+                f"device={q_emb.device.type!r}).run()\n"
+                "print('MUTATION_OK')\n")
+        t = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", code], env=env,
+                               capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t
+        expect(child.returncode == -signal.SIGKILL
+               and "MUTATION_OK" not in child.stdout,
+               f"[persist] compaction child rc {child.returncode}: "
+               f"{child.stderr[-400:]}")
+        t = time.perf_counter()
+        report = index_io.recover(kill_path)
+        recover_s = time.perf_counter() - t
+        epoch = index_io.load_epoch(kill_path)
+        lk = mut.load_state(kill_path)
+        kout, _ = serve(lk.base, lk.base.n_docs,
+                        mutation=lk.view() if lk.ops else None)
+        orphans = index_io.list_orphans(kill_path)
+        exact = bitwise(kout, mutated["fp32"][2])
+        expect(epoch in (0, 1) and orphans == [] and exact,
+               f"[persist] recovered artifact: epoch {epoch}, orphans "
+               f"{orphans}, top-10 equal {exact}")
+        log(f"[persist] kill at compact-swap: child rc {child.returncode} "
+            f"after {child_s:.2f} s; recover {recover_s:.4f} s, report "
+            f"{json.dumps({k: len(v) for k, v in report.items()})}; epoch "
+            f"{epoch} ({'post' if epoch else 'pre'}-mutation), orphans "
+            f"{len(orphans)}, top-10 equal to that epoch's bit for bit: "
+            f"{exact}")
+        for n in set(counts) | set(ms):
+            mutation_counts[n] = {"launches": counts.get(n, 0),
+                                  "path_ms": ms.get(n, 0.0)}
+        log(f"[persist] view-serve kernel rows (3 legs): "
+            f"{json.dumps(mutation_counts)}; the phase took "
+            f"{time.perf_counter() - phase_t:.2f} s ({smi})")
+        del mutated, loaded, legs, lg, view, n_emb, n_mask
+        shutil.rmtree(root)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     def retrieval_phases():
         """Phases 3-6: the retrieval paths of the earlier slices and
@@ -632,6 +975,8 @@ def main() -> int:
                           for a, b in zip(n_idx, ex_idx)])
         log(f"[routing] nprobe=1 recall@10 vs exhaustive {recall:.4f}, "
             f"route_stats {json.dumps(st)}")
+
+        persist_phase(res, pruned, packs, zero_counts, read_counts)
 
         # 5. kernels against their plain versions, on the paths' tensors
         samples, d_mask = res.samples, res.d_mask
@@ -1907,6 +2252,9 @@ def main() -> int:
     recsys_phase()
 
     # 13. kernels line
+    for r_ in rows:
+        r_["mutation"] = mutation_counts.get(
+            r_["name"], {"launches": 0, "path_ms": 0.0})
     log(json.dumps({"kernels": rows}))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -27,9 +27,15 @@ decodes them eagerly — it is the materializing oracle).
 Candidate routing (``topk_search(route=...)``, ``serve/routing.py``)
 restricts the streaming sweep to the buckets a centroid pass selects.
 
-Not ported yet: sharded and grid serving, placement, health monitoring,
-mutation serving (the reference's imports of ``health``, ``sharding``
-and ``placement``).
+Mutation serving (``topk_search(mutation=...)``, a :class:`MutationView`
+of ``serve.mutation.DeltaLog``): the delta buckets of absorbed upserts
+are extra leaves of the merge, scored by the same kernels, and every
+leaf masks the docs it does not own (shadowed or tombstoned) to -inf
+inside the slab scorer, so the result equals a repack of the mutated
+corpus bit for bit.
+
+Not ported yet: sharded and grid serving and health monitoring (the
+reference's imports of ``health`` and ``sharding``).
 """
 
 from __future__ import annotations
@@ -199,6 +205,26 @@ def _merge_topk(scores, ids, k: int):
     return ids.gather(1, o), scores.gather(1, o)
 
 
+def _merge_topk_unique(scores, ids, k: int):
+    """:func:`_merge_topk` that also dedupes doc ids: one output slot per
+    id, its best candidate.  The mutation merge's root, where a doc id
+    arrives once per leaf holding a copy (the stale copies at -inf).
+
+    The (id, -score) order (a stable sort by descending score, then a
+    stable sort by id) puts each id's best candidate first; the rest
+    become the (-inf, -1) sentinel, and the (-score, id) merge follows.
+    Where finite ids are already unique the result is
+    :func:`_merge_topk`'s."""
+    o = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    ids, scores = ids.gather(1, o), scores.gather(1, o)
+    o = torch.sort(ids, dim=1, stable=True).indices
+    ids, scores = ids.gather(1, o), scores.gather(1, o)
+    dup = torch.zeros_like(ids, dtype=torch.bool)
+    dup[:, 1:] = ids[:, 1:] == ids[:, :-1]
+    return _merge_topk(torch.where(dup, -torch.inf, scores),
+                       torch.where(dup, -1, ids), k)
+
+
 def _stream_chunk_topk(n: int, chunk: int, k: int, score_slab,
                        doc_ids=None, pad_from: int | None = None):
     """Sweep the doc axis in ``chunk`` slabs, reduce each slab's scores
@@ -225,13 +251,26 @@ def _stream_chunk_topk(n: int, chunk: int, k: int, score_slab,
 
 
 def _chunk_candidates(embs, masks, doc_ids, q_embs, q_masks, k: int, *,
-                      backend, chunk_docs):
+                      backend, chunk_docs, owner=None, leaf: int = 0):
     """One doc array's exact-MaxSim candidates through the streaming
-    reduce loop."""
+    reduce loop.
+
+    ``owner``/``leaf`` is the mutation stale mask (:class:`MutationView`):
+    slab scores of docs this leaf does not own — a base copy shadowed by
+    an upsert, a tombstoned doc — are forced to -inf BEFORE the slab's
+    top-k reduction, so a stale copy never crowds a live doc out of its
+    bucket's k candidate slots.  The clip guards sentinel ids (< 0,
+    forced to -inf by the pad audit regardless) against wraparound."""
 
     def slab(a, b):
-        return _score_block(embs[a:b], masks[a:b], q_embs, q_masks,
-                            backend=backend)
+        s = _score_block(embs[a:b], masks[a:b], q_embs, q_masks,
+                         backend=backend)
+        if owner is not None:
+            ids = (torch.arange(a, b, device=s.device) if doc_ids is None
+                   else doc_ids[a:b].long())
+            own = owner[ids.clamp(0, owner.shape[0] - 1)]
+            s = torch.where((own != leaf)[None, :], -torch.inf, s)
+        return s
 
     return _stream_chunk_topk(masks.shape[0], chunk_docs, k, slab,
                               doc_ids=doc_ids)
@@ -275,27 +314,68 @@ def _bucket_view(index, bucket_ids):
     return index if bucket_ids else None
 
 
-def _topk_local(index, q_embs, q_masks, k: int, *, backend, chunk_docs):
+@dataclasses.dataclass(frozen=True)
+class MutationView:
+    """The serving view of a live delta log (``serve.mutation``): the
+    extra leaves :func:`topk_search`'s merge scores beside the packed
+    base index.
+
+    ``deltas`` are small :class:`PackedIndex` es (one per absorbed upsert
+    batch, scored by the unmodified ``colbert_maxsim`` kernels).
+    ``owner`` maps every corpus-global doc id to the single *leaf*
+    holding its current version — 0 for the base index, ``i + 1`` for
+    delta ``i``, ``-1`` for a tombstoned or absent doc — as int32 on the
+    scoring device.  ``n_live`` (live docs) replaces the real-doc count
+    as the output-width clamp."""
+
+    deltas: tuple
+    owner: torch.Tensor           # (n_total,) int32; -1 = dead
+    n_live: int
+
+
+def _topk_local(index, q_embs, q_masks, k: int, *, backend, chunk_docs,
+                mutation=None, real_cap=None):
     """Every bucket's streaming candidates, root-merged; capped at the
-    real documents of ``index`` so no sentinel fills a column."""
+    real documents of ``index`` (``real_cap`` where given; the live
+    docs under ``mutation``) so no sentinel fills a column.  Under
+    ``mutation`` the deltas are leaves 1.. beside ``index`` (leaf 0; an
+    empty routed selection is ``None``), each masked by the owner map,
+    and the root merge dedupes ids."""
+    leaves = [] if index is None else [(index, 0)]
+    owner = None
+    if mutation is not None:
+        leaves += [(d, i + 1) for i, d in enumerate(mutation.deltas)]
+        owner = mutation.owner
     vals, ids = [], []
-    for e, mk, di in _index_views(index, backend):
-        v, i = _chunk_candidates(e, mk, di, q_embs, q_masks, k,
-                                 backend=backend, chunk_docs=chunk_docs)
-        vals.append(v)
-        ids.append(i)
+    for leaf_index, leaf in leaves:
+        for e, mk, di in _index_views(leaf_index, backend):
+            v, i = _chunk_candidates(e, mk, di, q_embs, q_masks, k,
+                                     backend=backend, chunk_docs=chunk_docs,
+                                     owner=owner, leaf=leaf)
+            vals.append(v)
+            ids.append(i)
+    if not vals:
+        return _empty_topk(q_embs)
     vals = torch.cat(vals, dim=1)
     ids = torch.cat(ids, dim=1)
-    return _merge_topk(vals, ids, min(k, _real_docs(index), vals.shape[1]))
+    if real_cap is None:
+        real_cap = (_real_docs(index) if mutation is None
+                    else mutation.n_live)
+    k = min(k, real_cap, vals.shape[1])
+    if mutation is None:
+        return _merge_topk(vals, ids, k)
+    return _merge_topk_unique(vals, ids, k)
 
 
 def _topk_search_routed(index, q_embs, q_masks, k: int, *, backend,
                         chunk_docs, route, routing, n_probe,
-                        route_threshold, route_stats):
+                        route_threshold, route_stats, mutation=None):
     """The candidate-routing tier in front of the merge (see
     :func:`topk_search`).  The centroid pass runs on the device in one
     sweep; the (n_q, n_buckets) scores and bounds come to the host,
-    where the shortlist is chosen before any bucket is scored."""
+    where the shortlist is chosen before any bucket is scored.  Under
+    ``mutation`` every delta leaf joins the routed base, scored
+    exhaustively (the table knows nothing of fresh upserts)."""
     from repro_torch.serve import routing as routing_lib
 
     routing_lib.check_route(route, routing, index, n_probe)
@@ -304,12 +384,20 @@ def _topk_search_routed(index, q_embs, q_masks, k: int, *, backend,
                                        backend=backend)
     s_host, u_host = s.cpu().numpy(), u.cpu().numpy()
 
+    delta_real = (0 if mutation is None
+                  else sum(_real_docs(d) for d in mutation.deltas))
+
     def run(bucket_ids):
         view = _bucket_view(index, tuple(bucket_ids))
-        if view is None:
+        if view is None and mutation is None:
             return _empty_topk(q_embs)
+        real_cap = None
+        if mutation is not None:
+            base_real = 0 if view is None else _real_docs(view)
+            real_cap = min(base_real + delta_real, mutation.n_live)
         return _topk_local(view, q_embs, q_masks, k, backend=backend,
-                           chunk_docs=chunk_docs)
+                           chunk_docs=chunk_docs, mutation=mutation,
+                           real_cap=real_cap)
 
     if route == "nprobe":
         selected, _ = routing_lib.select_nprobe(s_host, probe,
@@ -336,7 +424,8 @@ def topk_search(index, q_embs, *, k: int = 10, q_masks=None,
                 route: str = "exhaustive", routing=None,
                 n_probe: int | None = None,
                 route_threshold: float | None = None,
-                route_stats: dict | None = None):
+                route_stats: dict | None = None,
+                mutation: MutationView | None = None):
     """Streaming exact top-k MaxSim: ``(top_idx, top_scores)``, each
     (n_q, min(k, n_docs)), equal to the (-score, id)-ordered top-k of
     :func:`maxsim_scores` without ever holding an (n_q, n_docs) score
@@ -352,20 +441,29 @@ def topk_search(index, q_embs, *, k: int = 10, q_masks=None,
     seed buckets, then keeps every bucket whose upper bound still
     reaches some query's k-th seed score — the same ids and scores as
     the exhaustive sweep.  ``route_stats`` (a dict) receives the
-    buckets scored against the total."""
+    buckets scored against the total.
+
+    ``mutation`` (a :class:`MutationView` of ``serve.mutation``) scores
+    the live delta buckets as extra leaves and masks shadowed and
+    tombstoned doc ids to -inf before each slab's reduction — equal, bit
+    for bit, to re-packing the mutated corpus from scratch.  Output
+    columns are capped at the live docs; none live gives (n_q, 0).
+    Under a routed mode the deltas are scored in full."""
     backend = backend_lib.resolve_backend(backend, allow=backend_lib.SERVING,
                                           device=q_embs.device)
     chunk_docs = chunk_docs or backend_lib.STREAM_CHUNK_DOCS
-    if _n_docs(index) == 0:
+    if mutation is not None and mutation.n_live == 0:
+        return _empty_topk(q_embs)
+    if _n_docs(index) == 0 and mutation is None:
         return _empty_topk(q_embs)
     if route != "exhaustive":
         return _topk_search_routed(
             index, q_embs, q_masks, k, backend=backend,
             chunk_docs=chunk_docs, route=route, routing=routing,
             n_probe=n_probe, route_threshold=route_threshold,
-            route_stats=route_stats)
+            route_stats=route_stats, mutation=mutation)
     return _topk_local(index, q_embs, q_masks, k, backend=backend,
-                       chunk_docs=chunk_docs)
+                       chunk_docs=chunk_docs, mutation=mutation)
 
 
 def _streaming_first_stage(index, q_embs, n_first: int):
@@ -416,18 +514,28 @@ def search(index, q_embs, *, k: int = 10, n_first: int = 64,
            return_full: bool = True, route: str = "exhaustive",
            routing=None, n_probe: int | None = None,
            route_threshold: float | None = None,
-           route_stats: dict | None = None):
+           route_stats: dict | None = None,
+           mutation: MutationView | None = None):
     """Two-stage (or e2e) retrieval.  ``return_full=True`` returns
     (top_idx, top_scores, full) with the densified (n_q, n_docs) score
     matrix (the metrics contract: non-candidates score -1e30);
     ``return_full=False`` (the serving default) returns (top_idx,
     top_scores) and streams — e2e through :func:`topk_search`, two-stage
     through the chunked first stage.  Results are identical.  A routed
-    ``route`` (see :func:`topk_search`) applies to the streaming e2e
-    route only."""
+    ``route`` and a ``mutation`` view (see :func:`topk_search`) apply
+    to the streaming e2e route only."""
     backend = backend_lib.resolve_backend(backend, allow=backend_lib.SERVING,
                                           device=q_embs.device)
     n_docs = _n_docs(index)
+    if mutation is not None and not (end_to_end or n_first >= n_docs):
+        raise ValueError(
+            "mutation serving routes through the streaming e2e path "
+            "only (the two-stage pooled first stage would consult "
+            "stale base vectors); pass end_to_end=True or "
+            "n_first >= n_docs")
+    if mutation is not None and return_full:
+        raise ValueError("mutation serving is streaming-only; "
+                         "return_full=False required")
     if route != "exhaustive":
         if return_full:
             raise ValueError("routed serving is streaming-only; "
@@ -444,7 +552,7 @@ def search(index, q_embs, *, k: int = 10, n_first: int = 64,
                                route=route, routing=routing,
                                n_probe=n_probe,
                                route_threshold=route_threshold,
-                               route_stats=route_stats)
+                               route_stats=route_stats, mutation=mutation)
         scores = maxsim_scores(index, q_embs, q_masks, backend=backend)
         top_scores, top_idx = topk_lowest_index(scores, k)
         return top_idx, top_scores, scores
@@ -473,10 +581,12 @@ class RetrievalServer:
     closure is kept per (n_q, l) batch shape and server state in a small
     lock-guarded LRU (``max_cached_closures``); a cache miss parks
     concurrent same-shape callers on the builder's future.  Queries run
-    inside a read gate that :meth:`swap_index` closes: a swap drains
-    in-flight queries, bumps the generation and drops every closure, so
-    each answer is attributable to one ``epoch_key`` snapshot
-    ``(generation, mutation_gen, index.epoch)``.
+    inside a read gate that :meth:`swap_index` and :meth:`apply_mutation`
+    close: they drain in-flight queries, bump the mutation generation
+    and drop every closure, so each answer is attributable to one
+    ``epoch_key`` snapshot ``(generation, mutation_gen, index.epoch)``.
+    A server with a live :class:`MutationView` serves the streaming e2e
+    sweep.
 
     ``route``/``routing``/``n_probe``/``route_threshold`` serve through
     the candidate-routing tier (see :func:`topk_search`); a routed
@@ -504,6 +614,7 @@ class RetrievalServer:
         self._chunk_docs = chunk_docs
         self._max_cached = max(1, int(max_cached_closures))
         self._search = collections.OrderedDict()
+        self._mutation = None
         self._generation = 0
         self._mutation_gen = 0
         self._lock = threading.RLock()
@@ -548,11 +659,12 @@ class RetrievalServer:
                 self._writers_waiting -= 1
                 self._gate.notify_all()
 
-    def swap_index(self, index, *, routing=None):
-        """Serve a new index epoch: drains in-flight queries, bumps the
-        generation and drops every cached closure.  A routed server
-        needs the new epoch's ``routing`` table (the old one is stale
-        by definition)."""
+    def swap_index(self, index, *, mutation=None, routing=None):
+        """Serve a new index epoch (the compaction swap), with the live
+        ``mutation`` view over it (None: none): drains in-flight
+        queries, bumps the generation and drops every cached closure.
+        A routed server needs the new epoch's ``routing`` table (the old
+        one is stale by definition)."""
         if self.route != "exhaustive":
             from repro_torch.serve import routing as routing_lib
             routing_lib.check_route(self.route, routing, index, self.n_probe)
@@ -560,7 +672,19 @@ class RetrievalServer:
             self.index = index
             if routing is not None:
                 self.routing = routing
+            self._mutation = mutation
             self._generation += 1
+            self._mutation_gen += 1
+            self._search.clear()
+
+    def apply_mutation(self, mutation):
+        """Serve the given live delta-log view (upserts + tombstones;
+        None: none) beside the current base index.  Like
+        :meth:`swap_index`, the update drains in-flight queries first,
+        bumps the mutation generation and drops every closure — no
+        answer mixes two delta-log states."""
+        with self._write_gate():
+            self._mutation = mutation
             self._mutation_gen += 1
             self._search.clear()
 
@@ -569,6 +693,7 @@ class RetrievalServer:
         cap_max-wide gather view, compressed for a residual index on
         ``fused``) once, before two-stage serving."""
         if (isinstance(self.index, PackedIndex) and self.route == "exhaustive"
+                and self._mutation is None
                 and self.n_first < self.index.n_docs):
             self.index.pooled()
             if _decodes_in_kernel(self.index, self.backend):
@@ -604,12 +729,13 @@ class RetrievalServer:
 
     def _build_closure(self):
         self._warm_index()
+        e2e = self.route != "exhaustive" or self._mutation is not None
         return functools.partial(
             self._run, self.index, k=self.k, n_first=self.n_first,
             backend=self.backend, chunk_docs=self._chunk_docs,
-            end_to_end=self.route != "exhaustive", route=self.route,
-            routing=self.routing, n_probe=self.n_probe,
-            route_threshold=self.route_threshold)
+            end_to_end=e2e, route=self.route, routing=self.routing,
+            n_probe=self.n_probe, route_threshold=self.route_threshold,
+            mutation=self._mutation)
 
     def query_batch(self, q_embs):
         """Serve one query batch: a :class:`TopKResult` of host (numpy)

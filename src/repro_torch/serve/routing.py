@@ -22,8 +22,10 @@ The same Lloyd's run is the residual codec's codebook
 ``torch.Generator`` (:func:`_init_indices`); the reference draws them
 from ``jax.random``, which torch cannot reproduce, so the two packages
 agree on everything after the init (the parity tests inject the
-reference's init points).  The sidecar persistence of the reference
-(``body_tree``/``meta``/``from_parts``) is not ported yet.
+reference's init points).  A table persists as a sidecar beside the
+index epoch it was built from (``serve.index_io.save_routing``) through
+:meth:`RoutingIndex.body_tree`, :meth:`~RoutingIndex.meta` and
+:meth:`~RoutingIndex.from_parts`, in the reference's layout.
 """
 
 from __future__ import annotations
@@ -202,8 +204,36 @@ class RoutingIndex:
             raise ValueError(
                 f"routing table was built for epoch {self.epoch}, the "
                 f"index is at epoch {index.epoch} — a stale table "
-                "could hide live documents; rebuild it")
+                "could hide live documents; rebuild it (the Compactor "
+                "rebuilds the sidecar per epoch)")
         return self
+
+    # -- persistence glue (serve.index_io sidecar) ---------------------
+
+    def body_tree(self) -> dict:
+        """The tree the checkpoint layer serializes."""
+        return {"centroids": self.centroids, "cmask": self.cmask,
+                "radius": self.radius}
+
+    def meta(self) -> dict:
+        return {"n_centroids": self.n_centroids, "iters": self.iters,
+                "seed": self.seed, "epoch": self.epoch,
+                "n_buckets": self.n_buckets, "dim": self.dim}
+
+    @classmethod
+    def from_parts(cls, meta: dict, tree: dict,
+                   device=None) -> "RoutingIndex":
+        """A table from a sidecar's manifest and restored tree, its
+        tensors on ``device`` (where they are, when None)."""
+        return cls(n_centroids=int(meta["n_centroids"]),
+                   iters=int(meta["iters"]), seed=int(meta["seed"]),
+                   epoch=int(meta["epoch"]),
+                   centroids=tree["centroids"].to(
+                       device=device, dtype=torch.float32).contiguous(),
+                   cmask=tree["cmask"].to(
+                       device=device, dtype=torch.bool).contiguous(),
+                   radius=tree["radius"].to(device=device,
+                                            dtype=torch.float32))
 
 
 def check_route(route: str, routing, index, n_probe) -> None:
