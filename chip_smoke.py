@@ -65,6 +65,27 @@ passed — any failure exits non-zero):
    ``compact-swap``; ``recover`` must land it on the pre- or
    post-mutation epoch with no orphans and that epoch's top-10, bit
    for bit.
+4c. The serving loop (``[loop]``, ``serve.loop.ServeLoop``) in front of
+   phase 3's bf16 pack (e2e and two-stage, ``n_first`` 64) and phase
+   4's residual-4 pack (e2e on B5, two-stage on B6): 1,024 fresh queries
+   (``token_corpus(2)``) by phase 3's encoder, streamed as single host
+   rows by 8 client threads that keep 8 submits in flight each, every
+   fourth submit from the ninth on repeating the one eight back (a
+   cache hit); at ``flush_ms`` 2.0 with ``max_batch`` 8 and then 64, a
+   fresh server each run.  On the bf16 e2e leg a writer thread swaps the
+   same index in at a quarter of the submits and applies a delta-log
+   view (64 docs upserted, 16 deleted, in a temporary directory) at
+   half.  Gates: every future resolved; every answer (cache hits
+   included) bit-equal to its query served alone under the state its
+   ``epoch_key`` names, and on the legs without a writer to its row of
+   the serial batches of 64; cache hits > 0; the closure LRU at its
+   bound; the leg's kernel launched and B1, B2, B7, B8 not (counts
+   zeroed just before each run, read just after).  Reported per leg and
+   ``max_batch``: queries/s, p50/p99, flushes, batches, padded rows,
+   batch sizes, cache hits, epoch keys, launches and summed kernel ms;
+   the serial time of the 1,024 queries as batches of 64; and the rows
+   of a 64-query first-stage product that differ from the query alone,
+   plain and in the port's 64-row blocks (must be 0).
 5. Kernels against their plain PyTorch versions on the card, on the
    paths' own tensors: max abs error, index agreement, kernel and plain
    times (CUDA events), and each kernel's bound.  B3 runs on the bf16
@@ -90,6 +111,18 @@ passed — any failure exits non-zero):
    bucket beside the 2,908-doc shape of phase 5; those launches also
    warm the leg's kernel before its timer.
    The retrieval phases' tensors are freed before the next phase.
+6b. The serving CLI (``[cli]``): child processes of ``python -m
+   repro_torch.launch.serve`` on the card at the smoke config, the
+   independent chains side by side: the default run; ``--serve-loop
+   --flush-ms 1 --max-batch 4`` (parity line ``True``); ``--index-dir D
+   --upsert 8 --delete 1,2 --compact`` then ``--index-dir D --route
+   bounded`` (recall 1.000); ``python -m repro_torch.launch.train --arch
+   colbert --steps 2 --ckpt-dir C`` then ``--ckpt-dir C`` (its top-10
+   digest equal to an in-process ``serve_retrieval`` of the restored
+   encoder); ``--ckpt-dir`` on an empty directory (exits non-zero);
+   ``--arch minitron-4b --tokens 8``; ``--mesh grid --kill-group 0``
+   (exits non-zero naming ROADMAP § A item 7).  Each exit code and
+   gated line is checked.
 7. ColBERT training (``[train]``) at the full ``colbert`` config (bf16,
    seed 0) through ``launch.train.run``: batch 128 (of the config's
    2,048: the 4-D MaxSim score tensor and its backward at 2,048 do not
@@ -187,7 +220,8 @@ passed — any failure exits non-zero):
    three ``fused`` dlrm-rm2 ``serve_bulk`` forwards (B8); B1, B2 and fp32
    B3 also carry a ``paper`` key: their launches and summed kernel ms
    over phase 8's drivers; every row carries a ``mutation`` key: its
-   launches and summed kernel ms over phase 4b's three view serves.
+   launches and summed kernel ms over phase 4b's three view serves, and
+   a ``loop`` key: the same over phase 4c's eight loop runs.
 
 Tolerances: retrieval values within 1e-5 abs (unit-norm fp32 inputs,
 dim 128; on norm-11 docs, of a float64 MaxSim); token/doc ids equal
@@ -221,6 +255,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -246,6 +281,8 @@ N_DOCS, N_QUERIES, FUSED_DOCS = 4096, 64, 256
 # (B, B, 32, 180), and its backward grow with B^2); 40 steps, stopped
 # after 20 and resumed; the trained encoder served on 1,024 docs.
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_STOP, TRAIN_DOCS = 128, 40, 20, 1024
+# [loop]: fresh queries streamed through ServeLoop by this many clients
+LOOP_QUERIES, LOOP_CLIENTS = 1024, 8
 
 
 def log(*a):
@@ -403,6 +440,8 @@ def main() -> int:
     from repro_torch.models import recsys
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.retrieval import (RetrievalServer, TokenIndex,
+                                             _first_stage_scores,
+                                             _pooled_query_blocks,
                                              _streaming_first_stage, search,
                                              topk_search)
     from repro_torch.serve.routing import RoutingIndex
@@ -772,6 +811,338 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    loop_counts = {}
+
+    def loop_phase(res, packs, zero_counts, read_counts):
+        """Phase 4c, ``[loop]``: the concurrent micro-batched serving loop
+        (``serve.loop.ServeLoop``) in front of phase 3's bf16 pack (e2e
+        and two-stage) and phase 4's residual-4 pack, fed by 8 client
+        threads; every answer held bit for bit to its query served alone
+        under the state its ``epoch_key`` names."""
+        from repro_torch.serve import index_io
+        from repro_torch.serve import mutation as mut
+        from repro_torch.serve.loop import ServeLoop
+
+        cfg = colbert_base.CONFIG
+        packed, n_docs = res.packed, res.packed.n_docs
+        root = tempfile.mkdtemp(prefix="loop_")
+        phase_t = time.perf_counter()
+        others = (fa_ops.flash_attention_op, embedding_bag_op)
+        # 1,024 fresh queries by phase 3's encoder (seed 0), and a delta
+        # log over the bf16 pack: 64 fresh docs upserted (32 new ids, 32
+        # shadowing base docs), 16 ids deleted
+        model = colbert_init(torch.Generator(device="cpu").manual_seed(0),
+                             cfg, "cuda")
+        with torch.no_grad():
+            q_ids = token_corpus(2, n_docs=1, n_q=LOOP_QUERIES,
+                                 vocab=cfg.vocab, m=cfg.doc_len,
+                                 l=cfg.query_len).q_ids
+            q_dev = model.encode_queries(torch.as_tensor(
+                q_ids, device="cuda"))[0].float()
+            fresh = token_corpus(3, n_docs=64, n_q=1, vocab=cfg.vocab,
+                                 m=cfg.doc_len, l=cfg.query_len)
+            n_emb, n_mask = model.encode_docs(
+                torch.as_tensor(fresh.doc_ids, device="cuda"))
+        del model
+        q_host = q_dev.cpu().numpy()
+        rng = np.random.default_rng(11)
+        path = os.path.join(root, "bf16")
+        index_io.save_index(path, packed)
+        up = np.concatenate([np.arange(n_docs, n_docs + 32),
+                             np.sort(rng.choice(n_docs, 32, replace=False))])
+        mut.append_upsert(path, n_emb, n_mask, up)
+        mut.append_delete(path, np.concatenate([
+            rng.choice(n_docs, 12, replace=False), up[:4]]))
+        view = mut.load_state(path).view()
+        del n_emb, n_mask
+        log(f"[loop] card {smi}; {LOOP_QUERIES} queries x {cfg.query_len} "
+            f"tokens by phase 3's encoder; the bf16 e2e leg's view: 64 "
+            f"upserted, 16 deleted, n_live {view.n_live}")
+
+        # batch invariance of the first stage's product: rows of a
+        # 64-query batch that differ from the query alone, the plain
+        # product against the 64-row blocks the port serves with
+        pooled = packed.pooled()[:128]
+        qp = q_dev[:64].mean(1)
+        full = qp @ pooled.T
+        plain = sum(not torch.equal(full[i], (qp[i:i + 1] @ pooled.T)[0])
+                    for i in range(64))
+        full = _first_stage_scores(_pooled_query_blocks(q_dev[:64]), pooled,
+                                   64)
+        blocked = sum(not torch.equal(full[i], _first_stage_scores(
+            _pooled_query_blocks(q_dev[i:i + 1]), pooled, 1)[0])
+            for i in range(64))
+        log(f"[loop] first-stage product, rows of a 64-query batch unequal "
+            f"to the query alone: plain (64 x 128) x (128 x 128) {plain}/64, "
+            f"in 64-row blocks {blocked}/64")
+        expect(blocked == 0, "[loop] the blocked first stage depends on the "
+               "batch")
+        del pooled, qp, full
+
+        legs = {"bf16 e2e": (packed, n_docs), "bf16 two-stage": (packed, 64),
+                "residual4 e2e": (packs["residual4"], n_docs),
+                "residual4 two-stage": (packs["residual4"], 64)}
+        want = {"bf16 e2e": {"colbert_maxsim_multi_bf16"},
+                "bf16 two-stage": {"colbert_maxsim_rerank_bf16"},
+                "residual4 e2e": {"colbert_maxsim_residual_multi"},
+                "residual4 two-stage": {"colbert_maxsim_residual_rerank"}}
+        oracles = {}
+
+        def oracle(leg, mutated, i):
+            """Query ``i`` served alone by a fresh server on the leg's
+            index (under the delta-log view where ``mutated``)."""
+            key = (leg, mutated)
+            if key not in oracles:
+                index, n_first = legs[leg]
+                srv = RetrievalServer(index, k=10, n_first=n_first,
+                                      backend="fused")
+                srv.apply_mutation(view if mutated else None)
+                oracles[key] = (srv, {})
+            srv, memo = oracles[key]
+            if i not in memo:
+                memo[i] = srv.query_batch(q_dev[i:i + 1])
+            return memo[i]
+
+        def schedule(c):
+            """Client ``c``'s submits: its fresh queries c, c + 8, ...,
+            with every fourth submit from the ninth on repeating the one
+            eight submits back (answered by then: a client keeps at most 8
+            in flight)."""
+            own, seq = list(range(c, LOOP_QUERIES, LOOP_CLIENTS)), []
+            while own:
+                j = len(seq)
+                seq.append(seq[j - 8] if j % 4 == 3 and j >= 8
+                           else own.pop(0))
+            return seq
+
+        schedules = [schedule(c) for c in range(LOOP_CLIENTS)]
+        n_submits = sum(map(len, schedules))
+        counts, ms, checked, oracle_s = {}, {}, 0, 0.0
+        for leg, (index, n_first) in legs.items():
+            srv = RetrievalServer(index, k=10, n_first=n_first,
+                                  backend="fused")
+            t = time.perf_counter()
+            serial = [srv.query_batch(q_host[a:a + 64])
+                      for a in range(0, LOOP_QUERIES, 64)]
+            serial_s = time.perf_counter() - t
+            for max_batch in (8, 64):
+                srv = RetrievalServer(index, k=10, n_first=n_first,
+                                      backend="fused")
+                srv.query_batch(q_host[:1])     # the leg's lazy views
+                answers = [[] for _ in range(LOOP_CLIENTS)]
+                errors = []
+
+                def client(c):
+                    pending = []
+                    try:
+                        for i in schedules[c]:
+                            pending.append((i, sl.submit(q_host[i])))
+                            if len(pending) == 8:
+                                j, f = pending.pop(0)
+                                answers[c].append((j, f.result()[0]))
+                        for j, f in pending:
+                            answers[c].append((j, f.result()[0]))
+                    except Exception as e:      # reported after the join
+                        errors.append(e)
+
+                def writer():
+                    """The bf16 e2e leg: the same index swapped in, then
+                    the delta-log view applied, mid-run."""
+                    for at, act in ((n_submits // 4,
+                                     lambda: sl.swap_index(packed)),
+                                    (n_submits // 2,
+                                     lambda: sl.apply_mutation(view))):
+                        while sl.stats.queries < at and not errors:
+                            time.sleep(0.0005)
+                        act()
+
+                zero_counts()
+                for op in others:
+                    op.launches = 0
+                timer.start()
+                t = time.perf_counter()
+                with ServeLoop(srv, flush_ms=2.0, max_batch=max_batch) as sl:
+                    threads = [threading.Thread(target=client, args=(c,))
+                               for c in range(LOOP_CLIENTS)]
+                    if leg == "bf16 e2e":
+                        threads.append(threading.Thread(target=writer))
+                    for th in threads:
+                        th.start()
+                    for th in threads:
+                        th.join(timeout=300)
+                wall = time.perf_counter() - t
+                c = read_counts()
+                c.update(flash_attention=others[0].launches,
+                         embedding_bag=others[1].launches)
+                run_ms = timer.stop()
+                snap = sl.stats.snapshot()
+                expect(not errors and not any(th.is_alive()
+                                              for th in threads),
+                       f"[loop] {leg} max_batch {max_batch}: clients "
+                       f"failed or hung: {errors[:1]}")
+                got = [a for per in answers for a in per]
+                expect(len(got) == n_submits
+                       and snap["queries"] == n_submits,
+                       f"[loop] {leg} max_batch {max_batch}: "
+                       f"{len(got)} of {n_submits} futures resolved")
+                expect(len(srv._search) <= srv._max_cached,
+                       f"[loop] {leg}: closure LRU {len(srv._search)}")
+                expect(snap["cache_hits"] > 0,
+                       f"[loop] {leg} max_batch {max_batch}: no cache hit")
+                expect(all(c[n] > 0 for n in want[leg]) and all(
+                    v == 0 for n, v in c.items() if n in (
+                        "maxsim_top2", "maxsim_topk", "flash_attention",
+                        "embedding_bag")),
+                    f"[loop] {leg} max_batch {max_batch} launches {c}")
+                # every answer against its query alone under its state
+                t = time.perf_counter()
+                keys, bad = {}, 0
+                for i, r in got:
+                    mutated = r.epoch_key[1] >= 2    # apply_mutation(view)
+                    keys[r.epoch_key] = keys.get(r.epoch_key, 0) + 1
+                    o = oracle(leg, mutated, i)
+                    bad += not (np.array_equal(r.top_idx, o.top_idx[0])
+                                and np.array_equal(r.top_scores,
+                                                   o.top_scores[0]))
+                oracle_s += time.perf_counter() - t
+                checked += len(got)
+                expect(bad == 0, f"[loop] {leg} max_batch {max_batch}: "
+                       f"{bad} answers differ from the query served alone")
+                if leg != "bf16 e2e":
+                    same = sum(np.array_equal(r.top_idx,
+                                              serial[i // 64].top_idx[i % 64])
+                               and np.array_equal(
+                                   r.top_scores,
+                                   serial[i // 64].top_scores[i % 64])
+                               for i, r in got)
+                    expect(same == len(got), f"[loop] {leg}: {len(got) - same}"
+                           " answers differ from the serial batches of 64")
+                for n, v in c.items():
+                    counts[n] = counts.get(n, 0) + v
+                for n, v in run_ms.items():
+                    ms[n] = ms.get(n, 0.0) + v
+                shapes = {f"{s[0]}": v for s, v in sorted(
+                    snap["batch_shapes"].items())}
+                keys = {str(k): v for k, v in keys.items()}
+                log(f"[loop] {leg} flush_ms 2.0 max_batch {max_batch}: "
+                    f"{n_submits} submits by {LOOP_CLIENTS} clients in "
+                    f"{wall:.3f} s ({n_submits / wall:.1f} queries/s); p50 "
+                    f"{snap['p50_latency_s'] * 1e3:.3f} ms, p99 "
+                    f"{snap['p99_latency_s'] * 1e3:.3f} ms; flushes "
+                    f"{snap['flushes']}, batches {snap['batches']}, padded "
+                    f"rows {snap['padded_rows']}, batch n_q "
+                    f"{json.dumps(shapes)}, cache hits {snap['cache_hits']}; "
+                    f"epoch keys {json.dumps(keys)}; "
+                    f"launches {json.dumps({n: v for n, v in c.items() if v})}"
+                    f"; kernel ms {json.dumps(run_ms)}; answers equal to "
+                    f"the query alone {len(got) - bad}/{len(got)}")
+            log(f"[loop] {leg} serial: {LOOP_QUERIES} queries as batches of "
+                f"64 in {serial_s:.3f} s ({LOOP_QUERIES / serial_s:.1f} "
+                f"queries/s)")
+        for n in set(counts) | set(ms):
+            loop_counts[n] = {"launches": counts.get(n, 0),
+                              "path_ms": ms.get(n, 0.0)}
+        n_oracle = sum(len(m) for _, m in oracles.values())
+        log(f"[loop] {checked} answers held to {n_oracle} "
+            f"single-query serves ({oracle_s:.2f} s); kernel rows (8 runs): "
+            f"{json.dumps(loop_counts)}; the phase took "
+            f"{time.perf_counter() - phase_t:.2f} s ({smi})")
+        del oracles, view, q_dev
+        shutil.rmtree(root)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def cli_phase():
+        """Phase 6b, ``[cli]``: ``python -m repro_torch.launch.serve`` (and
+        ``launch.train``) as child processes on the card at the smoke
+        config, the independent chains side by side; each exit code and
+        gated line checked, and the ``--ckpt-dir`` top-10 held to an
+        in-process ``serve_retrieval`` of the restored encoder."""
+        from repro_torch.launch.serve import restore_encoder, top_k_digest
+
+        root = Path(tempfile.mkdtemp(prefix="cli_"))
+        art, ckpt, empty = root / "art", root / "ckpt", root / "empty"
+        empty.mkdir()
+        repo = Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+        serve_cmd = [sys.executable, "-m", "repro_torch.launch.serve"]
+        # chain -> steps of (argv, exit 0 wanted, lines wanted in the output)
+        chains = {
+            "default": [(serve_cmd, True, [
+                "[serve] scoring backend: fused", "[serve] 32 queries in",
+                "[serve] top-10 sha1: "])],
+            "serve-loop": [(serve_cmd + ["--serve-loop", "--flush-ms", "1",
+                                         "--max-batch", "4"], True, [
+                "[serve] loop parity vs serial: True"])],
+            "mutation": [
+                (serve_cmd + ["--index-dir", str(art), "--upsert", "8",
+                              "--delete", "1,2", "--compact"], True, [
+                    "[serve] upserted 8 docs", "tombstoned doc ids [1, 2]",
+                    "post-compact parity: True; orphans: 0"]),
+                (serve_cmd + ["--index-dir", str(art), "--route",
+                              "bounded"], True, [
+                    "[serve] loaded packed index from",
+                    "routed recall@10 vs exhaustive: 1.000"])],
+            "ckpt": [
+                ([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                  "colbert", "--steps", "2", "--ckpt-dir", str(ckpt)], True,
+                 ["[train] done"]),
+                (serve_cmd + ["--ckpt-dir", str(ckpt)], True, [
+                    "[serve] restored encoder parameters from step 2"])],
+            "empty ckpt": [(serve_cmd + ["--ckpt-dir", str(empty)], False, [
+                "FileNotFoundError", str(empty)])],
+            "lm": [(serve_cmd + ["--arch", "minitron-4b", "--tokens", "8"],
+                    True, ["[serve] decoded 8 tokens x 2 seqs"])],
+            "grid": [(serve_cmd + ["--mesh", "grid", "--kill-group", "0"],
+                      False, ["NotImplementedError", "§ A item 7"])],
+        }
+        runs = {}
+
+        def run_chain(name):
+            for k, (argv, _, _) in enumerate(chains[name]):
+                t = time.perf_counter()
+                try:
+                    p = subprocess.run(argv, cwd=repo, env=env, text=True,
+                                       capture_output=True, timeout=600)
+                    out = (p.returncode, p.stdout + p.stderr)
+                except subprocess.TimeoutExpired as e:
+                    out = (None, f"timed out after {e.timeout} s")
+                runs[name, k] = out + (time.perf_counter() - t,)
+                if out[0] != 0:
+                    return
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run_chain, args=(n,))
+                   for n in chains]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        for name, steps in chains.items():
+            for k, (argv, ok0, lines) in enumerate(steps):
+                rc, text, secs = runs.get((name, k), (None, "not run", 0.0))
+                missing = [s for s in lines if s not in text]
+                good = rc is not None and (rc == 0) == ok0 and not missing
+                expect(good, f"[cli] {name} step {k}: rc {rc}, missing "
+                       f"{missing}: {text[-600:]}")
+                shown = [ln for ln in text.splitlines()
+                         if any(s in ln for s in lines)]
+                log(f"[cli] {name}: {' '.join(argv[1:])} -> rc {rc} in "
+                    f"{secs:.1f} s; {json.dumps(shown[-3:])}")
+        # the restored encoder in this process: the same top-10, bit for bit
+        text = runs.get(("ckpt", 1), (None, "", 0.0))[1]
+        ref = serve_retrieval(colbert_base.SMOKE, model=restore_encoder(
+            str(ckpt), colbert_base.SMOKE, "cuda"))
+        line = f"[serve] top-10 sha1: {top_k_digest(ref.idx, ref.scores)}"
+        expect(line in text, "[cli] the --ckpt-dir top-10 differs from the "
+               "in-process serve of the restored encoder")
+        log(f"[cli] --ckpt-dir top-10 equal to the in-process serve of the "
+            f"restored encoder: {line in text}; {len(runs)} children in "
+            f"{wall:.1f} s of wall ({smi})")
+        del ref
+        shutil.rmtree(root)
+
     def retrieval_phases():
         """Phases 3-6: the retrieval paths of the earlier slices and
         their kernel rows (B1-B6), launches filled from the run of
@@ -977,6 +1348,7 @@ def main() -> int:
             f"route_stats {json.dumps(st)}")
 
         persist_phase(res, pruned, packs, zero_counts, read_counts)
+        loop_phase(res, packs, zero_counts, read_counts)
 
         # 5. kernels against their plain versions, on the paths' tensors
         samples, d_mask = res.samples, res.d_mask
@@ -2240,6 +2612,7 @@ def main() -> int:
     retrieval_phases()
     gc.collect()
     torch.cuda.empty_cache()
+    cli_phase()
     train_phase()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2255,6 +2628,8 @@ def main() -> int:
     for r_ in rows:
         r_["mutation"] = mutation_counts.get(
             r_["name"], {"launches": 0, "path_ms": 0.0})
+        r_["loop"] = loop_counts.get(r_["name"],
+                                     {"launches": 0, "path_ms": 0.0})
     log(json.dumps({"kernels": rows}))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -4,6 +4,14 @@ Counterpart of ``repro.kernels.colbert_maxsim.ref``; each materializes
 the score tensor the kernels exist to avoid, and the residual versions
 also the decoded fp32 docs (``train.compress`` decode, then the dense
 version).
+
+The query-batch versions take one product a query, as the kernels do
+(each query's scores read only its own row), so a query's scores are
+the same bits alone or among any batchmates — the serving loop's
+contract.  A batched product is not: its blocking depends on the batch,
+and on the CPU (MKL) a query's token scores inside a batch can differ in
+the last bit from the same query alone (``tests/test_torch_serve_loop.py``
+holds the loop's answers to the query served alone).
 """
 
 from __future__ import annotations
@@ -31,9 +39,20 @@ def colbert_maxsim_ref(q_emb, d_embs, d_masks, q_mask=None):
     return _reduce(s, d_masks, None if q_mask is None else q_mask[None, :])
 
 
+def _per_query(q_embs, d_blocks):
+    """(n_q, n_docs, l, m) token scores of query i against ``d_blocks[i]``
+    (n_docs, m, dim), one product a query (module docstring)."""
+    q_embs = q_embs.float()
+    if not q_embs.shape[0]:
+        return torch.einsum("qld,qnmd->qnlm", q_embs, d_blocks.float())
+    return torch.stack([torch.einsum("ld,nmd->nlm", q, d.float())
+                        for q, d in zip(q_embs, d_blocks)])
+
+
 def colbert_maxsim_multi_ref(q_embs, d_embs, d_masks, q_masks=None):
     """q_embs (n_q, l, dim); d_embs (n_docs, m, dim) -> (n_q, n_docs)."""
-    s = torch.einsum("qld,nmd->qnlm", q_embs.float(), d_embs.float())
+    d = d_embs.float()
+    s = _per_query(q_embs, d.expand((q_embs.shape[0],) + d.shape))
     return _reduce(s, d_masks[None],
                    None if q_masks is None else q_masks[:, None, :])
 
@@ -42,7 +61,7 @@ def colbert_maxsim_rerank_ref(q_embs, d_subs, m_subs, q_masks=None):
     """Query i vs its own candidates: q_embs (n_q, l, dim);
     d_subs (n_q, n_cand, m, dim); m_subs (n_q, n_cand, m) ->
     (n_q, n_cand)."""
-    s = torch.einsum("qld,qnmd->qnlm", q_embs.float(), d_subs.float())
+    s = _per_query(q_embs, d_subs)
     return _reduce(s, m_subs,
                    None if q_masks is None else q_masks[:, None, :])
 

@@ -1,6 +1,20 @@
 """Serving driver: encode corpus -> Voronoi-prune -> pack -> serve.
 
-Counterpart of ``repro.launch.serve.serve_retrieval`` on one device:
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch colbert \\
+        [--device cpu] [--index-dir D [--upsert N] [--delete 1,2]
+        [--compact] [--route bounded|nprobe]] [--ckpt-dir C]
+        [--serve-loop [--flush-ms 2] [--max-batch 8]]
+
+Counterpart of ``repro.launch.serve`` on one device; its flags,
+defaults, choices and parse-time checks are the reference's, plus
+``--device`` (``cuda`` unless ``cpu`` is asked for; raises without a
+GPU).  ``--arch colbert`` runs :func:`serve_retrieval` at the smoke
+config, as the reference does; another ported LM arch decodes its smoke
+config through :func:`serve_lm`.  The grid legs (``--mesh host|grid``,
+``--hosts``, ``--replicas``, ``--kill-group``) validate as the
+reference's and then raise ``NotImplementedError`` (ROADMAP § A item 7).
+
+:func:`serve_retrieval` on one device:
 encode, prune, optionally pool near-duplicate tokens
 (``pool_threshold``), pack with ``compress`` (``"none"`` keeps the
 encoder's dtype, bf16 at the full config, as the reference stores it;
@@ -18,8 +32,12 @@ served beside the base epoch, folded into the next epoch by
 compaction.  ``route`` (``"bounded"`` or ``"nprobe"``, with
 ``n_probe`` and ``centroids`` a bucket) serves through candidate
 routing, its table an artifact sidecar, and reports recall@10 against
-the exhaustive sweep.  The reference's command-line flags are not
-ported yet.
+the exhaustive sweep.  ``ckpt_dir`` restores the encoder's parameters
+from the newest valid train checkpoint there (``launch.train``'s) and
+raises where there is none.  ``serve_loop`` ends the run with the
+concurrent micro-batched leg (``serve.loop.ServeLoop``): client threads
+stream single queries while one epoch swap lands mid-run, and every
+answer must equal the serial batch's bit for bit.
 
 The dense LM serving path: :func:`serve_lm` decodes greedily through
 the KV cache (counterpart of the reference's ``serve_lm``) and
@@ -37,25 +55,32 @@ EmbeddingBag kernel on the ``fused`` backend.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import hashlib
+import threading
 import time
 
+import numpy as np
 import torch
 
+from repro_torch import configs
 from repro_torch.configs import colbert_base
 from repro_torch.core import backend as backend_lib
 from repro_torch.core import metrics, pruning_pipeline
 from repro_torch.core.sampling import sample_sphere
 from repro_torch.data import synthetic
-from repro_torch.models import recsys
+from repro_torch.models import convert, recsys
 from repro_torch.models import transformer as tfm
 from repro_torch.models.colbert import ColBERTConfig, init_params
 from repro_torch.serve import index_io
 from repro_torch.serve import mutation as mutation_lib
 from repro_torch.serve.index import COMPRESSIONS, PackedIndex
+from repro_torch.serve.loop import ServeLoop
 from repro_torch.serve.retrieval import (RetrievalServer, TokenIndex,
                                          topk_search)
 from repro_torch.serve.routing import RoutingIndex
+from repro_torch.train import checkpoint, train_step
 
 ENCODE_BATCH = 512   # docs per encoder forward (bounds attention memory)
 N_SAMPLES = 2048     # Monte-Carlo sphere samples, as the reference
@@ -68,8 +93,8 @@ class ServeResult:
     (in the encoder's dtype, pooled when pooling ran), the keep mask and
     sphere samples (None where the index was loaded from ``index_dir``),
     packed index, server and encoded queries (for further serving and
-    checks); and the wall seconds of each stage (synchronized on the
-    card)."""
+    checks); the wall seconds of each stage (synchronized on the
+    card); and the serving loop's statistics where that leg ran."""
 
     idx: object                 # (n_q, k) int32 numpy
     scores: object              # (n_q, k) float32 numpy
@@ -81,6 +106,7 @@ class ServeResult:
     server: RetrievalServer
     q_emb: torch.Tensor
     timings: dict
+    loop: dict | None = None
 
     def __iter__(self):         # unpacks like the reference's (idx, scores)
         return iter((self.idx, self.scores))
@@ -133,24 +159,34 @@ def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
                     samples=None, index_dir: str | None = None,
                     upsert: int = 0, delete: tuple = (),
                     compact: bool = False, route: str = "exhaustive",
-                    n_probe: int = 1, centroids: int = 4) -> ServeResult:
+                    n_probe: int = 1, centroids: int = 4,
+                    ckpt_dir: str | None = None, serve_loop: bool = False,
+                    flush_ms: float = 2.0,
+                    max_batch: int = 8) -> ServeResult:
     """The reference's serving run on ``device`` (``cuda`` unless the
     caller passes another; raises without a GPU).  ``model`` and
     ``samples`` replace the seeded encoder and sphere samples when
-    given (the parity tests carry the reference's across).
-    ``index_dir``, ``upsert`` (fresh docs), ``delete`` (doc ids),
-    ``compact``, ``route``, ``n_probe`` and ``centroids`` are the
-    reference's persistence, mutation and routing legs (module
-    docstring); a routed run needs ``index_dir``."""
+    given (the parity tests carry the reference's across); ``ckpt_dir``
+    restores the encoder from a train checkpoint instead (raises
+    ``FileNotFoundError`` where none is valid).  ``index_dir``,
+    ``upsert`` (fresh docs), ``delete`` (doc ids), ``compact``,
+    ``route``, ``n_probe`` and ``centroids`` are the reference's
+    persistence, mutation and routing legs (module docstring); a routed
+    run needs ``index_dir``.  ``serve_loop`` runs the serving loop's leg
+    last, at ``flush_ms`` and ``max_batch``."""
     if compress not in COMPRESSIONS:
         raise ValueError(f"compress={compress!r}; one of {COMPRESSIONS}")
     if route != "exhaustive" and not index_dir:
         raise ValueError(f"route={route!r} needs index_dir: the routing "
                          "table is an artifact sidecar")
+    if model is not None and ckpt_dir:
+        raise ValueError("pass model= or ckpt_dir=, not both")
     device = backend_lib.resolve_device(device)
     timings = {}
     t = time.perf_counter()
-    if model is None:
+    if ckpt_dir:
+        model = restore_encoder(ckpt_dir, cfg, device)
+    elif model is None:
         gen = torch.Generator(device="cpu").manual_seed(seed)
         model = init_params(gen, cfg, device)
     corpus = synthetic.token_corpus(seed, n_docs=n_docs, n_q=n_queries,
@@ -179,6 +215,9 @@ def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
             print(f"[serve] WARNING: keep_fraction={keep_fraction} "
                   f"ignored; the loaded artifact retains "
                   f"{st['remain_pct']:.1f}% of tokens")
+        if ckpt_dir:
+            print("[serve] WARNING: --ckpt-dir ignored; the loaded "
+                  "artifact was encoded by the job that built it")
     else:
         d_emb, d_mask, keep, samples, packed = _prune_and_pack(
             model, corpus, cfg, device, timings, t, samples=samples,
@@ -200,6 +239,9 @@ def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
             print(f"[serve] loaded routing table: {routing.n_buckets} "
                   f"buckets x {routing.n_centroids} centroids "
                   f"(epoch {routing.epoch})")
+            if routing.n_centroids != centroids:
+                print(f"[serve] WARNING: centroids={centroids} ignored; "
+                      f"the loaded table has {routing.n_centroids}")
         else:
             routing = RoutingIndex.build(packed, n_centroids=centroids)
             index_io.save_routing(index_io.live_epoch_dir(index_dir),
@@ -245,9 +287,104 @@ def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
         idx, scores = _mutation_lifecycle(
             index_dir, server, q_emb, model, cfg, seed, device, timings,
             upsert=upsert, delete=delete, compact=compact)
+    loop = None
+    if serve_loop:
+        # last, so the loop fronts the server's final state (the mutated
+        # view or the compacted epoch included)
+        loop = _serve_loop_leg(server, q_emb, flush_ms=flush_ms,
+                               max_batch=max_batch)
+        timings["loop_s"] = loop["wall_s"]
     return ServeResult(idx=idx, scores=scores, d_emb=d_emb, d_mask=d_mask,
                        keep=keep, samples=samples, packed=packed,
-                       server=server, q_emb=q_emb, timings=timings)
+                       server=server, q_emb=q_emb, timings=timings,
+                       loop=loop)
+
+
+def restore_encoder(ckpt_dir: str, cfg: ColBERTConfig, device):
+    """The ColBERT encoder of ``cfg`` on ``device`` with the ``params``
+    subtree of the newest valid train checkpoint under ``ckpt_dir`` (as
+    ``launch.train`` writes it: ``train_step.state_tree``).  Raises
+    ``FileNotFoundError`` naming the directory where none restores —
+    never serves the random initialisation in its place."""
+    model = init_params(torch.Generator(device="cpu").manual_seed(0), cfg,
+                        device)
+    like = train_step.state_tree(train_step.make_train_state(model))
+    step, tree = checkpoint.restore_latest(ckpt_dir, like)
+    if tree is None:
+        raise FileNotFoundError(
+            f"no valid train checkpoint of {cfg.name!r} under {ckpt_dir!r}")
+    model.load_state_dict(convert.params_from_jax(tree["params"]))
+    print(f"[serve] restored encoder parameters from step {step} of "
+          f"{ckpt_dir}")
+    return model
+
+
+def _serve_loop_leg(server, q_emb, *, flush_ms, max_batch):
+    """The serving loop's leg: client threads stream single queries (host
+    rows) through a :class:`~repro_torch.serve.loop.ServeLoop` while its
+    dispatcher micro-batches them into pow2 shapes, and one epoch swap
+    lands mid-run.  The swap re-serves the same corpus state under a new
+    generation, so it shows only in ``epoch_key``; every streamed answer
+    must be bit-equal to the serial batch's row.  Prints the reference's
+    ``[serve] loop`` lines (the parity line is what scripts grep) and
+    returns the loop's statistics, the parity and the wall seconds;
+    raises where an answer differs."""
+    q = q_emb.cpu().numpy()
+    n = q.shape[0]
+    oracle = server.query_batch(q_emb)
+    key0 = server.epoch_key
+    results = [None] * n
+    errors = []
+
+    def client(lo, hi):
+        try:
+            for i in range(lo, hi):
+                results[i] = sl.query(q[i])
+        except Exception as e:           # re-raised after the join
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    with ServeLoop(server, flush_ms=flush_ms, max_batch=max_batch) as sl:
+        n_clients = max(1, min(4, n))
+        bounds = [round(c * n / n_clients) for c in range(n_clients + 1)]
+        threads = [threading.Thread(target=client, name=f"loop-client-{c}",
+                                    args=(bounds[c], bounds[c + 1]))
+                   for c in range(n_clients)]
+        for t in threads:
+            t.start()
+        # Mid-run epoch swap: the server's write gate drains in-flight
+        # flushes first, so the swap lands strictly between batches.
+        sl.swap_index(server.index, mutation=server._mutation,
+                      routing=server.routing)
+        for t in threads:
+            t.join(timeout=600)
+    dt = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError("a serve-loop client did not finish in 600 s")
+    snap = sl.stats.snapshot()
+    pre = sum(1 for r in results if r.epoch_key == key0)
+    keys = sorted({r.epoch_key for r in results})
+    parity = all(
+        np.array_equal(r.top_idx, oracle.top_idx[i])
+        and np.array_equal(r.top_scores, oracle.top_scores[i])
+        for i, r in enumerate(results))
+    print(f"[serve] loop: {n} queries / {n_clients} clients in "
+          f"{dt * 1e3:.1f} ms (flush_ms={flush_ms}, max_batch={max_batch})")
+    print(f"[serve] loop stats: flushes={snap['flushes']} "
+          f"batches={snap['batches']} cache_hits={snap['cache_hits']} "
+          f"padded_rows={snap['padded_rows']} "
+          f"p50={snap['p50_latency_s'] * 1e3:.2f} ms "
+          f"p99={snap['p99_latency_s'] * 1e3:.2f} ms")
+    print(f"[serve] loop epoch swap mid-run: {pre} answers pre-swap, "
+          f"{n - pre} post-swap (epoch keys {keys})")
+    print(f"[serve] loop parity vs serial: {parity}")
+    if not parity:
+        raise RuntimeError("serve-loop answers diverged from the serial "
+                           "oracle (bitwise parity contract)")
+    return {**snap, "parity": parity, "wall_s": dt, "pre_swap": pre,
+            "epoch_keys": keys}
 
 
 def _prune_and_pack(model, corpus, cfg, device, timings, t, *, samples,
@@ -471,3 +608,232 @@ def retrieve_cand(cfg, *, k: int = 100, backend: str | None = None,
     _sync(device)
     timings["retrieve_s"] = time.perf_counter() - t
     return out, timings
+
+
+def top_k_digest(idx, scores) -> str:
+    """sha1 of a served top-k's int32 ids and fp32 scores: the CLI prints
+    it, so a script can tell that two runs answered alike bit for bit."""
+    h = hashlib.sha1(np.ascontiguousarray(idx, np.int32).tobytes())
+    h.update(np.ascontiguousarray(scores, np.float32).tobytes())
+    return h.hexdigest()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The reference's serving CLI (flags, defaults, choices), plus
+    ``--device``."""
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
+    ap.add_argument("--arch", default="colbert")
+    ap.add_argument("--keep", type=float, default=0.5)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore the encoder from the newest valid train "
+                         "checkpoint here (repro_torch.launch.train's); "
+                         "raises where there is none")
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--backend", default=None,
+                    choices=list(backend_lib.BACKENDS),
+                    help="pruning/scoring path (default: shortlist_topk "
+                         "pruning + fused serving on the GPU, reference "
+                         "on the CPU; see repro_torch.core.backend)")
+    ap.add_argument("--index-dir", default=None,
+                    help="packed-index artifact directory: load and serve "
+                         "if one exists there, else prune -> pack -> save "
+                         "it first (repro_torch.serve.index_io)")
+    ap.add_argument("--compress", default="none",
+                    choices=["none", "int8", "residual"],
+                    help="token compression when packing a new index; "
+                         "'residual' stores each kept token as a centroid "
+                         "id + --residual-bits quantized residual, decoded "
+                         "inside the scoring kernels")
+    ap.add_argument("--residual-bits", type=int, default=4, choices=[2, 4],
+                    help="bits per residual dimension for --compress "
+                         "residual (ignored otherwise)")
+    ap.add_argument("--pool-threshold", type=float, default=0.0,
+                    help="merge kept tokens within a doc whose cosine "
+                         "similarity meets this threshold before packing "
+                         "(token pooling; 0 disables)")
+    ap.add_argument("--mesh", default="none",
+                    choices=["none", "host", "grid"],
+                    help="'host': shard serving over every local device; "
+                         "'grid': the multi-host placement layout.  Both "
+                         "validate as the reference's and then raise: "
+                         "sharded serving is ROADMAP § A item 7")
+    ap.add_argument("--hosts", type=int, default=0,
+                    help="host-group count for --mesh grid (0 = auto)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="replica count for --mesh grid placement")
+    ap.add_argument("--on-group-loss", default="degrade",
+                    choices=["degrade", "rebalance", "fail"],
+                    help="policy when every replica of some bucket is "
+                         "unreachable under --mesh grid")
+    ap.add_argument("--kill-group", type=int, default=None,
+                    help="fault injection: demote this host group before "
+                         "the query batch (needs --mesh grid)")
+    ap.add_argument("--n-first", type=int, default=64,
+                    help="first-stage candidate count; >= corpus size "
+                         "(or 0) serves the e2e exact sweep")
+    ap.add_argument("--upsert", type=int, default=0,
+                    help="durably upsert this many freshly encoded docs "
+                         "into the artifact as a WAL-logged delta bucket "
+                         "set, then serve the mutated view "
+                         "(repro_torch.serve.mutation; needs --index-dir)")
+    ap.add_argument("--delete", default=None,
+                    help="comma-separated doc ids to durably tombstone "
+                         "(WAL intent -> atomic tombstone set -> commit; "
+                         "needs --index-dir)")
+    ap.add_argument("--route", default="exhaustive",
+                    choices=["exhaustive", "bounded", "nprobe"],
+                    help="candidate routing mode (repro_torch.serve."
+                         "routing): 'exhaustive' scores every capacity "
+                         "bucket; 'nprobe' scores only the --nprobe best "
+                         "buckets per query by centroid MaxSim; 'bounded' "
+                         "keeps every bucket whose provable score upper "
+                         "bound clears the shortlist threshold — exact "
+                         "results, fewer buckets.  Routed modes need "
+                         "--index-dir (the routing table is an artifact "
+                         "sidecar)")
+    ap.add_argument("--nprobe", type=int, default=1,
+                    help="buckets to score per query under --route "
+                         "nprobe (and the seed width for --route "
+                         "bounded); must be >= 1")
+    ap.add_argument("--centroids-per-bucket", type=int, default=4,
+                    dest="centroids",
+                    help="k-means centroids per capacity bucket when "
+                         "building a new routing table (ignored with a "
+                         "WARNING when the artifact already carries one)")
+    ap.add_argument("--serve-loop", action="store_true",
+                    help="after the batch serve, run the concurrent "
+                         "micro-batched serving loop (repro_torch.serve."
+                         "loop.ServeLoop): client threads stream single "
+                         "queries, the dispatcher flushes pow2 "
+                         "micro-batches, one epoch swap lands mid-run, "
+                         "and every answer is checked bitwise against "
+                         "the serial oracle")
+    ap.add_argument("--flush-ms", type=float, default=2.0,
+                    help="serve-loop flush deadline in milliseconds: a "
+                         "micro-batch dispatches when this much time "
+                         "passed since its oldest query (or --max-batch "
+                         "filled, whichever first)")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="serve-loop micro-batch cap: flush immediately "
+                         "once this many queries are waiting")
+    ap.add_argument("--compact", action="store_true",
+                    help="fold the artifact's delta log into the next "
+                         "epoch (new epoch written beside the live one, "
+                         "committed by one atomic manifest swap) and "
+                         "re-serve from it")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default; raises without a GPU) or cpu")
+    return ap
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """Parse + validate: the reference's checks, in its order and with
+    its messages, so a contradiction dies at parse time with an argparse
+    usage error."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.kill_group is not None and args.mesh != "grid":
+        ap.error(f"--kill-group {args.kill_group} requires --mesh grid: "
+                 "fault injection demotes a host group of the grid "
+                 "placement, and no other mesh has host groups")
+    if args.replicas > 1 and args.mesh == "none":
+        ap.error(f"--replicas {args.replicas} requires a serving mesh: "
+                 "replica chains place buckets across host groups "
+                 "(--mesh grid); unsharded serving has nowhere to "
+                 "replicate to")
+    if args.upsert < 0:
+        ap.error(f"--upsert {args.upsert} must be >= 0")
+    if args.delete is not None:
+        try:
+            args.delete = tuple(int(x) for x in args.delete.split(",")
+                                if x.strip())
+        except ValueError:
+            ap.error(f"--delete expects comma-separated integer doc "
+                     f"ids, got {args.delete!r}")
+    else:
+        args.delete = ()
+    mutating = bool(args.upsert or args.delete or args.compact)
+    if mutating and not args.index_dir:
+        ap.error("--upsert/--delete/--compact mutate a persisted "
+                 "artifact; set --index-dir")
+    if mutating and args.mesh == "grid":
+        ap.error("mutation serving is single-process; run --compact to "
+                 "fold the delta log into a fresh epoch before serving "
+                 "it under --mesh grid")
+    if args.pool_threshold and not 0.0 < args.pool_threshold <= 1.0:
+        ap.error(f"--pool-threshold {args.pool_threshold} must be in "
+                 "(0, 1]: it is a cosine-similarity merge cutoff "
+                 "(0 disables pooling)")
+    if args.nprobe < 1:
+        ap.error(f"--nprobe {args.nprobe} must be >= 1: the router "
+                 "always scores at least the best bucket per query")
+    if args.centroids < 1:
+        ap.error(f"--centroids-per-bucket {args.centroids} must be >= 1")
+    if args.route != "exhaustive" and not args.index_dir:
+        ap.error(f"--route {args.route} needs --index-dir: the routing "
+                 "table is a sidecar of a persisted artifact "
+                 "(repro_torch.serve.index_io.save_routing)")
+    if not args.serve_loop:
+        if args.flush_ms != 2.0:
+            ap.error(f"--flush-ms {args.flush_ms} only applies to the "
+                     "micro-batched serving loop; set --serve-loop")
+        if args.max_batch != 8:
+            ap.error(f"--max-batch {args.max_batch} only applies to the "
+                     "micro-batched serving loop; set --serve-loop")
+    else:
+        if args.flush_ms < 0:
+            ap.error(f"--flush-ms {args.flush_ms} must be >= 0 (0 means "
+                     "flush whatever arrived with the first query)")
+        if args.max_batch < 1:
+            ap.error(f"--max-batch {args.max_batch} must be >= 1: a "
+                     "flush serves at least one query")
+        if args.arch != "colbert":
+            ap.error(f"--serve-loop serves the late-interaction retrieval "
+                     f"stack; --arch {args.arch} decodes an LM")
+    if args.route != "exhaustive" and mutating:
+        ap.error(f"--route {args.route} with --upsert/--delete/--compact "
+                 "is not supported by this driver: the mutation demo "
+                 "swaps served views mid-run, and routed swaps require "
+                 "the matching epoch's routing table (the library "
+                 "handles this — serve the mutated view exhaustively, "
+                 "or compact first and serve the new epoch routed)")
+    return args
+
+
+def main(argv=None):
+    """Run the CLI: ``--arch colbert`` serves retrieval at the smoke
+    config (returns its :class:`ServeResult`); a ported LM arch decodes
+    its smoke config (returns the ids and timings)."""
+    args = parse_args(argv)
+    if args.mesh != "none" or args.hosts:
+        raise NotImplementedError(
+            f"--mesh {args.mesh} --hosts {args.hosts}: sharded and grid "
+            f"serving (--mesh host|grid, --hosts, --replicas, "
+            f"--on-group-loss, --kill-group) are not ported yet (ROADMAP "
+            f"§ A item 7)")
+    if args.arch == "colbert":
+        res = serve_retrieval(
+            colbert_base.SMOKE, keep_fraction=args.keep,
+            ckpt_dir=args.ckpt_dir, backend=args.backend,
+            index_dir=args.index_dir, compress=args.compress,
+            residual_bits=args.residual_bits,
+            pool_threshold=args.pool_threshold, n_first=args.n_first,
+            upsert=args.upsert, delete=args.delete, compact=args.compact,
+            route=args.route, n_probe=args.nprobe, centroids=args.centroids,
+            serve_loop=args.serve_loop, flush_ms=args.flush_ms,
+            max_batch=args.max_batch, device=args.device)
+        print(f"[serve] top-{res.idx.shape[1]} sha1: "
+              f"{top_k_digest(res.idx, res.scores)}")
+        return res
+    lms = [a for a in configs.all_archs() if configs.get(a).family == "lm"]
+    if args.arch not in lms:
+        raise NotImplementedError(
+            f"--arch {args.arch}: the port's serve CLI runs colbert and the "
+            f"LM family ({', '.join(lms)}); the rest of the arch zoo is not "
+            f"ported yet (ROADMAP § A item 8)")
+    return serve_lm(configs.get(args.arch).smoke, n_tokens=args.tokens,
+                    device=args.device)
+
+
+if __name__ == "__main__":
+    main()

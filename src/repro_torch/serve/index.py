@@ -30,6 +30,7 @@ scores equal masked scores.  The reference's sharding view
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -163,6 +164,10 @@ class PackedIndex:
         default=None, repr=False, compare=False)
     _padded_res: tuple | None = dataclasses.field(
         default=None, repr=False, compare=False)
+    # Guards the lazy views above: concurrent readers (the server's read
+    # gate admits many) build each one once.
+    _views_lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
 
     @classmethod
     def pack(cls, d_embs, d_masks, keep=None, *, compression: str = "none",
@@ -300,20 +305,33 @@ class PackedIndex:
 
     # -- serving views ---------------------------------------------------
 
+    def _view(self, attr: str, build):
+        """The cached view ``attr``, built by ``build()`` once under the
+        index's lock (a reader that finds it built takes no lock)."""
+        view = getattr(self, attr)
+        if view is None:
+            with self._views_lock:
+                view = getattr(self, attr)
+                if view is None:
+                    view = build()
+                    setattr(self, attr, view)
+        return view
+
     def pooled(self) -> torch.Tensor:
         """(n_docs, dim) fp32 mean-pooled doc vectors in global doc
         order, for the cheap first stage; computed in the bucket's dtype
         as the reference computes it; built once and cached."""
-        if self._pooled is None:
-            out = torch.zeros((self.n_docs, self.dim), dtype=torch.float32,
-                              device=self.device)
-            for b in self.buckets:
-                e = b.dense_embs(self.dim)
-                w = b.masks[..., None].to(e.dtype)
-                out[b.doc_ids.long()] = ((e * w).sum(1)
-                                         / w.sum(1).clamp_min(1.0)).float()
-            self._pooled = out
-        return self._pooled
+        return self._view("_pooled", self._build_pooled)
+
+    def _build_pooled(self) -> torch.Tensor:
+        out = torch.zeros((self.n_docs, self.dim), dtype=torch.float32,
+                          device=self.device)
+        for b in self.buckets:
+            e = b.dense_embs(self.dim)
+            w = b.masks[..., None].to(e.dtype)
+            out[b.doc_ids.long()] = ((e * w).sum(1)
+                                     / w.sum(1).clamp_min(1.0)).float()
+        return out
 
     def padded(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Gatherable ((n_docs, cap_max, dim) embs, (n_docs, cap_max)
@@ -323,20 +341,21 @@ class PackedIndex:
         (bf16 at the full config: the rerank kernel widens it exactly,
         and the gather moves half the bytes of the reference's fp32
         scratch) and are fp32 for the decoded codecs."""
-        if self._padded is None:
-            dtype = (self.buckets[0].embs.dtype
-                     if self.compression == "none" and self.buckets
-                     else torch.float32)
-            e = torch.zeros((self.n_docs, self.cap_max, self.dim),
-                            dtype=dtype, device=self.device)
-            mk = torch.zeros((self.n_docs, self.cap_max), dtype=torch.bool,
-                             device=self.device)
-            for b in self.buckets:
-                ids = b.doc_ids.long()
-                e[ids, :b.cap] = b.dense_embs(self.dim)
-                mk[ids, :b.cap] = b.masks
-            self._padded = (e, mk)
-        return self._padded
+        return self._view("_padded", self._build_padded)
+
+    def _build_padded(self) -> tuple[torch.Tensor, torch.Tensor]:
+        dtype = (self.buckets[0].embs.dtype
+                 if self.compression == "none" and self.buckets
+                 else torch.float32)
+        e = torch.zeros((self.n_docs, self.cap_max, self.dim), dtype=dtype,
+                        device=self.device)
+        mk = torch.zeros((self.n_docs, self.cap_max), dtype=torch.bool,
+                         device=self.device)
+        for b in self.buckets:
+            ids = b.doc_ids.long()
+            e[ids, :b.cap] = b.dense_embs(self.dim)
+            mk[ids, :b.cap] = b.masks
+        return e, mk
 
     def padded_residual(self) -> tuple:
         """Compressed gatherable view for the ``fused`` two-stage rerank:
@@ -346,23 +365,24 @@ class PackedIndex:
         f32)``.  Candidates gather compressed rows; each row's codebook
         is looked up through ``bucket_of`` inside the rerank kernel, so
         the fp32 ``padded()`` scratch is never built on that path."""
-        if self._padded_res is None:
-            dev, n, cap = self.device, self.n_docs, self.cap_max
-            pb = self.dim * self.residual_bits // 8
-            codes = torch.zeros((n, cap), dtype=torch.int8, device=dev)
-            resq = torch.zeros((n, cap, pb), dtype=torch.uint8, device=dev)
-            bucket_of = torch.zeros((n,), dtype=torch.int32, device=dev)
-            mk = torch.zeros((n, cap), dtype=torch.bool, device=dev)
-            cbs = torch.zeros((len(self.buckets), self.n_centroids,
-                               self.dim), device=dev)
-            scales = torch.zeros((n, cap, 1), device=dev)
-            for bi, b in enumerate(self.buckets):
-                ids = b.doc_ids.long()
-                codes[ids, :b.cap] = b.codes
-                resq[ids, :b.cap] = b.resq
-                bucket_of[ids] = bi
-                mk[ids, :b.cap] = b.masks
-                cbs[bi, :b.codebook.shape[0]] = b.codebook
-                scales[ids, :b.cap] = b.rscale
-            self._padded_res = (codes, resq, bucket_of, mk, cbs, scales)
-        return self._padded_res
+        return self._view("_padded_res", self._build_padded_residual)
+
+    def _build_padded_residual(self) -> tuple:
+        dev, n, cap = self.device, self.n_docs, self.cap_max
+        pb = self.dim * self.residual_bits // 8
+        codes = torch.zeros((n, cap), dtype=torch.int8, device=dev)
+        resq = torch.zeros((n, cap, pb), dtype=torch.uint8, device=dev)
+        bucket_of = torch.zeros((n,), dtype=torch.int32, device=dev)
+        mk = torch.zeros((n, cap), dtype=torch.bool, device=dev)
+        cbs = torch.zeros((len(self.buckets), self.n_centroids, self.dim),
+                          device=dev)
+        scales = torch.zeros((n, cap, 1), device=dev)
+        for bi, b in enumerate(self.buckets):
+            ids = b.doc_ids.long()
+            codes[ids, :b.cap] = b.codes
+            resq[ids, :b.cap] = b.resq
+            bucket_of[ids] = bi
+            mk[ids, :b.cap] = b.masks
+            cbs[bi, :b.codebook.shape[0]] = b.codebook
+            scales[ids, :b.cap] = b.rscale
+        return codes, resq, bucket_of, mk, cbs, scales

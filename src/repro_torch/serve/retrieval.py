@@ -34,8 +34,10 @@ leaf masks the docs it does not own (shadowed or tombstoned) to -inf
 inside the slab scorer, so the result equals a repack of the mutated
 corpus bit for bit.
 
-Not ported yet: sharded and grid serving and health monitoring (the
-reference's imports of ``health`` and ``sharding``).
+Not ported yet: sharded and grid serving (the reference's imports of
+``health`` and ``sharding``; ROADMAP § A item 7).  The health layer it
+wires in is ported (``serve/health.py``), and the concurrent front-end
+over :class:`RetrievalServer` is ``serve/loop.py``.
 """
 
 from __future__ import annotations
@@ -56,7 +58,8 @@ from repro_torch.core.scoring import NEG_INF
 from repro_torch.kernels.colbert_maxsim.ops import (
     colbert_maxsim_multi_op, colbert_maxsim_rerank_op,
     colbert_maxsim_residual_multi_op, colbert_maxsim_residual_rerank_op)
-from repro_torch.kernels.colbert_maxsim.ref import colbert_maxsim_rerank_ref
+from repro_torch.kernels.colbert_maxsim.ref import (
+    colbert_maxsim_multi_ref, colbert_maxsim_rerank_ref)
 from repro_torch.kernels.maxsim_topk.ref import topk_lowest_index
 from repro_torch.serve.index import PackedIndex, ResidualView
 
@@ -134,17 +137,13 @@ def _n_docs(index) -> int:
 
 
 def _maxsim_scores_reference(d_embs, active_mask, q_embs, q_masks):
-    """Materializing 4-D einsum path — the parity oracle.  A
-    :class:`ResidualView` decodes eagerly here; bf16 docs widen to the
-    queries' fp32."""
+    """Materializing 4-D path — the parity oracle, B3's plain version (one
+    product a query, so a row's scores do not depend on its batchmates).
+    A :class:`ResidualView` decodes eagerly here; bf16 docs widen to
+    fp32."""
     if isinstance(d_embs, ResidualView):
         d_embs = d_embs.dense()
-    s = torch.einsum("qld,nmd->qnlm", q_embs, d_embs.to(q_embs.dtype))
-    s = torch.where(active_mask[None, :, None, :], s, NEG_INF)
-    best = s.amax(-1)
-    if q_masks is not None:
-        best = torch.where(q_masks[:, None, :], best, 0.0)
-    return best.sum(-1)
+    return colbert_maxsim_multi_ref(q_embs, d_embs, active_mask, q_masks)
 
 
 def _score_block(d_embs, active_mask, q_embs, q_masks, *, backend):
@@ -466,16 +465,46 @@ def topk_search(index, q_embs, *, k: int = 10, q_masks=None,
                        chunk_docs=chunk_docs, mutation=mutation)
 
 
+# Query rows a first-stage product takes at once.  Every block has this
+# many rows (zero-padded), so the BLAS picks one kernel whatever the
+# batch size, and a query's pooled scores are the same bits alone or
+# among batchmates: the serving loop's contract (a demuxed answer equals
+# that query served alone).  An unblocked (64 x 128) x (128 x 128) fp32
+# product gives every row other bits than the query alone on the H100's
+# cuBLAS and on the CPU's MKL (chip_smoke's [loop] logs the count).
+FIRST_STAGE_ROWS = 64
+
+
+def _pooled_query_blocks(q_embs):
+    """The mean-pooled queries in zero-padded blocks of
+    ``FIRST_STAGE_ROWS`` rows (a list of (rows, dim) tensors)."""
+    n_q, rows = q_embs.shape[0], FIRST_STAGE_ROWS
+    blocks = []
+    for r in range(0, n_q, rows):
+        block = q_embs.new_zeros((rows,) + q_embs.shape[1:])
+        block[:min(rows, n_q - r)] = q_embs[r:r + rows]
+        blocks.append(block.mean(1))
+    return blocks
+
+
+def _first_stage_scores(q_blocks, pooled, n_q: int):
+    """(n_q, n_docs) pooled single-vector scores of ``n_q`` queries held
+    in :func:`_pooled_query_blocks`' blocks: one product a block, so
+    each row's bits do not depend on its batchmates."""
+    return torch.cat([qb @ pooled.T for qb in q_blocks])[:n_q]
+
+
 def _streaming_first_stage(index, q_embs, n_first: int):
     """Chunked first stage: pooled single-vector scores stream through
     the same sort-merge, so no (n_q, n_docs) matrix is held.  Candidate
     ids come back in (-score, id) order."""
     pooled = index.pooled()                           # (n_docs, dim)
-    q_pool = q_embs.mean(1)
+    q_blocks = _pooled_query_blocks(q_embs)
     chunk = max(64, _pow2_at_least(2 * n_first))
     vals, ids = _stream_chunk_topk(
         pooled.shape[0], chunk, n_first,
-        lambda a, b: q_pool @ pooled[a:b].T)
+        lambda a, b: _first_stage_scores(q_blocks, pooled[a:b],
+                                         q_embs.shape[0]))
     cand, _ = _merge_topk(vals, ids, n_first)
     return cand
 
@@ -559,7 +588,8 @@ def search(index, q_embs, *, k: int = 10, n_first: int = 64,
     if not return_full:
         cand = _streaming_first_stage(index, q_embs, n_first)
     else:
-        first = q_embs.mean(1) @ index.pooled().T     # (n_q, n_docs)
+        first = _first_stage_scores(_pooled_query_blocks(q_embs),
+                                    index.pooled(), q_embs.shape[0])
         _, cand = topk_lowest_index(first, n_first)
     rerank = _rerank_candidates(index, q_embs, q_masks, cand,
                                 backend=backend)
@@ -738,11 +768,18 @@ class RetrievalServer:
             mutation=self._mutation)
 
     def query_batch(self, q_embs):
-        """Serve one query batch: a :class:`TopKResult` of host (numpy)
-        arrays, stamped with the ``epoch_key`` it was answered under."""
+        """Serve one query batch — a tensor on the index's device, or
+        host rows (numpy or a CPU tensor), moved there in one copy: a
+        :class:`TopKResult` of host (numpy) arrays, brought back in one
+        copy and stamped with the ``epoch_key`` it was answered under."""
+        q_embs = torch.as_tensor(q_embs).to(self.index.device)
         with self._read_gate():
             epoch_key = self.epoch_key
             idx, scores = self._closure_for(q_embs)(q_embs)
-            res = TopKResult(idx.cpu().numpy(), scores.cpu().numpy())
+            # one device-to-host copy: the fp32 scores travel as their
+            # int32 bit patterns beside the int32 ids
+            both = torch.stack([idx.to(torch.int32),
+                                scores.view(torch.int32)]).cpu().numpy()
+            res = TopKResult(both[0], both[1].view(np.float32))
             res.epoch_key = epoch_key
             return res

@@ -2,18 +2,18 @@
 
 A copy of ``repro.train.elastic`` (pure Python; the port keeps its own
 copy rather than importing the reference).  The port's training driver
-uses :class:`StragglerMonitor`; the serving-side health layer named
-below is not ported yet (ROADMAP § A item 6).
+uses :class:`StragglerMonitor`, and the serving-side health layer
+named below (``serve/health.py``) builds on both classes here.
 
 On a real multi-pod deployment these hooks wire into the cluster manager;
 here every decision is pure over an explicit `FleetView`, which makes the
 policies unit-testable with fake clocks and synthetic failure sets (see
 tests/test_elastic.py and tests/test_torch_train.py).
 
-In the reference these primitives are shared with the *serving* side:
-its `serve.health.FleetMonitor` snapshots grid host-group liveness as
-a `FleetView` (one "device" per host group) and flags slow groups with
-a `StragglerMonitor` over cross-group exchange latencies — one fleet
+These primitives are shared with the *serving* side: its
+`serve.health.FleetMonitor` snapshots grid host-group liveness as a
+`FleetView` (one "device" per host group) and flags slow groups with a
+`StragglerMonitor` over cross-group exchange latencies — one fleet
 vocabulary across train and serve, not two.
 
 Policies implemented:

@@ -46,6 +46,20 @@ res = serve_retrieval(colbert_base.SMOKE, n_queries=2, n_docs=8,
 assert res.idx.shape == (2, 8), res.idx.shape
 print("cpu ok")
 
+from repro_torch.launch import serve as serve_cli
+from repro_torch.serve.loop import ServeLoop
+try:
+    serve_cli.main(["--serve-loop"])
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+    print("serve cli raised without cuda")
+else:
+    raise SystemExit("the serve CLI ran without CUDA and without --device cpu")
+with ServeLoop(res.server, flush_ms=1.0) as loop:
+    one = loop.query(res.q_emb[0])
+assert one.top_idx.shape == (8,) and (one.top_idx == res.idx[0]).all()
+print("serve loop cpu ok")
+
 from repro_torch.configs import dlrm_rm2
 from repro_torch.launch.serve import serve_ctr
 try:
@@ -101,6 +115,8 @@ def test_port_imports_and_runs_with_jax_blocked():
     assert out.returncode == 0, out.stdout + out.stderr
     assert "raised without cuda" in out.stdout
     assert "cpu ok" in out.stdout
+    assert "serve cli raised without cuda" in out.stdout
+    assert "serve loop cpu ok" in out.stdout
     assert "serve_ctr raised without cuda" in out.stdout
     assert "serve_ctr cpu ok" in out.stdout
     assert "train raised without cuda" in out.stdout
