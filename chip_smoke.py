@@ -86,6 +86,34 @@ passed — any failure exits non-zero):
    the serial time of the 1,024 queries as batches of 64; and the rows
    of a 64-query first-stage product that differ from the query alone,
    plain and in the port's 64-row blocks (must be 0).
+4d. Multi-device retrieval (``[grid]``, ``sharding``, ``launch.mesh``,
+   the sharded and grid tiers of ``serve.retrieval``) on a mesh of four
+   positions: the card repeated four times, or ``cuda:i % n`` for n >= 2
+   cards (the distinct count is printed).  a: phase 3's bf16 pack and
+   phase 4's int8 and residual-4 packs served e2e and two-stage by
+   ``RetrievalServer`` under ``serve_rules`` of a 4-shard host mesh and
+   of a 2 x 2 grid with replicas 1 and 2: every top-10 bit-equal to the
+   single-device ``fused`` serve at coverage 1, the replicas-2 ones also
+   held to the ``reference`` backend as in phase 3.  b: phase 3's corpus
+   pruned over ``data`` = 4 (``shortlist_topk``, B2): keep masks equal to
+   phase 3's bit for bit; the first 256 docs on ``fused`` (B1): keep,
+   ranks and errors equal to one device's.  c: faults on the grid (bf16,
+   e2e): replicas 2 with ``kill_group(1)`` (coverage 1, bit-equal, the
+   group demoted); replicas 1 with ``kill_group(1)`` (coverage < 1, equal
+   to the single-device serve of the surviving buckets); ``rebalance``
+   (coverage 1, bit-equal); replicas 2 with ``delay_group(1, 0.5)`` past
+   a 0.05 s deadline (fails over, bit-equal); each serve's seconds
+   printed.  d: 262,144 random unit docs (dim 128, 180 slots, 60-120
+   kept, bf16; a seeded generator on the card) packed on the card and
+   served e2e, 64 queries a batch, on one device and on the 2 x 2 grid in
+   turns (one, grid, grid, one; a warm-up serve each, then 5 timed):
+   ms a batch, queries/s, every top-10 bit-equal to one device's, and
+   the peak memory over the grid's timed serves above what was allocated
+   before them below one (64, 262,144) fp32 matrix (67,108,864 bytes).
+   Cut: corpus size (to one card).  e: with two or more cards, every
+   kernel launched on ``cuda:1`` from a thread on ``cuda:0``, equal to
+   ``cuda:0``'s launch bit for bit.  Launches and summed kernel ms of
+   the phase go under each row's ``grid`` key.
 5. Kernels against their plain PyTorch versions on the card, on the
    paths' own tensors: max abs error, index agreement, kernel and plain
    times (CUDA events), and each kernel's bound.  B3 runs on the bf16
@@ -120,9 +148,11 @@ passed — any failure exits non-zero):
    colbert --steps 2 --ckpt-dir C`` then ``--ckpt-dir C`` (its top-10
    digest equal to an in-process ``serve_retrieval`` of the restored
    encoder); ``--ckpt-dir`` on an empty directory (exits non-zero);
-   ``--arch minitron-4b --tokens 8``; ``--mesh grid --kill-group 0``
-   (exits non-zero naming ROADMAP § A item 7).  Each exit code and
-   gated line is checked.
+   ``--arch minitron-4b --tokens 8``; ``--mesh grid --kill-group 0
+   --n-first 0`` (one card: "serving unsharded", the kill ignored with a
+   warning; four cards: the 2 x 2 grid and the injected loss) and
+   ``--mesh host --n-first 0``.  Each exit code and gated line is
+   checked.
 7. ColBERT training (``[train]``) at the full ``colbert`` config (bf16,
    seed 0) through ``launch.train.run``: batch 128 (of the config's
    2,048: the 4-D MaxSim score tensor and its backward at 2,048 do not
@@ -220,8 +250,9 @@ passed — any failure exits non-zero):
    three ``fused`` dlrm-rm2 ``serve_bulk`` forwards (B8); B1, B2 and fp32
    B3 also carry a ``paper`` key: their launches and summed kernel ms
    over phase 8's drivers; every row carries a ``mutation`` key: its
-   launches and summed kernel ms over phase 4b's three view serves, and
-   a ``loop`` key: the same over phase 4c's eight loop runs.
+   launches and summed kernel ms over phase 4b's three view serves, a
+   ``loop`` key: the same over phase 4c's eight loop runs, and a
+   ``grid`` key: the same over phase 4d.
 
 Tolerances: retrieval values within 1e-5 abs (unit-norm fp32 inputs,
 dim 128; on norm-11 docs, of a float64 MaxSim); token/doc ids equal
@@ -1052,6 +1083,332 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    grid_counts = {}
+
+    def grid_phase(res, packs, zero_counts, read_counts):
+        """Phase 4d, ``[grid]``: multi-device serving and pruning on a
+        mesh of four positions (the card repeated, or distinct cards
+        where the host has them): phase 3's bf16 pack, its int8 and
+        residual-4 packs over a 4-shard host mesh and a 2 x 2 grid at
+        replicas 1 and 2, e2e and two-stage, each top-10 bit-equal to the
+        single-device ``fused`` serve; sharded pruning over ``data`` = 4
+        (B2; B1 on the fused leg's 256 docs) bit-equal to one device;
+        faults on the grid; a 262,144-doc bf16 index served over the grid
+        against one device, with its memory gate; and, with two or more
+        cards, every kernel on ``cuda:1`` against ``cuda:0``."""
+        from repro_torch.launch.mesh import make_host_mesh, make_serve_mesh
+        from repro_torch.serve import health
+        from repro_torch.serve.index import PackedBucket, PackedIndex
+        from repro_torch.serve.retrieval import _bucket_view
+        from repro_torch.sharding import (PlacementPlan, axis_rules,
+                                          serve_rules)
+
+        phase_t = time.perf_counter()
+        n_cards = torch.cuda.device_count()
+        devs = [torch.device("cuda", i % min(n_cards, 4)) for i in range(4)]
+        host = make_serve_mesh(devices=devs)
+        grid = make_serve_mesh(2, devs)
+        log(f"[grid] card {smi}; mesh positions {[str(d) for d in devs]}: "
+            f"{grid.distinct()} distinct card(s) of {n_cards}")
+        counts, ms = {}, {}
+        others = (fa_ops.flash_attention_op, embedding_bag_op)
+
+        def counted(fn):
+            """``fn()`` with every kernel's launches and summed event ms
+            added to the phase's rows."""
+            zero_counts()
+            for op in others:
+                op.launches = 0
+            timer.start()
+            out = fn()
+            run_ms = timer.stop()
+            c = read_counts()
+            c.update(flash_attention=others[0].launches,
+                     embedding_bag=others[1].launches)
+            for n, v in c.items():
+                counts[n] = counts.get(n, 0) + v
+            for n, v in run_ms.items():
+                ms[n] = ms.get(n, 0.0) + v
+            return out
+
+        def bitwise(a, b):
+            return (np.array_equal(a[0], b[0])
+                    and np.array_equal(a[1], b[1]))
+
+        # a. sharded and grid serving of the main path's packs
+        q_emb = res.q_emb
+        legs = {"bf16": res.packed, "int8": packs["int8"],
+                "residual4": packs["residual4"]}
+        meshes = {"host x4": lambda p: serve_rules(host),
+                  "grid r1": lambda p: serve_rules(
+                      grid, placement=PlacementPlan.for_index(p, 2)),
+                  "grid r2": lambda p: serve_rules(
+                      grid, placement=PlacementPlan.for_index(
+                          p, 2, replicas=2))}
+        t0 = time.perf_counter()
+        n_equal = n_served = 0
+        for name, p in legs.items():
+            for route, n_first in (("e2e", p.n_docs), ("two-stage", 64)):
+                one = RetrievalServer(p, k=10, n_first=n_first,
+                                      backend="fused").query_batch(q_emb)
+                for mname, rules in meshes.items():
+                    srv = RetrievalServer(p, k=10, n_first=n_first,
+                                          backend="fused")
+                    with axis_rules(rules(p)):
+                        got = counted(lambda: srv.query_batch(q_emb))
+                    same = bitwise(got, one) and got.coverage == 1.0
+                    n_served += 1
+                    n_equal += same
+                    expect(same, f"[grid] {name} {route} on {mname} differs "
+                           f"from one device")
+                    if mname == "grid r2":
+                        hold_to_reference(f"[grid] {name} {route} {mname}",
+                                          p, q_emb, n_first, *got)
+        log(f"[grid] serving: {n_equal}/{n_served} top-10s (3 packs x e2e, "
+            f"two-stage x host x4, grid r1, grid r2) bit-equal to the "
+            f"single-device fused serve in {time.perf_counter() - t0:.2f} s")
+
+        # b. sharded pruning over data = 4
+        data = {"__mesh__": make_host_mesh(devs)}
+        d_emb = res.d_emb.float()
+        t0 = time.perf_counter()
+        with axis_rules(data):
+            keep4, _, _ = counted(lambda: pruning_pipeline.prune_corpus(
+                d_emb, res.d_mask, res.samples, 0.5))
+        torch.cuda.synchronize()
+        prune4_s = time.perf_counter() - t0
+        same = torch.equal(keep4, res.keep)
+        expect(same, "[grid] data=4 shortlist_topk keep masks differ from "
+               "one device")
+        fd, fm = d_emb[:FUSED_DOCS], res.d_mask[:FUSED_DOCS]
+        one_f = pruning_pipeline.prune_corpus(fd, fm, res.samples, 0.5,
+                                              backend="fused")
+        with axis_rules(data):
+            four_f = counted(lambda: pruning_pipeline.prune_corpus(
+                fd, fm, res.samples, 0.5, backend="fused"))
+        same_f = all(torch.equal(a, b) for a, b in zip(four_f, one_f))
+        expect(same_f, "[grid] data=4 fused prune differs from one device")
+        log(f"[grid] pruning over data=4: {N_DOCS} docs on shortlist_topk "
+            f"(B2) in {prune4_s:.2f} s, keep masks equal to one device: "
+            f"{same}; {FUSED_DOCS} docs on fused (B1): keep, ranks, errs "
+            f"equal: {same_f}")
+        del keep4, one_f, four_f
+
+        # c. faults on the grid (bf16 pack, e2e)
+        p = res.packed
+        one = RetrievalServer(p, k=10, n_first=p.n_docs,
+                              backend="fused").query_batch(q_emb)
+        plc1 = PlacementPlan.for_index(p, 2)
+        plc2 = PlacementPlan.for_index(p, 2, replicas=2)
+
+        def faulted(plc, fault, **kw):
+            mon = health.FleetMonitor(2, retries=0, max_strikes=1,
+                                      backoff_base=0.001, **kw)
+            srv = RetrievalServer(p, k=10, n_first=p.n_docs,
+                                  backend="fused", monitor=mon,
+                                  faults=health.FaultPlan([fault]))
+            with axis_rules(serve_rules(grid, placement=plc)):
+                t = time.perf_counter()
+                out = counted(lambda: srv.query_batch(q_emb))
+            return out, time.perf_counter() - t, mon
+
+        r, kill_s, mon = faulted(plc2, health.kill_group(1))
+        expect(r.coverage == 1.0 and bitwise(r, one)
+               and mon.demoted == frozenset({1}),
+               "[grid] replicas 2: kill_group(1) did not fail over bit for "
+               "bit")
+        log(f"[grid] replicas 2, kill_group(1): coverage {r.coverage}, "
+            f"bit-equal {bitwise(r, one)}, failover serve {kill_s:.4f} s")
+        r, _, _ = faulted(plc1, health.kill_group(1))
+        surviving = tuple(b for b in range(len(p.buckets))
+                          if plc1.group_of(b) != 1)
+        sub = _bucket_view(p, surviving)
+        want = (topk_search(sub, q_emb, k=10, backend="fused")
+                if sub is not None else None)
+        want = ((np.zeros((N_QUERIES, 0), np.int32),) * 2 if want is None
+                else tuple(t.cpu().numpy() for t in want))
+        expect(r.coverage < 1.0 and bitwise(r, want),
+               "[grid] replicas 1: the degraded answer is not the "
+               "restricted oracle's")
+        log(f"[grid] replicas 1, kill_group(1): coverage {r.coverage:.4f} "
+            f"(buckets {list(surviving)} of {len(p.buckets)} left), equal "
+            f"to the restricted oracle: {bitwise(r, want)}")
+        mon = health.FleetMonitor(2, retries=0, max_strikes=1,
+                                  backoff_base=0.001)
+        srv = RetrievalServer(p, k=10, n_first=p.n_docs, backend="fused",
+                              monitor=mon, on_group_loss="rebalance",
+                              faults=health.FaultPlan(
+                                  [health.kill_group(1)]))
+        with axis_rules(serve_rules(grid, placement=plc1)):
+            t = time.perf_counter()
+            r = counted(lambda: srv.query_batch(q_emb))
+            reb_s = time.perf_counter() - t
+        expect(r.coverage == 1.0 and bitwise(r, one),
+               "[grid] rebalance did not restore the full answer")
+        log(f"[grid] replicas 1, rebalance after kill_group(1): coverage "
+            f"{r.coverage}, bit-equal {bitwise(r, one)}, serve with the "
+            f"re-placement {reb_s:.4f} s")
+        r, delay_s, mon = faulted(plc2, health.delay_group(1, 0.5),
+                                  exchange_timeout=0.05)
+        expect(r.coverage == 1.0 and bitwise(r, one)
+               and mon.demoted == frozenset({1}),
+               "[grid] delay_group past the deadline did not fail over")
+        log(f"[grid] replicas 2, delay_group(1, 0.5 s) past a 0.05 s "
+            f"deadline: coverage {r.coverage}, bit-equal {bitwise(r, one)}, "
+            f"failover serve {delay_s:.4f} s")
+        del srv, sub
+
+        # d. scale: 262,144 random unit docs at the colbert width
+        n_big, m, dim = 262144, 180, 128
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        kept = torch.randint(60, 121, (n_big,), device="cuda", generator=gen)
+        buckets = []
+        for b in pruning_pipeline.bucket_plan(kept.cpu().numpy(), m):
+            idx = torch.as_tensor(b.indices, device="cuda")
+            embs = torch.empty((len(idx), b.width, dim), dtype=torch.bfloat16,
+                               device="cuda")
+            masks = (torch.arange(b.width, device="cuda")[None]
+                     < kept[idx][:, None])
+            for a in range(0, len(idx), 16384):
+                x = torch.randn((min(16384, len(idx) - a), b.width, dim),
+                                device="cuda", generator=gen)
+                x = x / x.norm(dim=-1, keepdim=True)
+                embs[a:a + 16384] = torch.where(
+                    masks[a:a + 16384, :, None], x, 0.0).bfloat16()
+            buckets.append(PackedBucket(cap=b.width,
+                                        doc_ids=idx.to(torch.int32),
+                                        masks=masks, embs=embs))
+        big = PackedIndex(n_docs=n_big, m=m, dim=dim,
+                          tokens_total=int(kept.sum()), compression="none",
+                          buckets=buckets)
+        qb = torch.randn((N_QUERIES, 32, dim), device="cuda", generator=gen)
+        qb = qb / qb.norm(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        st = big.storage()
+        log(f"[grid] scale: {n_big} docs x {m} slots, {st['tokens_kept']} "
+            f"tokens kept (60-120 a doc), buckets "
+            f"{[(b.cap, b.n_docs) for b in big.buckets]}, "
+            f"{st['bytes_stored']} bytes stored (bf16), built in "
+            f"{time.perf_counter() - t0:.2f} s")
+        del kept
+        single = RetrievalServer(big, k=10, n_first=n_big, backend="fused")
+        gsrv = RetrievalServer(big, k=10, n_first=n_big, backend="fused")
+        big_rules = serve_rules(grid, placement=PlacementPlan.for_index(big,
+                                                                        2))
+        reps = 5
+        timings = {}
+        for name in ("one device", "grid 2x2", "grid 2x2 again",
+                     "one device again"):
+            grid_leg = name.startswith("grid")
+            srv = gsrv if grid_leg else single
+            with axis_rules(big_rules if grid_leg else {}):
+                warm = srv.query_batch(qb)      # places the shards
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                outs = counted(lambda: [srv.query_batch(qb)
+                                        for _ in range(reps)])
+                dt = (time.perf_counter() - t) / reps
+                peak = torch.cuda.max_memory_allocated() - base
+            timings[name] = (dt, peak, warm, outs)
+            log(f"[grid] scale {name}: {dt * 1e3:.3f} ms per {N_QUERIES}-"
+                f"query batch ({N_QUERIES / dt:.1f} queries/s) over {reps} "
+                f"batches; peak memory above the resident "
+                f"{peak} bytes ({smi})")
+        ref_out = timings["one device"][2]
+        scale_equal = all(bitwise(o, ref_out)
+                          for v in timings.values() for o in [v[2], *v[3]])
+        expect(scale_equal, "[grid] scale: the grid's top-10 differs from "
+               "one device's")
+        bound_b = N_QUERIES * n_big * 4
+        for name in ("grid 2x2", "grid 2x2 again"):
+            expect(timings[name][1] < bound_b,
+                   f"[grid] scale {name}: peak {timings[name][1]} bytes "
+                   f">= one (n_q, n_docs) fp32 matrix ({bound_b})")
+        log(f"[grid] scale: every top-10 bit-equal to one device's: "
+            f"{scale_equal}; grid peak {timings['grid 2x2'][1]} and "
+            f"{timings['grid 2x2 again'][1]} bytes against the "
+            f"{bound_b}-byte (n_q, n_docs) fp32 matrix")
+        del single, gsrv, big, buckets, timings, ref_out, warm, outs, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # e. more than one card: every kernel on cuda:1 against cuda:0
+        if n_cards >= 2:
+            g = torch.Generator().manual_seed(0)
+            s_ = torch.randn(256, 128, generator=g)
+            t_ = torch.randn(4, 64, 128, generator=g)
+            a_ = torch.rand(4, 64, generator=g) > 0.2
+            q_ = torch.randn(8, 32, 128, generator=g)
+            d_ = torch.randn(16, 64, 128, generator=g)
+            dm_ = torch.rand(16, 64, generator=g) > 0.2
+            c_ = torch.randn(8, 12, 64, 128, generator=g)
+            cm_ = torch.rand(8, 12, 64, generator=g) > 0.2
+            codes = torch.randint(0, 8, (16, 64), generator=g).to(torch.int8)
+            resq = torch.randint(0, 256, (16, 64, 64), generator=g).to(
+                torch.uint8)
+            scale = torch.rand(16, 64, 1, generator=g)
+            cb = torch.randn(8, 128, generator=g)
+            att = torch.randn(2, 4, 128, 64, generator=g).bfloat16()
+            table = torch.randn(100, 64, generator=g)
+            ids = torch.randint(0, 100, (32, 4), generator=g,
+                                dtype=torch.int32)
+            ops = {
+                "maxsim_top2": lambda x: maxsim_top2_op(*x(s_, t_, a_)),
+                "maxsim_topk": lambda x: maxsim_topk_op(*x(s_, t_, a_), k=8),
+                "colbert_maxsim_multi": lambda x:
+                    cm_ops.colbert_maxsim_multi_op(*x(q_, d_, dm_)),
+                "colbert_maxsim_multi_bf16": lambda x:
+                    cm_ops.colbert_maxsim_multi_op(*x(q_, d_.bfloat16(),
+                                                      dm_)),
+                "colbert_maxsim_rerank": lambda x:
+                    cm_ops.colbert_maxsim_rerank_op(*x(q_, c_, cm_)),
+                "colbert_maxsim_rerank_bf16": lambda x:
+                    cm_ops.colbert_maxsim_rerank_op(*x(q_, c_.bfloat16(),
+                                                       cm_)),
+                "colbert_maxsim_residual_multi": lambda x:
+                    cm_ops.colbert_maxsim_residual_multi_op(
+                        *x(q_, codes, resq, scale, cb, dm_), bits=4),
+                "colbert_maxsim_residual_rerank": lambda x:
+                    cm_ops.colbert_maxsim_residual_rerank_op(
+                        *x(q_, codes[:12][None].expand(8, -1, -1)
+                           .contiguous(), resq[:12][None].expand(
+                               8, -1, -1, -1).contiguous(),
+                           scale[:12][None].expand(8, -1, -1, -1)
+                           .contiguous(), cb[None],
+                           torch.zeros(8, 12, dtype=torch.int32), cm_),
+                        bits=4),
+                "flash_attention": lambda x: fa_ops.flash_attention_op(
+                    *x(att, att, att), causal=True),
+                "embedding_bag": lambda x: embedding_bag_op(*x(table, ids)),
+            }
+            torch.cuda.set_device(0)
+            agree = {}
+            for name, op in ops.items():
+                outs = []
+                for dev in ("cuda:0", "cuda:1"):
+                    o = op(lambda *ts: [u.to(dev) for u in ts])
+                    o = o if isinstance(o, tuple) else (o,)
+                    expect(all(x.device == torch.device(dev) for x in o),
+                           f"[grid] {name} output off {dev}")
+                    outs.append([x.cpu() for x in o])
+                agree[name] = all(torch.equal(a, b)
+                                  for a, b in zip(*outs))
+            expect(all(agree.values()), f"[grid] cuda:1 launches differ "
+                   f"from cuda:0: {agree}")
+            log(f"[grid] cuda:1 launched from a thread on cuda:0, equal to "
+                f"cuda:0 bit for bit: {json.dumps(agree)}")
+        else:
+            log(f"[grid] one card: the mesh repeats cuda:0; the cross-card "
+                f"launch check needs two")
+        for n in set(counts) | set(ms):
+            grid_counts[n] = {"launches": counts.get(n, 0),
+                              "path_ms": ms.get(n, 0.0)}
+        log(f"[grid] kernel rows over the phase: {json.dumps(grid_counts)}; "
+            f"the phase took {time.perf_counter() - phase_t:.2f} s ({smi})")
+
     def cli_phase():
         """Phase 6b, ``[cli]``: ``python -m repro_torch.launch.serve`` (and
         ``launch.train``) as child processes on the card at the smoke
@@ -1093,8 +1450,16 @@ def main() -> int:
                 "FileNotFoundError", str(empty)])],
             "lm": [(serve_cmd + ["--arch", "minitron-4b", "--tokens", "8"],
                     True, ["[serve] decoded 8 tokens x 2 seqs"])],
-            "grid": [(serve_cmd + ["--mesh", "grid", "--kill-group", "0"],
-                      False, ["NotImplementedError", "§ A item 7"])],
+            "grid": [(serve_cmd + ["--mesh", "grid", "--kill-group", "0",
+                                   "--n-first", "0"], True,
+                      ["grid serving mesh", "injected loss of host group 0",
+                       "[serve] top-10 sha1: "]
+                      if torch.cuda.device_count() >= 4 else
+                      ["serving unsharded", "--kill-group needs an active "
+                       "--mesh grid; ignored", "[serve] top-10 sha1: "])],
+            "host": [(serve_cmd + ["--mesh", "host", "--n-first", "0"], True,
+                      ["[serve] sharded serving mesh", "[serve] top-10 sha1: "
+                       ])],
         }
         runs = {}
 
@@ -1349,6 +1714,7 @@ def main() -> int:
 
         persist_phase(res, pruned, packs, zero_counts, read_counts)
         loop_phase(res, packs, zero_counts, read_counts)
+        grid_phase(res, packs, zero_counts, read_counts)
 
         # 5. kernels against their plain versions, on the paths' tensors
         samples, d_mask = res.samples, res.d_mask
@@ -1458,12 +1824,11 @@ def main() -> int:
                 planes = torch.empty((3, n * m_, 128), dtype=torch.bfloat16,
                                      device="cuda")
                 flg = torch.empty((n,), dtype=torch.int32, device="cuda")
-                lib = build.library("colbert_maxsim")
-                split_ms = cuda_ms(lambda: build.check(
-                    "colbert_maxsim", lib.colbert_maxsim_split_planes(
-                        embs.data_ptr(), n * m_, dim, G * m_,
-                        planes.data_ptr(), flg.data_ptr(),
-                        build.stream_ptr(embs))))
+                split_ms = cuda_ms(lambda: build.launch(
+                    "colbert_maxsim", "colbert_maxsim_split_planes",
+                    embs.device, embs.data_ptr(), n * m_, dim, G * m_,
+                    planes.data_ptr(), flg.data_ptr(),
+                    build.stream_ptr(embs)))
                 del planes, flg
                 wide = pb.embs.float()
                 wide_ms = cuda_ms(lambda: cm_ops.colbert_maxsim_multi_op(
@@ -2629,6 +2994,8 @@ def main() -> int:
         r_["mutation"] = mutation_counts.get(
             r_["name"], {"launches": 0, "path_ms": 0.0})
         r_["loop"] = loop_counts.get(r_["name"],
+                                     {"launches": 0, "path_ms": 0.0})
+        r_["grid"] = grid_counts.get(r_["name"],
                                      {"launches": 0, "path_ms": 0.0})
     log(json.dumps({"kernels": rows}))
     if failures:

@@ -11,6 +11,8 @@ ranks and orders equal the unbucketed ``pruning_order_batch``'s; errors
 agree to fp32 rounding (the Eq. 8 one-hot product's summation order
 depends on the bucket width).
 Buckets are enqueued back to back; nothing syncs the host between them.
+Under a mesh with a ``data`` axis (``sharded=``), each bucket's docs
+split over its devices (:func:`_bucket_order_sharded`).
 :func:`pool_tokens` (near-duplicate token pooling after pruning) runs on
 the host in numpy, as in the reference.
 """
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.core import voronoi
 from repro_torch.core.backend import _pow2_at_least
+from repro_torch.sharding.specs import data_mesh_for
 
 __all__ = [
     "Bucket",
@@ -82,16 +85,38 @@ def _order_len(width: int, step_size: int) -> int:
     return -(-(width - 1) // step_size) * step_size
 
 
+def _bucket_order_sharded(e, k, samples, devices, **kw):
+    """One bucket's pruning orders over contiguous doc shards on
+    ``devices`` (the reference's ``shard_map`` over ``data``): every
+    shard runs the normal batch path on its slice on its device (all
+    launched before any result is read back), and the outputs return to
+    ``e``'s device.  Per-document pruning touches no other document, so
+    this equals the unsharded batch bit for bit."""
+    n_b = e.shape[0]
+    per = -(-n_b // len(devices))
+    outs = []
+    for a, dev in zip(range(0, n_b, per), devices):
+        outs.append(voronoi.pruning_order_batch(
+            e[a:a + per].to(dev), k[a:a + per].to(dev),
+            samples.to(dev), **kw))
+    return tuple(torch.cat([o[i].to(e.device) for o in outs])
+                 for i in range(3))
+
+
 def pruning_order_bucketed(d_embs, d_masks, samples, *, step_size: int = 1,
                            fast: bool = False, bf16_scores: bool = False,
                            shortlist: bool = False,
                            backend: str | None = None,
                            granularity: int | str = "pow2",
-                           min_width: int = 8):
+                           min_width: int = 8,
+                           sharded: bool | None = None):
     """Length-bucketed equivalent of ``voronoi.pruning_order_batch``
     (the same backend knobs): the same (ranks, errs, orders), with
     bucket-local "never removed" sentinels (rank == width) translated to
-    the corpus-global ``m``."""
+    the corpus-global ``m``.  ``sharded`` splits each bucket's docs over
+    the ``data`` axis of the active rules' mesh
+    (``sharding.data_mesh_for``'s policy: ``None`` where one is active,
+    ``True`` requires one); the result is the same bit for bit."""
     n_docs, m = d_masks.shape
     dev = d_embs.device
     ranks = torch.full((n_docs, m), m, dtype=torch.int32, device=dev)
@@ -100,16 +125,21 @@ def pruning_order_bucketed(d_embs, d_masks, samples, *, step_size: int = 1,
                         dtype=torch.int32, device=dev)
     if n_docs == 0:
         return ranks, errs, orders
+    mesh = data_mesh_for(sharded, who="pruning_order_bucketed")
     plan = bucket_plan(effective_lengths(d_masks), m,
                        granularity=granularity, min_width=min_width)
+    kw = dict(step_size=step_size, fast=fast, bf16_scores=bf16_scores,
+              shortlist=shortlist, backend=backend)
     for bucket in plan:
         w = bucket.width
         idx = torch.as_tensor(bucket.indices, device=dev)
         e = d_embs[idx, :w].contiguous()
         k = d_masks[idx, :w].contiguous()
-        r, er, o = voronoi.pruning_order_batch(
-            e, k, samples, step_size=step_size, fast=fast,
-            bf16_scores=bf16_scores, shortlist=shortlist, backend=backend)
+        if mesh is not None:
+            r, er, o = _bucket_order_sharded(
+                e, k, samples, mesh.devices_along(("data",)), **kw)
+        else:
+            r, er, o = voronoi.pruning_order_batch(e, k, samples, **kw)
         ranks[idx, :w] = torch.where(r >= w, m, r).to(torch.int32)
         errs[idx, :w] = er
         orders[idx, :o.shape[1]] = o
@@ -155,12 +185,18 @@ def pool_tokens(d_embs, keep, threshold: float):
 
 
 def prune_corpus(d_embs, d_masks, samples, keep_fraction: float, *,
-                 backend: str | None = None, step_size: int = 1, granularity: int | str = "pow2",
-                 min_width: int = 8):
+                 backend: str | None = None, step_size: int = 1,
+                 granularity: int | str = "pow2", min_width: int = 8,
+                 sharded: bool | None = None):
     """Corpus-level pruning end to end: bucketed per-doc orders merged
     into global keep masks (§4.2) under a corpus-wide token budget.
-    Returns (keep_masks (n_docs, m), ranks, errs)."""
+    Returns (keep_masks (n_docs, m), ranks, errs).  ``sharded``
+    distributes both halves over the ``data`` mesh axis with one policy
+    (see :func:`pruning_order_bucketed`); the result is the same bit for
+    bit."""
     ranks, errs, _ = pruning_order_bucketed(
-        d_embs, d_masks, samples, backend=backend, step_size=step_size, granularity=granularity, min_width=min_width)
-    keep = voronoi.global_keep_masks(ranks, errs, d_masks, keep_fraction)
+        d_embs, d_masks, samples, backend=backend, step_size=step_size,
+        granularity=granularity, min_width=min_width, sharded=sharded)
+    keep = voronoi.global_keep_masks(ranks, errs, d_masks, keep_fraction,
+                                     sharded=sharded)
     return keep, ranks, errs

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import backend as backend_lib
@@ -37,6 +38,7 @@ from repro_torch.kernels.maxsim_top2.ops import (maxsim_top2_op,
                                                  maxsim_top2_update_op)
 from repro_torch.kernels.maxsim_topk.ops import maxsim_topk_op
 from repro_torch.kernels.maxsim_topk.ref import topk_lowest_index
+from repro_torch.sharding.specs import data_mesh_for
 
 __all__ = [
     "CellState",
@@ -66,21 +68,31 @@ class CellState(NamedTuple):
     si: torch.Tensor       # index of the second-best token
 
 
-# Elements of the transient (docs, N, m) one-hot per accumulation chunk.
+# Elements of the transient (docs, N, m) one-hot per accumulation chunk,
+# and the most docs a chunk takes.
 _ONEHOT_BUDGET = 1 << 28
+_CELL_DOCS = 64
 
 
 def _cell_sums(gap, bi, m: int):
     """sum_n gap[b, n] * [bi[b, n] == t] -> (B, m), as a one-hot batched
-    product in doc chunks (deterministic; see module docstring)."""
+    product (deterministic; see module docstring) in chunks of a fixed
+    number of docs that depends on (N, m) only, the last chunk
+    zero-padded: a batched product's blocking depends on its batch
+    count (on the card and on the CPU), so a doc's sums are the same
+    bits whichever docs share its bucket or its data shard."""
     B, n = gap.shape
     tok = torch.arange(m, device=gap.device, dtype=bi.dtype)
-    step = max(1, _ONEHOT_BUDGET // max(n * m, 1))
+    step = max(1, min(_CELL_DOCS, _ONEHOT_BUDGET // max(n * m, 1)))
+    pad = (-B) % step
+    if pad:
+        gap = torch.cat([gap, gap.new_zeros((pad, n))])
+        bi = torch.cat([bi, bi.new_zeros((pad, n))])
     out = []
-    for c in range(0, B, step):
+    for c in range(0, B + pad, step):
         onehot = (bi[c:c + step, :, None] == tok).to(gap.dtype)
         out.append(torch.bmm(gap[c:c + step, None, :], onehot)[:, 0])
-    return torch.cat(out) if out else gap.new_zeros((0, m))
+    return torch.cat(out)[:B] if out else gap.new_zeros((0, m))
 
 
 def token_errors(state, alive, n_samples: int):
@@ -445,20 +457,89 @@ def _monotone_merge_errs(ranks, errs, d_masks):
     return torch.where(d_masks & finite, mono, torch.inf)
 
 
-def global_keep_masks(ranks, errs, d_masks, keep_fraction: float):
+def _prune_budget(n_total: int, keep_fraction: float) -> int:
+    """Tokens to prune: ``n_total - ceil(keep_fraction * n_total)``, the
+    product and ceil in fp32 as the reference computes them."""
+    n_keep = int(np.ceil(np.float32(keep_fraction) * np.float32(n_total)))
+    return max(n_total - n_keep, 0)
+
+
+_F32_INF_BITS = 0x7F800000   # +inf: the top of the nonnegative bit order
+
+
+def _order_keys(mono):
+    """int64 keys that order as the fp32 merge keys do: a nonnegative
+    float's IEEE bits (-0.0 taken as +0.0, +inf on top), a negative
+    float below every nonnegative one in its own order."""
+    b = torch.where(mono == 0, 0.0, mono).view(torch.int32).long()
+    return torch.where(b < 0, -(b & 0x7FFFFFFF) - 1, b)
+
+
+def _global_keep_masks_sharded(ranks, errs, d_masks, keep_fraction, *,
+                               devices):
+    """§4.2 over contiguous doc shards on ``devices`` (the reference's
+    ``shard_map`` merge): each shard monotonizes its docs' keys on its
+    device; the budget cut is the n_prune-th smallest key, found by a
+    bitwise binary search over the keys' integer order, each step one
+    count a shard summed over shards (the reference's scalar psum);
+    ties at the threshold prune in global flat order, each shard taking
+    its first ``clip(r - ties before it, 0, its ties)``.  Equal to
+    :func:`global_keep_masks`' flat sort bit for bit."""
+    n_docs = ranks.shape[0]
+    per = -(-n_docs // len(devices))
+    bounds = [(a, min(a + per, n_docs)) for a in range(0, n_docs, per)]
+    keys, masks = [], []
+    for (a, b), dev in zip(bounds, devices):
+        dm = d_masks[a:b].to(dev)
+        mono = _monotone_merge_errs(ranks[a:b].to(dev), errs[a:b].to(dev),
+                                    dm)
+        keys.append(_order_keys(mono.float()).reshape(-1))
+        masks.append(dm)
+
+    def total(counts):          # launched on every device, then summed
+        return sum(int(c) for c in counts)
+
+    n_prune = _prune_budget(total(m.sum() for m in masks), keep_fraction)
+    lo, hi = -2 ** 31, _F32_INF_BITS
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if total([(k <= mid).sum() for k in keys]) >= n_prune:
+            hi = mid
+        else:
+            lo = mid + 1
+    r = n_prune - total([(k < lo).sum() for k in keys])  # ties to prune
+    eq = [k == lo for k in keys]
+    ties = [int(e.sum()) for e in eq]
+    out, before = [], 0
+    for k, e, dm, n_eq in zip(keys, eq, masks, ties):
+        take = min(max(r - before, 0), n_eq)
+        before += n_eq
+        pruned = (k < lo) | (e & (torch.cumsum(e, 0) <= take))
+        out.append((dm & ~pruned.reshape(dm.shape)).to(d_masks.device))
+    return torch.cat(out)
+
+
+def global_keep_masks(ranks, errs, d_masks, keep_fraction: float, *,
+                      sharded: bool | None = None):
     """Corpus-level pruning (§4.2 "Global Pruning"): the corpus's
     cheapest removals, by monotone merge key, are applied until the
     token budget ``ceil(keep_fraction * n_total)`` is met; equal keys
     prune in flat (doc, token) order, as the reference's stable argsort
-    does.  Every document keeps >= 1 token.  (n_docs, m) -> keep masks."""
+    does.  Every document keeps >= 1 token.  (n_docs, m) -> keep masks.
+
+    ``sharded`` selects the distributed merge over the ``data`` axis of
+    the active rules' mesh (:func:`_global_keep_masks_sharded`; the
+    policy of ``sharding.data_mesh_for``): ``None`` shards where such a
+    mesh is active, ``True`` requires one; the masks are equal bit for
+    bit either way."""
+    mesh = data_mesh_for(sharded, who="global_keep_masks")
+    if mesh is not None:
+        return _global_keep_masks_sharded(
+            ranks, errs, d_masks, keep_fraction,
+            devices=mesh.devices_along(("data",)))
     n_docs, m = ranks.shape
     mono = _monotone_merge_errs(ranks, errs, d_masks)
-    n_total = d_masks.sum().to(torch.int32)
-    # ceil in fp32, as the reference computes keep_fraction * n_total
-    n_keep = torch.ceil(torch.tensor(keep_fraction, dtype=torch.float32,
-                                     device=ranks.device)
-                        * n_total.to(torch.float32)).to(torch.int32)
-    n_prune = int((n_total - n_keep).clamp_min(0))
+    n_prune = _prune_budget(int(d_masks.sum()), keep_fraction)
     flat = mono.reshape(-1)
     order = torch.sort(flat, stable=True).indices
     pruned = torch.zeros_like(flat, dtype=torch.bool)

@@ -15,8 +15,10 @@ encodes TMA tensor maps with ``cuTensorMapEncodeTiled``, a driver-API
 call.  A source is stale when it or any shared header (``*.cuh``) is
 newer than its library.
 
-Every C entry returns ``cudaGetLastError()`` after its launch;
-:func:`check` raises on a non-zero code.
+Every C entry launches on the calling thread's current device and
+returns ``cudaGetLastError()`` after its launch; the wrappers call it
+through :func:`launch`, which makes the tensors' card current around
+the call, and :func:`check` raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -202,6 +204,18 @@ def check(name: str, err: int) -> None:
     if err:
         msg = getattr(library(name), f"{name}_error_string")(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+def launch(name: str, entry: str, device, *args) -> None:
+    """Call C entry ``entry`` of ``name``'s library with ``args`` (the
+    last one ``stream_ptr`` of a tensor on ``device``) with ``device``
+    current: the launch, its ``cudaFuncSetAttribute`` and the entry's
+    ``sm_count()`` all act on the current device, which must be the
+    tensors' card.  Raises on a reported CUDA error."""
+    lib = library(name)
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args)
+    check(name, err)
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -81,12 +81,11 @@ def _launch(entry, q_embs, d_embs, d_masks, q_masks, n_docs):
         if d_embs.data_ptr() % 16:
             raise ValueError("d_subs must be 16-byte aligned")
     out = torch.empty((n_q, n_docs), dtype=torch.float32, device=dev)
-    lib = build.library("colbert_maxsim")
-    build.check("colbert_maxsim", getattr(lib, entry)(
-        q_embs.data_ptr(), q_masks.data_ptr(), d_embs.data_ptr(),
-        d_masks.data_ptr(), n_q, l, n_docs, m, dim, int(bf16),
-        *[None if s is None else s.data_ptr() for s in scratch],
-        out.data_ptr(), build.stream_ptr(q_embs)))
+    build.launch(
+        "colbert_maxsim", entry, dev, q_embs.data_ptr(), q_masks.data_ptr(),
+        d_embs.data_ptr(), d_masks.data_ptr(), n_q, l, n_docs, m, dim,
+        int(bf16), *[None if s is None else s.data_ptr() for s in scratch],
+        out.data_ptr(), build.stream_ptr(q_embs))
     return out
 
 
@@ -199,12 +198,11 @@ def _residual_launch(entry, q_embs, q_masks, codes, resq, rscale, tables,
                          "the codebook to 16 bytes")
     scratch = _query_planes(q_embs, group)
     out = torch.empty((n_q, n_docs), dtype=torch.float32, device=dev)
-    lib = build.library("colbert_maxsim")
-    build.check("colbert_maxsim", getattr(lib, entry)(
-        q_embs.data_ptr(), q_masks.data_ptr(), *args, d_masks.data_ptr(),
-        n_q, l, n_docs, m, dim, tables.shape[-2], bits,
-        *[t.data_ptr() for t in scratch], out.data_ptr(),
-        build.stream_ptr(q_embs)))
+    build.launch(
+        "colbert_maxsim", entry, dev, q_embs.data_ptr(), q_masks.data_ptr(),
+        *args, d_masks.data_ptr(), n_q, l, n_docs, m, dim, tables.shape[-2],
+        bits, *[t.data_ptr() for t in scratch], out.data_ptr(),
+        build.stream_ptr(q_embs))
     return out
 
 

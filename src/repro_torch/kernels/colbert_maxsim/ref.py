@@ -8,10 +8,15 @@ version).
 The query-batch versions take one product a query, as the kernels do
 (each query's scores read only its own row), so a query's scores are
 the same bits alone or among any batchmates — the serving loop's
-contract.  A batched product is not: its blocking depends on the batch,
-and on the CPU (MKL) a query's token scores inside a batch can differ in
-the last bit from the same query alone (``tests/test_torch_serve_loop.py``
-holds the loop's answers to the query served alone).
+contract.  Each query's product is batched over the docs, so a doc's
+(l, m) token scores are a product of their own, the same bits whichever
+docs share the call — the sharded serving contract (a doc's score does
+not depend on its shard or slab).  Products over a whole query batch or
+over all docs at once are neither: their blocking depends on the batch,
+and on the CPU (MKL) a score can differ in the last bit
+(``tests/test_torch_serve_loop.py`` holds the loop's answers to the query
+served alone, ``tests/test_torch_sharded_serving.py`` sharded answers to
+the single-device one).
 """
 
 from __future__ import annotations
@@ -35,8 +40,14 @@ def _reduce(s, d_masks, q_masks):
 def colbert_maxsim_ref(q_emb, d_embs, d_masks, q_mask=None):
     """q_emb (l, dim); d_embs (n_docs, m, dim); d_masks (n_docs, m) ->
     (n_docs,) ColBERT scores (Eq. 1)."""
-    s = torch.einsum("ld,nmd->nlm", q_emb.float(), d_embs.float())
+    s = _doc_batched(q_emb.float(), d_embs.float())
     return _reduce(s, d_masks, None if q_mask is None else q_mask[None, :])
+
+
+def _doc_batched(q, d):
+    """(n_docs, l, m) token scores of one query q (l, dim) against d
+    (n_docs, m, dim): one product a doc (module docstring)."""
+    return torch.matmul(q[None], d.transpose(1, 2))
 
 
 def _per_query(q_embs, d_blocks):
@@ -45,7 +56,7 @@ def _per_query(q_embs, d_blocks):
     q_embs = q_embs.float()
     if not q_embs.shape[0]:
         return torch.einsum("qld,qnmd->qnlm", q_embs, d_blocks.float())
-    return torch.stack([torch.einsum("ld,nmd->nlm", q, d.float())
+    return torch.stack([_doc_batched(q, d.float())
                         for q, d in zip(q_embs, d_blocks)])
 
 

@@ -34,14 +34,7 @@ def _check(table, ids, mode):
         raise ValueError(f"ids have dtype {ids.dtype}, expected int32")
 
 
-def embedding_bag_op(table, ids, *, mode: str = "sum"):
-    """table: (V, D) fp32; ids: (n_bags, nnz) int32 -> (n_bags, D) f32."""
-    _check(table, ids, mode)
-    if table.device.type == "cpu":
-        return embedding_bag_ref(table, ids, mode)
-    if table.device.type != "cuda":
-        raise ValueError(f"embedding_bag runs on cpu or cuda, not "
-                         f"{table.device}")
+def _launch(table, ids, mode):
     V, D = table.shape
     n_bags, nnz = ids.shape
     build.require(table, "table", torch.float32, (V, D), table.device)
@@ -52,12 +45,23 @@ def embedding_bag_op(table, ids, *, mode: str = "sum"):
     out = torch.empty((n_bags, D), dtype=torch.float32, device=table.device)
     if out.numel() == 0:
         return out                               # nothing to launch
-    lib = build.library("embedding_bag")
-    build.check("embedding_bag", lib.embedding_bag_launch(
+    build.launch(
+        "embedding_bag", "embedding_bag_launch", table.device,
         table.data_ptr(), ids.data_ptr(), V, D, n_bags, nnz,
-        int(mode == "mean"), out.data_ptr(), build.stream_ptr(table)))
+        int(mode == "mean"), out.data_ptr(), build.stream_ptr(table))
     embedding_bag_op.launches += 1
     return out
+
+
+def embedding_bag_op(table, ids, *, mode: str = "sum"):
+    """table: (V, D) fp32; ids: (n_bags, nnz) int32 -> (n_bags, D) f32."""
+    _check(table, ids, mode)
+    if table.device.type == "cpu":
+        return embedding_bag_ref(table, ids, mode)
+    if table.device.type != "cuda":
+        raise ValueError(f"embedding_bag runs on cpu or cuda, not "
+                         f"{table.device}")
+    return _launch(table, ids, mode)
 
 
 embedding_bag_op.launches = 0

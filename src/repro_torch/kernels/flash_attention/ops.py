@@ -55,6 +55,28 @@ def _check(q, k, v, window):
     return H, KV, sq, sk, d
 
 
+def _launch(q, k, v, causal, window, H, KV, sq, sk, d):
+    if d % 8 or d > D_MAX:
+        raise ValueError(f"head dim {d}: the kernel takes multiples of 8 "
+                         f"up to {D_MAX}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"q has dtype {q.dtype}, expected one of "
+                         f"{list(DTYPES)}")
+    B = math.prod(q.shape[:-3])
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        build.require(t, name, q.dtype, t.shape, q.device)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    out = torch.empty_like(q)
+    build.launch(
+        "flash_attention", "flash_attention_launch", q.device, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV, sq, sk, d,
+        int(causal), window or 0, ctypes.c_float(1.0 / math.sqrt(d)),
+        DTYPES[q.dtype], build.stream_ptr(q))
+    flash_attention_op.launches += 1
+    return out
+
+
 def flash_attention_op(q, k, v, *, causal: bool = False,
                        window: int | None = None):
     """q: (..., H, Sq, d); k, v: (..., KV, Sk, d) -> (..., H, Sq, d) in
@@ -68,26 +90,7 @@ def flash_attention_op(q, k, v, *, causal: bool = False,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
-    if d % 8 or d > D_MAX:
-        raise ValueError(f"head dim {d}: the kernel takes multiples of 8 "
-                         f"up to {D_MAX}")
-    if q.dtype not in DTYPES:
-        raise ValueError(f"q has dtype {q.dtype}, expected one of "
-                         f"{list(DTYPES)}")
-    B = math.prod(q.shape[:-3])
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        build.require(t, name, q.dtype, t.shape, q.device)
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned")
-    out = torch.empty_like(q)
-    lib = build.library("flash_attention")
-    build.check("flash_attention", lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, KV,
-        sq, sk, d, int(causal), window or 0,
-        ctypes.c_float(1.0 / math.sqrt(d)), DTYPES[q.dtype],
-        build.stream_ptr(q)))
-    flash_attention_op.launches += 1
-    return out
+    return _launch(q, k, v, causal, window, H, KV, sq, sk, d)
 
 
 flash_attention_op.launches = 0

@@ -44,12 +44,12 @@ def _launch(samples, tokens, alive):
     t_planes = torch.empty((3, B * m, DIM_MAX), dtype=torch.bfloat16,
                            device=dev)
     t_flags = torch.empty((B,), dtype=torch.int32, device=dev)
-    lib = build.library("maxsim_top2")
-    build.check("maxsim_top2", lib.maxsim_top2_launch(
-        samples.data_ptr(), tokens.data_ptr(), alive.data_ptr(), B, N, m,
-        dim, s_planes.data_ptr(), s_flags.data_ptr(), t_planes.data_ptr(),
+    build.launch(
+        "maxsim_top2", "maxsim_top2_launch", dev, samples.data_ptr(),
+        tokens.data_ptr(), alive.data_ptr(), B, N, m, dim,
+        s_planes.data_ptr(), s_flags.data_ptr(), t_planes.data_ptr(),
         t_flags.data_ptr(), best.data_ptr(), second.data_ptr(),
-        bi.data_ptr(), si.data_ptr(), build.stream_ptr(tokens)))
+        bi.data_ptr(), si.data_ptr(), build.stream_ptr(tokens))
     maxsim_top2_op.launches += 1
     return best, second, bi, si
 

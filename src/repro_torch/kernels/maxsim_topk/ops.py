@@ -38,12 +38,12 @@ def _launch(samples, tokens, alive, k):
     t_planes = torch.empty((3, B * m, DIM_MAX), dtype=torch.bfloat16,
                            device=dev)
     t_flags = torch.empty((B,), dtype=torch.int32, device=dev)
-    lib = build.library("maxsim_topk")
-    build.check("maxsim_topk", lib.maxsim_topk_launch(
-        samples.data_ptr(), tokens.data_ptr(), alive.data_ptr(), B, N, m,
-        dim, k, s_planes.data_ptr(), s_flags.data_ptr(),
-        t_planes.data_ptr(), t_flags.data_ptr(), vals.data_ptr(),
-        idxs.data_ptr(), build.stream_ptr(tokens)))
+    build.launch(
+        "maxsim_topk", "maxsim_topk_launch", dev, samples.data_ptr(),
+        tokens.data_ptr(), alive.data_ptr(), B, N, m, dim, k,
+        s_planes.data_ptr(), s_flags.data_ptr(), t_planes.data_ptr(),
+        t_flags.data_ptr(), vals.data_ptr(), idxs.data_ptr(),
+        build.stream_ptr(tokens))
     maxsim_topk_op.launches += 1
     return vals, idxs
 

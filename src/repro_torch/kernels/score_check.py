@@ -225,14 +225,13 @@ def main() -> int:
         print(f"B3 colbert_maxsim_multi fp32 docs ({tag}): max abs err "
               f"{err:.3e}, sentinel rel err {rel:.1e}; "
               f"{_ms(lambda: cm.colbert_maxsim_multi_op(q, dd, M)):.3f} ms")
-    lib = build.library("colbert_maxsim")
     planes = torch.empty((3, n * mm, 128), dtype=torch.bfloat16,
                          device="cuda")
     flags = torch.empty((n,), dtype=torch.int32, device="cuda")
-    split_ms = _ms(lambda: build.check("colbert_maxsim",
-                                       lib.colbert_maxsim_split_planes(
+    split_ms = _ms(lambda: build.launch(
+        "colbert_maxsim", "colbert_maxsim_split_planes", D8.device,
         D8.data_ptr(), n * mm, 128, mm, planes.data_ptr(), flags.data_ptr(),
-        build.stream_ptr(D8))))
+        build.stream_ptr(D8)))
     print(f"B3 fp32 split pre-pass alone (three-term docs): {split_ms:.3f} "
           f"ms")
     del D8, planes, flags

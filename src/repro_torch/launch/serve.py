@@ -4,17 +4,17 @@
         [--device cpu] [--index-dir D [--upsert N] [--delete 1,2]
         [--compact] [--route bounded|nprobe]] [--ckpt-dir C]
         [--serve-loop [--flush-ms 2] [--max-batch 8]]
+        [--mesh host|grid [--hosts H] [--replicas R]
+         [--on-group-loss degrade|rebalance|fail] [--kill-group G]]
 
-Counterpart of ``repro.launch.serve`` on one device; its flags,
-defaults, choices and parse-time checks are the reference's, plus
-``--device`` (``cuda`` unless ``cpu`` is asked for; raises without a
-GPU).  ``--arch colbert`` runs :func:`serve_retrieval` at the smoke
-config, as the reference does; another ported LM arch decodes its smoke
-config through :func:`serve_lm`.  The grid legs (``--mesh host|grid``,
-``--hosts``, ``--replicas``, ``--kill-group``) validate as the
-reference's and then raise ``NotImplementedError`` (ROADMAP § A item 7).
+Counterpart of ``repro.launch.serve``; its flags, defaults, choices and
+parse-time checks are the reference's, plus ``--device`` (``cuda``
+unless ``cpu`` is asked for; raises without a GPU).  ``--arch colbert``
+runs :func:`serve_retrieval` at the smoke config, as the reference does;
+another ported LM arch decodes its smoke config through
+:func:`serve_lm`.
 
-:func:`serve_retrieval` on one device:
+:func:`serve_retrieval`:
 encode, prune, optionally pool near-duplicate tokens
 (``pool_threshold``), pack with ``compress`` (``"none"`` keeps the
 encoder's dtype, bf16 at the full config, as the reference stores it;
@@ -38,6 +38,19 @@ raises where there is none.  ``serve_loop`` ends the run with the
 concurrent micro-batched leg (``serve.loop.ServeLoop``): client threads
 stream single queries while one epoch swap lands mid-run, and every
 answer must equal the serial batch's bit for bit.
+
+Meshes (``mesh``, from ``launch.mesh.local_devices()``, every card of
+the host, as the reference's come from ``jax.devices()``): with more
+than one device both prune over a ``data`` mesh of them; ``"host"``
+serves every bucket sharded over all of them; ``"grid"`` serves the
+``hosts x candidates`` grid (``hosts`` groups, the largest power of two
+whose square fits by default) with buckets placed by a
+``PlacementPlan`` of ``replicas`` (the artifact's plan where
+``index_dir`` holds one), a ``FleetMonitor`` and the ``on_group_loss``
+policy; ``kill_group`` demotes that group before the query batch.  With
+fewer devices than two groups ``"grid"`` says so and serves unsharded,
+as the reference does; ``hosts`` that does not divide the device count
+raises.
 
 The dense LM serving path: :func:`serve_lm` decodes greedily through
 the KV cache (counterpart of the reference's ``serve_lm``) and
@@ -73,13 +86,15 @@ from repro_torch.data import synthetic
 from repro_torch.models import convert, recsys
 from repro_torch.models import transformer as tfm
 from repro_torch.models.colbert import ColBERTConfig, init_params
-from repro_torch.serve import index_io
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.serve import health, index_io
 from repro_torch.serve import mutation as mutation_lib
 from repro_torch.serve.index import COMPRESSIONS, PackedIndex
 from repro_torch.serve.loop import ServeLoop
 from repro_torch.serve.retrieval import (RetrievalServer, TokenIndex,
                                          topk_search)
 from repro_torch.serve.routing import RoutingIndex
+from repro_torch.sharding import PlacementPlan, axis_rules, serve_rules
 from repro_torch.train import checkpoint, train_step
 
 ENCODE_BATCH = 512   # docs per encoder forward (bounds attention memory)
@@ -94,7 +109,8 @@ class ServeResult:
     sphere samples (None where the index was loaded from ``index_dir``),
     packed index, server and encoded queries (for further serving and
     checks); the wall seconds of each stage (synchronized on the
-    card); and the serving loop's statistics where that leg ran."""
+    card); the serving loop's statistics where that leg ran; and the
+    served batch's coverage (below 1 where a grid lost buckets)."""
 
     idx: object                 # (n_q, k) int32 numpy
     scores: object              # (n_q, k) float32 numpy
@@ -107,6 +123,7 @@ class ServeResult:
     q_emb: torch.Tensor
     timings: dict
     loop: dict | None = None
+    coverage: float = 1.0
 
     def __iter__(self):         # unpacks like the reference's (idx, scores)
         return iter((self.idx, self.scores))
@@ -161,8 +178,10 @@ def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
                     compact: bool = False, route: str = "exhaustive",
                     n_probe: int = 1, centroids: int = 4,
                     ckpt_dir: str | None = None, serve_loop: bool = False,
-                    flush_ms: float = 2.0,
-                    max_batch: int = 8) -> ServeResult:
+                    flush_ms: float = 2.0, max_batch: int = 8,
+                    mesh: str = "none", hosts: int = 0, replicas: int = 1,
+                    on_group_loss: str = "degrade",
+                    kill_group: int | None = None) -> ServeResult:
     """The reference's serving run on ``device`` (``cuda`` unless the
     caller passes another; raises without a GPU).  ``model`` and
     ``samples`` replace the seeded encoder and sphere samples when
@@ -173,7 +192,11 @@ def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
     ``route``, ``n_probe`` and ``centroids`` are the reference's
     persistence, mutation and routing legs (module docstring); a routed
     run needs ``index_dir``.  ``serve_loop`` runs the serving loop's leg
-    last, at ``flush_ms`` and ``max_batch``."""
+    last, at ``flush_ms`` and ``max_batch``.  ``mesh``, ``hosts``,
+    ``replicas``, ``on_group_loss`` and ``kill_group`` are the
+    reference's multi-device legs (module docstring)."""
+    if replicas < 1:
+        raise ValueError(f"--replicas {replicas} < 1")
     if compress not in COMPRESSIONS:
         raise ValueError(f"compress={compress!r}; one of {COMPRESSIONS}")
     if route != "exhaustive" and not index_dir:
@@ -182,6 +205,9 @@ def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
     if model is not None and ckpt_dir:
         raise ValueError("pass model= or ckpt_dir=, not both")
     device = backend_lib.resolve_device(device)
+    devices = mesh_lib.local_devices(device)
+    if mesh == "grid" and hosts <= 0:
+        hosts = mesh_lib.default_serve_hosts(devices)
     timings = {}
     t = time.perf_counter()
     if ckpt_dir:
@@ -219,16 +245,36 @@ def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
             print("[serve] WARNING: --ckpt-dir ignored; the loaded "
                   "artifact was encoded by the job that built it")
     else:
+        # Under a multi-device mesh the pruning job shards over `data`:
+        # each bucket's docs split over the devices and the §4.2 global
+        # cut runs its bitwise selection; equal to one device bit for bit.
+        prune_rules = {}
+        if mesh in ("host", "grid") and len(devices) > 1:
+            data_mesh = mesh_lib.make_host_mesh(devices)
+            print(f"[serve] sharded pruning over "
+                  f"data={data_mesh.shape['data']}")
+            prune_rules = {"__mesh__": data_mesh}
         d_emb, d_mask, keep, samples, packed = _prune_and_pack(
             model, corpus, cfg, device, timings, t, samples=samples,
             keep_fraction=keep_fraction, backend=backend,
             pool_threshold=pool_threshold, compress=compress,
-            residual_bits=residual_bits)
+            residual_bits=residual_bits, prune_rules=prune_rules)
         if index_dir:
-            index_io.save_index(index_dir, packed)
+            placement = None
+            if mesh == "grid" and hosts > 1:
+                r = min(replicas, hosts)
+                if r != replicas:
+                    print(f"[serve] WARNING: --replicas {replicas} clamped "
+                          f"to {r} (chains must land on distinct groups, "
+                          f"only {hosts} host groups)")
+                placement = PlacementPlan.for_index(packed, hosts,
+                                                    replicas=r)
+            index_io.save_index(index_dir, packed, placement=placement)
             # Serve what is on disk: the artifact a later job starts from.
             packed = index_io.load_index(index_dir, device=device)
-            print(f"[serve] saved + reloaded packed index at {index_dir}")
+            print(f"[serve] saved + reloaded packed index at {index_dir}"
+                  + (f" ({placement.n_groups} host-group bodies)"
+                     if placement else ""))
     routing = None
     if route != "exhaustive":
         # The routing table is an artifact sidecar: load the live
@@ -251,11 +297,79 @@ def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
                   f"centroids (epoch {routing.epoch})")
 
     serve_backend = backend if backend in backend_lib.SERVING else None
+    rules, monitor = _serving_mesh(mesh, hosts, replicas, devices, packed,
+                                   index_dir)
     if n_first <= 0:
         n_first = packed.n_docs                  # e2e exact-sweep route
+    with axis_rules(rules):
+        return _serve(
+            packed, model, cfg, corpus, device, timings, seed=seed,
+            n_first=n_first, serve_backend=serve_backend, route=route,
+            routing=routing, n_probe=n_probe, monitor=monitor,
+            on_group_loss=on_group_loss, kill_group=kill_group,
+            index_dir=index_dir, upsert=upsert, delete=delete,
+            compact=compact, serve_loop=serve_loop, flush_ms=flush_ms,
+            max_batch=max_batch, d_emb=d_emb, d_mask=d_mask, keep=keep,
+            samples=samples)
+
+
+def _serving_mesh(mesh, hosts, replicas, devices, packed, index_dir):
+    """The serving rules and fleet monitor of ``mesh``: ``"host"`` shards
+    over every device; ``"grid"`` with ``hosts > 1`` places buckets on
+    the ``hosts x candidates`` grid (an artifact's plan is authoritative
+    where the devices can form its grid; otherwise it is re-placed for
+    this host, with a warning) under a ``FleetMonitor``; ``"grid"``
+    with fewer groups serves unsharded, saying so."""
+    if mesh == "host":
+        serve_mesh = mesh_lib.make_serve_mesh(devices=devices)
+        n_shards = serve_mesh.shape["model"]
+        print(f"[serve] sharded serving mesh: {serve_mesh} "
+              f"({n_shards} candidate shard{'s' if n_shards != 1 else ''})")
+        return serve_rules(serve_mesh), None
+    if mesh == "grid" and hosts > 1:
+        placement = index_dir and index_io.load_placement(index_dir)
+        if placement and placement.n_groups != hosts:
+            if len(devices) % placement.n_groups == 0:
+                print(f"[serve] --hosts {hosts} overridden by the "
+                      f"artifact's placement ({placement.n_groups} host "
+                      "groups)")
+                hosts = placement.n_groups
+            else:
+                print(f"[serve] WARNING: artifact placement has "
+                      f"{placement.n_groups} host groups but "
+                      f"{len(devices)} devices cannot form that grid; "
+                      f"rebalancing for {hosts} groups")
+                placement = None
+        if placement and replicas > 1 and placement.replicas != replicas:
+            print(f"[serve] WARNING: --replicas {replicas} ignored; the "
+                  f"artifact's plan stores replicas={placement.replicas} "
+                  f"(delete {index_dir} to re-place)")
+        placement = placement or PlacementPlan.for_index(
+            packed, hosts, replicas=min(replicas, hosts))
+        serve_mesh = mesh_lib.make_serve_mesh(hosts, devices)
+        print(f"[serve] grid serving mesh: {serve_mesh.shape} "
+              f"({serve_mesh.distinct()} distinct devices; placement "
+              f"groups={list(placement.groups)}, "
+              f"replicas={placement.replicas})")
+        return (serve_rules(serve_mesh, placement=placement),
+                health.FleetMonitor(hosts))
+    if mesh == "grid":
+        print("[serve] --mesh grid needs >= 2 host groups of >= 1 device; "
+              "serving unsharded (set --hosts or add devices)")
+    return {}, None
+
+
+def _serve(packed, model, cfg, corpus, device, timings, *, seed, n_first,
+           serve_backend, route, routing, n_probe, monitor, on_group_loss,
+           kill_group, index_dir, upsert, delete, compact, serve_loop,
+           flush_ms, max_batch, d_emb, d_mask, keep, samples):
+    """The serving half of :func:`serve_retrieval`, under the mesh's
+    rules: the server, the query batch, the routed report, the mutation
+    lifecycle and the serving loop's leg."""
     server = RetrievalServer(packed, k=10, n_first=n_first,
                              backend=serve_backend, route=route,
-                             routing=routing, n_probe=n_probe)
+                             routing=routing, n_probe=n_probe,
+                             monitor=monitor, on_group_loss=on_group_loss)
     sweep = ("e2e" if n_first >= packed.n_docs or route != "exhaustive"
              else "two-stage")
     print(f"[serve] route: {sweep} (n_first={n_first}, "
@@ -263,14 +377,27 @@ def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
           + (f" + candidate routing ({route})"
              if route != "exhaustive" else ""))
     print(f"[serve] scoring backend: {server.backend}")
+    if kill_group is not None:
+        if monitor is None:
+            print("[serve] WARNING: --kill-group needs an active --mesh "
+                  "grid; ignored")
+        else:
+            monitor.demote(kill_group)
+            print(f"[serve] injected loss of host group {kill_group} "
+                  f"(--on-group-loss {server.on_group_loss})")
     q_emb, _ = model.encode_queries(
         torch.as_tensor(corpus.q_ids, device=device))
     q_emb = q_emb.float()
+    n_queries = q_emb.shape[0]
     t = time.perf_counter()
-    idx, scores = server.query_batch(q_emb)
+    out = server.query_batch(q_emb)
+    idx, scores = out
     timings["serve_s"] = time.perf_counter() - t
     print(f"[serve] {n_queries} queries in {timings['serve_s'] * 1e3:.1f} "
           f"ms ({timings['serve_s'] / n_queries * 1e3:.2f} ms/q)")
+    if monitor is not None:
+        print(f"[serve] coverage: {out.coverage:.3f} "
+              f"(live groups: {sorted(monitor.live())})")
     if route != "exhaustive":
         stats = {}
         topk_search(packed, q_emb, k=server.k, backend=server.backend,
@@ -279,9 +406,13 @@ def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
         oi, _ = topk_search(packed, q_emb, k=server.k,
                             backend=server.backend)
         rec = metrics.recall_at_k(idx, oi.cpu().numpy())
-        print(f"[serve] routed ({route}): {stats['buckets_scored']}/"
-              f"{stats['n_buckets']} buckets scored (fraction "
-              f"{stats['fraction']:.2f})")
+        line = (f"[serve] routed ({route}): {stats['buckets_scored']}/"
+                f"{stats['n_buckets']} buckets scored (fraction "
+                f"{stats['fraction']:.2f})")
+        if "groups_consulted" in stats:
+            line += (f"; {stats['groups_consulted']}/{stats['n_groups']} "
+                     "host groups consulted")
+        print(line)
         print(f"[serve] routed recall@{server.k} vs exhaustive: {rec:.3f}")
     if upsert or delete or compact:
         idx, scores = _mutation_lifecycle(
@@ -297,7 +428,7 @@ def serve_retrieval(cfg: ColBERTConfig = colbert_base.SMOKE,
     return ServeResult(idx=idx, scores=scores, d_emb=d_emb, d_mask=d_mask,
                        keep=keep, samples=samples, packed=packed,
                        server=server, q_emb=q_emb, timings=timings,
-                       loop=loop)
+                       loop=loop, coverage=out.coverage)
 
 
 def restore_encoder(ckpt_dir: str, cfg: ColBERTConfig, device):
@@ -389,10 +520,11 @@ def _serve_loop_leg(server, q_emb, *, flush_ms, max_batch):
 
 def _prune_and_pack(model, corpus, cfg, device, timings, t, *, samples,
                     keep_fraction, backend, pool_threshold, compress,
-                    residual_bits):
-    """Encode the corpus, prune, pool and pack it: ``(d_emb, d_mask,
-    keep, samples, packed)``, each stage's seconds in ``timings`` (the
-    encode's counted from ``t``)."""
+                    residual_bits, prune_rules):
+    """Encode the corpus, prune (under ``prune_rules``: a ``data`` mesh
+    shards it), pool and pack it: ``(d_emb, d_mask, keep, samples,
+    packed)``, each stage's seconds in ``timings`` (the encode's counted
+    from ``t``)."""
     d_emb, d_mask = _encode_docs(model, corpus.doc_ids, device)
     if samples is None:
         gen = torch.Generator(device=device).manual_seed(1)
@@ -403,9 +535,9 @@ def _prune_and_pack(model, corpus, cfg, device, timings, t, *, samples,
 
     t = time.perf_counter()
     # the pruning kernels take fp32; widening bf16 is exact
-    keep, _, _ = pruning_pipeline.prune_corpus(d_emb.float(), d_mask,
-                                               samples, keep_fraction,
-                                               backend=backend)
+    with axis_rules(prune_rules):
+        keep, _, _ = pruning_pipeline.prune_corpus(
+            d_emb.float(), d_mask, samples, keep_fraction, backend=backend)
     _sync(device)
     timings["prune_s"] = time.perf_counter() - t
 
@@ -653,10 +785,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "(token pooling; 0 disables)")
     ap.add_argument("--mesh", default="none",
                     choices=["none", "host", "grid"],
-                    help="'host': shard serving over every local device; "
-                         "'grid': the multi-host placement layout.  Both "
-                         "validate as the reference's and then raise: "
-                         "sharded serving is ROADMAP § A item 7")
+                    help="'host': shard serving (and pruning) over every "
+                         "local GPU; 'grid': the hosts x candidates "
+                         "placement layout (buckets pinned to host groups, "
+                         "one k-wide candidate exchange per group)")
     ap.add_argument("--hosts", type=int, default=0,
                     help="host-group count for --mesh grid (0 = auto)")
     ap.add_argument("--replicas", type=int, default=1,
@@ -805,12 +937,6 @@ def main(argv=None):
     config (returns its :class:`ServeResult`); a ported LM arch decodes
     its smoke config (returns the ids and timings)."""
     args = parse_args(argv)
-    if args.mesh != "none" or args.hosts:
-        raise NotImplementedError(
-            f"--mesh {args.mesh} --hosts {args.hosts}: sharded and grid "
-            f"serving (--mesh host|grid, --hosts, --replicas, "
-            f"--on-group-loss, --kill-group) are not ported yet (ROADMAP "
-            f"§ A item 7)")
     if args.arch == "colbert":
         res = serve_retrieval(
             colbert_base.SMOKE, keep_fraction=args.keep,
@@ -821,7 +947,9 @@ def main(argv=None):
             upsert=args.upsert, delete=args.delete, compact=args.compact,
             route=args.route, n_probe=args.nprobe, centroids=args.centroids,
             serve_loop=args.serve_loop, flush_ms=args.flush_ms,
-            max_batch=args.max_batch, device=args.device)
+            max_batch=args.max_batch, device=args.device, mesh=args.mesh,
+            hosts=args.hosts, replicas=args.replicas,
+            on_group_loss=args.on_group_loss, kill_group=args.kill_group)
         print(f"[serve] top-{res.idx.shape[1]} sha1: "
               f"{top_k_digest(res.idx, res.scores)}")
         return res

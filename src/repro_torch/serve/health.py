@@ -19,11 +19,12 @@ health layer:
 * :class:`CrashPlan` — the mutation-time counterpart: a SIGKILL at a
   named durability point of ``serve.mutation``.
 
-Nothing on one card dispatches to host groups yet: the grid exchange
-that threads a ``FaultPlan`` and a ``FleetMonitor`` through its rounds
-comes with multi-GPU serving (ROADMAP § A item 7).  Timing is injected
-(``clock=``, ``sleep=``) so every policy is unit-testable with a fake
-clock, as ``train/elastic.py``'s are.
+The grid exchange (``serve.retrieval._topk_search_grid``) threads a
+``FaultPlan`` and a ``FleetMonitor`` through its rounds: a group's fetch
+is timed from its dispatch until its candidate block has arrived on the
+root device, so a straggler's deadline sees the real arrival.  Timing
+is injected (``clock=``, ``sleep=``) so every policy is unit-testable
+with a fake clock, as ``train/elastic.py``'s are.
 """
 
 from __future__ import annotations
@@ -48,8 +49,8 @@ class GroupFailure(RuntimeError):
 
 class DegradedCoverage(RuntimeError):
     """Raised by grid serving under ``--on-group-loss fail`` when a
-    result would cover less than the full stored index (the grid server
-    comes with ROADMAP § A item 7)."""
+    result would cover less than the full stored index
+    (``serve.retrieval.RetrievalServer(on_group_loss="fail")``)."""
 
 
 # -- fault injection -----------------------------------------------------
@@ -132,8 +133,8 @@ class CrashPlan:
 
 class FaultPlan:
     """A scripted schedule of :class:`Fault`\\ s, threaded through the
-    grid exchange (the reference's ``topk_search(..., faults=...)``;
-    ROADMAP § A item 7).  The exchange calls
+    grid exchange (``serve.retrieval.topk_search(..., faults=...)``).
+    The exchange calls
     ``begin_round()`` once per query and ``check(group, stage)`` at
     each dispatch (``stage="dispatch"``) and candidate fetch
     (``stage="exchange"``); matching kills raise

@@ -23,8 +23,14 @@ one of three codecs (``compression``):
 A ``doc_ids`` remap takes each bucket back to corpus-global positions.
 ``storage()["bytes_stored"]`` sums the bytes of the tensors actually
 held.  MaxSim's per-query-token max is subset/order-invariant, so packed
-scores equal masked scores.  The reference's sharding view
-(``shard_view``/``spec``) is not ported yet.
+scores equal masked scores.
+
+Sharding: ``shard_axes`` names the logical axes of every bucket's
+``(docs, tokens, dim)`` arrays (docs are the "candidates" axis);
+:meth:`PackedIndex.spec` resolves them under the active
+``sharding.specs`` rules, and :meth:`PackedBucket.shard_view` cuts a
+bucket's doc axis into the equal shards ``serve.retrieval``'s sharded
+and grid paths place on their devices.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.pruning_pipeline import bucket_plan
+from repro_torch.sharding.specs import spec_for
 from repro_torch.train import compress
 
 __all__ = ["COMPRESSIONS", "PackedBucket", "PackedIndex", "ResidualView"]
@@ -64,6 +71,19 @@ class ResidualView:
 
     def __getitem__(self, sl):
         return ResidualView(self.codes[sl], self.resq[sl], self.scale[sl],
+                            self.codebook, self.bits, self.dim)
+
+    def to(self, device) -> "ResidualView":
+        return ResidualView(self.codes.to(device), self.resq.to(device),
+                            self.scale.to(device), self.codebook.to(device),
+                            self.bits, self.dim)
+
+    def padded(self, n: int) -> "ResidualView":
+        """This view with ``n`` pad rows appended: code 0, residual 0,
+        scale 0 (they decode to garbage, so they must arrive masked)."""
+        def pad(t):
+            return torch.cat([t, t.new_zeros((n,) + t.shape[1:])])
+        return ResidualView(pad(self.codes), pad(self.resq), pad(self.scale),
                             self.codebook, self.bits, self.dim)
 
     @property
@@ -129,6 +149,41 @@ class PackedBucket:
               self.codes, self.resq, self.rscale, self.codebook)
         return sum(_nbytes(t) for t in ts if t is not None)
 
+    def shard_view(self, dim: int, n_shards: int, pad_id: int,
+                   shard: int | None = None):
+        """(embs, masks, doc_ids) with the doc axis padded up to a
+        multiple of ``n_shards``, so the bucket splits into equal shards
+        (the reference's ``shard_view``); ``shard=s`` gives shard ``s``'s
+        rows alone, which view the bucket's storage unless they hold pad
+        rows.  ``embs`` is a :class:`ResidualView` for a residual bucket
+        (still compressed) and the dense view otherwise.
+
+        Pad rows are all-masked docs carrying ``pad_id`` (callers pass
+        ``n_docs``, above every real id); the streaming merge forces
+        their candidates to -inf, so a pad never displaces a real doc,
+        not even an empty-after-prune one (whose finite l x -1e30
+        sentinel sits above -inf).  A bucket with no documents still
+        gives one pad row a shard, with the reserved id ``-1``, which
+        the merge audits the same way."""
+        compressed = self.codes is not None
+        e = self.residual_view(dim) if compressed else self.dense_embs(dim)
+        mk, ids = self.masks, self.doc_ids
+        n, n_shards = self.n_docs, max(n_shards, 1)
+        pad = (-n) % n_shards if n else n_shards
+        per = (n + pad) // n_shards
+        lo, hi = (0, n + pad) if shard is None else (shard * per,
+                                                     (shard + 1) * per)
+        top = max(lo, min(hi, n))
+        e, mk, ids = e[lo:top], mk[lo:top], ids[lo:top]
+        n_pad = hi - top
+        if n_pad:
+            e = (e.padded(n_pad) if compressed else
+                 torch.cat([e, e.new_zeros((n_pad,) + e.shape[1:])]))
+            mk = torch.cat([mk, mk.new_zeros((n_pad,) + mk.shape[1:])])
+            ids = torch.cat([ids, ids.new_full((n_pad,),
+                                               pad_id if n else -1)])
+        return e, mk, ids
+
     def __repr__(self):
         return (f"PackedBucket(cap={self.cap}, n_docs={self.n_docs}, "
                 f"compressed={self.embs is None})")
@@ -158,12 +213,20 @@ class PackedIndex:
     epoch: int = 0
     # b of the residual codec (0 for "none"/"int8").
     residual_bits: int = 0
+    # Logical axes of each bucket's (docs, tokens, dim) arrays; the
+    # active sharding rules resolve "candidates" to the mesh's
+    # candidate-parallel axis.
+    shard_axes: tuple = ("candidates", None, None)
     _pooled: torch.Tensor | None = dataclasses.field(
         default=None, repr=False, compare=False)
     _padded: tuple | None = dataclasses.field(
         default=None, repr=False, compare=False)
     _padded_res: tuple | None = dataclasses.field(
         default=None, repr=False, compare=False)
+    # Shard placements under a mesh, by (bucket, devices)
+    # (``serve.retrieval._shards``).
+    _shards: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
     # Guards the lazy views above: concurrent readers (the server's read
     # gate admits many) build each one once.
     _views_lock: threading.Lock = dataclasses.field(
@@ -281,6 +344,13 @@ class PackedIndex:
         if self.compression == "residual":
             return f"residual{self.residual_bits}"
         return self.compression
+
+    def spec(self) -> tuple:
+        """The mesh axes of one bucket's (docs, tokens, dim) arrays under
+        the active rules (``sharding.spec_for`` of ``shard_axes``).  A
+        residual bucket's codes take the first two entries, its
+        residuals and scales all three; its codebook is replicated."""
+        return spec_for(*self.shard_axes)
 
     def storage(self) -> dict:
         """Measured footprint: ``bytes_stored`` sums the bytes of the

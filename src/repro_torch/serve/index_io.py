@@ -18,7 +18,11 @@ each group restores ONLY the buckets placed on it:
 
 ``load_index(dir)`` reassembles the full index from every group;
 ``load_index(dir, group=g)`` reads only group ``g``'s sub-manifest and
-body.  Group sub-indexes keep corpus-global ``n_docs`` and doc ids.
+body.  Group sub-indexes keep corpus-global ``n_docs`` and doc ids, so
+each serves its tier of the grid merge
+(``serve.retrieval.topk_search_group`` with ``placement=
+PlacementPlan(n_groups, (g,) * n_buckets)``) and the root merge of the
+tiers equals serving the whole index.
 
 The body rides ``repro_torch.train.checkpoint`` (the reference's leaf
 format): atomic rename commit, per-leaf crc32 verification on load, and

@@ -34,12 +34,14 @@ and turns that stream into the batch shapes the stack is built for:
   epoch.
 
 PyTorch keeps grad mode, ``inference_mode`` and the current CUDA device
-per thread, so the dispatcher sets them itself: it serves under
-``torch.inference_mode()`` with the index's CUDA device current (the
-kernels launch on that thread's current stream of the device).  This
-replaces the reference's capture of its thread-local axis rules, which
-the port has no counterpart of until grid serving (ROADMAP § A item 7).
-The kernels' library is loaded at construction, before the first flush.
+per thread, and the port's sharding rules are thread-local as the
+reference's are, so the dispatcher sets all three itself: it serves
+under ``torch.inference_mode()`` with the index's CUDA device current
+(the kernels launch on that thread's current stream of the device) and
+under the axis rules of the thread that built the loop (captured at
+construction, as the reference does): a loop built under
+``sharding.serve_rules(grid)`` serves on that grid.  The kernels'
+library is loaded at construction, before the first flush.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ import torch
 from repro_torch.core import backend as backend_lib
 from repro_torch.core.backend import _pow2_at_least
 from repro_torch.serve.retrieval import TopKResult
+from repro_torch.sharding import axis_rules, current_rules
 
 __all__ = ["ServeLoop", "LoopStats"]
 
@@ -200,6 +203,9 @@ class ServeLoop:
         # current in its own thread.  Build and load the kernels here, so
         # no flush waits on nvcc behind the build lock.
         self._device = server.index.device
+        # The constructing thread's sharding rules (a mesh and placement
+        # under serve_rules): the dispatcher serves under them.
+        self._rules = current_rules() or {}
         if (self._device.type == "cuda"
                 and server.backend == backend_lib.FUSED):
             from repro_torch.kernels import build
@@ -275,7 +281,7 @@ class ServeLoop:
     def _run(self) -> None:
         if self._device.type == "cuda":
             torch.cuda.set_device(self._device)
-        with torch.inference_mode():
+        with torch.inference_mode(), axis_rules(self._rules):
             self._run_inner()
 
     def _run_inner(self) -> None:

@@ -34,10 +34,15 @@ leaf masks the docs it does not own (shadowed or tombstoned) to -inf
 inside the slab scorer, so the result equals a repack of the mutated
 corpus bit for bit.
 
-Not ported yet: sharded and grid serving (the reference's imports of
-``health`` and ``sharding``; ROADMAP § A item 7).  The health layer it
-wires in is ported (``serve/health.py``), and the concurrent front-end
-over :class:`RetrievalServer` is ``serve/loop.py``.
+Multi-device serving (``sharding.serve_rules(mesh)``, meshes of
+``launch.mesh``): the flat host mesh shards every bucket over its
+devices, the ``hosts x candidates`` grid pins buckets to host groups by
+a ``sharding.PlacementPlan`` (replicas, failover through
+``serve.health.FleetMonitor``, the ``on_group_loss`` policies of
+:class:`RetrievalServer`); one process drives every device, and only
+(n_q, k) candidate blocks travel between them (the section above
+:func:`_dense_bucket`).  The concurrent front-end over
+:class:`RetrievalServer` is ``serve/loop.py``.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import contextlib
 import dataclasses
 import functools
 import threading
+import time
 
 import numpy as np
 import torch
@@ -61,13 +67,19 @@ from repro_torch.kernels.colbert_maxsim.ops import (
 from repro_torch.kernels.colbert_maxsim.ref import (
     colbert_maxsim_multi_ref, colbert_maxsim_rerank_ref)
 from repro_torch.kernels.maxsim_topk.ref import topk_lowest_index
-from repro_torch.serve.index import PackedIndex, ResidualView
+from repro_torch.serve import health as health_lib
+from repro_torch.serve.index import PackedBucket, PackedIndex, ResidualView
+from repro_torch.sharding import (PlacementPlan, axis_rules, bucket_weights,
+                                  current_rules, grid_axes_for,
+                                  mesh_axes_for)
 
 
 class TopKResult(tuple):
-    """``(top_idx, top_scores)`` that also carries ``coverage`` (always
-    1.0 on a single device) and the ``epoch_key`` snapshot
-    ``RetrievalServer.query_batch`` answered under."""
+    """``(top_idx, top_scores)`` that also carries ``coverage`` (the
+    share of stored bucket bytes the answer consulted: below 1.0 only
+    when grid serving lost every replica of some buckets) and the
+    ``epoch_key`` snapshot ``RetrievalServer.query_batch`` answered
+    under."""
 
     coverage: float
     epoch_key: tuple | None = None
@@ -95,6 +107,11 @@ class TokenIndex:
     d_embs: torch.Tensor       # (n_docs, m, dim)
     d_masks: torch.Tensor      # (n_docs, m) original token validity
     keep: torch.Tensor         # (n_docs, m) pruning decision
+    # Shard placements under a mesh (:func:`_shards`), as on PackedIndex.
+    _shards: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+    _views_lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
 
     @classmethod
     def build(cls, d_embs, d_masks):
@@ -250,7 +267,8 @@ def _stream_chunk_topk(n: int, chunk: int, k: int, score_slab,
 
 
 def _chunk_candidates(embs, masks, doc_ids, q_embs, q_masks, k: int, *,
-                      backend, chunk_docs, owner=None, leaf: int = 0):
+                      backend, chunk_docs, pad_from: int | None = None,
+                      owner=None, leaf: int = 0):
     """One doc array's exact-MaxSim candidates through the streaming
     reduce loop.
 
@@ -258,7 +276,8 @@ def _chunk_candidates(embs, masks, doc_ids, q_embs, q_masks, k: int, *,
     slab scores of docs this leaf does not own — a base copy shadowed by
     an upsert, a tombstoned doc — are forced to -inf BEFORE the slab's
     top-k reduction, so a stale copy never crowds a live doc out of its
-    bucket's k candidate slots.  The clip guards sentinel ids (< 0,
+    bucket's k candidate slots.  ``pad_from`` marks shard pad ids (see
+    :func:`_stream_chunk_topk`).  The clip guards sentinel ids (< 0,
     forced to -inf by the pad audit regardless) against wraparound."""
 
     def slab(a, b):
@@ -272,16 +291,18 @@ def _chunk_candidates(embs, masks, doc_ids, q_embs, q_masks, k: int, *,
         return s
 
     return _stream_chunk_topk(masks.shape[0], chunk_docs, k, slab,
-                              doc_ids=doc_ids)
+                              doc_ids=doc_ids, pad_from=pad_from)
 
 
 def _index_views(index, backend):
     """Per-bucket (embs, masks, doc_ids) views; ``doc_ids=None`` means
-    the axis is already in global doc order (dense layout)."""
+    the axis is already in global doc order (dense layout).  A bucket
+    with no documents has no view (the reference's one all-masked pad
+    row would add only (-inf, -1) candidates)."""
     if not isinstance(index, PackedIndex):
         return [(index.d_embs, index.active_mask, None)]
     return [(_bucket_array(index, b, backend), b.masks, b.doc_ids)
-            for b in index.buckets]
+            for b in index.buckets if b.n_docs]
 
 
 def _real_docs(index) -> int:
@@ -366,15 +387,372 @@ def _topk_local(index, q_embs, q_masks, k: int, *, backend, chunk_docs,
     return _merge_topk_unique(vals, ids, k)
 
 
+# ----------------------------------------------------------------------
+# Sharded and grid serving (the reference's shard_map merge and grid
+# tier, driven from one process).  Under ``sharding.serve_rules(mesh)``
+# each capacity bucket's doc axis splits into equal shards
+# (``PackedBucket.shard_view``), each placed on its device once per
+# index epoch (:func:`_shards`); every shard reduces its docs to an
+# (n_q, k) candidate block on its own device, and only those blocks are
+# copied to the root device (the queries' device) for the root merge —
+# the reference's k-wide all-gather.  A ``hosts x candidates`` grid adds
+# one tier: each host group merges the buckets its PlacementPlan pins to
+# it over its row of devices, and one (n_q, k) block per group crosses
+# to the root.  Every merge orders on (-score, id) and every tier keeps
+# a superset of the global top-k, so the answer equals the
+# single-device one bit for bit: a doc's score does not depend on which
+# docs share its shard or slab.
+# ----------------------------------------------------------------------
+
+
+def _dense_bucket(index: TokenIndex) -> PackedBucket:
+    """The dense layout as one bucket (ids in corpus order), so it shards
+    through :meth:`PackedBucket.shard_view` like a packed bucket."""
+    n_docs, m = index.d_masks.shape
+    return PackedBucket(cap=m, doc_ids=torch.arange(
+        n_docs, dtype=torch.int32, device=index.device),
+        masks=index.active_mask, embs=index.d_embs)
+
+
+def _shards(index, b: int, devices: tuple) -> tuple:
+    """Bucket ``b`` of ``index`` (the dense layout's one bucket for 0)
+    cut into ``len(devices)`` equal shards, shard ``s`` as (embs, masks,
+    doc_ids) on ``devices[s]``.  Placed once per (bucket, devices) and
+    cached on the index, so once an epoch: warm-up, healthy serving and
+    failover read one placement, and a bucket reaches a device once.  On
+    the index's own device a shard views the bucket (pad rows aside)."""
+    key = (b, devices)
+    got = index._shards.get(key)
+    if got is None:
+        with index._views_lock:
+            got = index._shards.get(key)
+            if got is None:
+                packed = isinstance(index, PackedIndex)
+                bucket = index.buckets[b] if packed else _dense_bucket(index)
+                dim = index.dim if packed else index.d_embs.shape[-1]
+                got = index._shards[key] = tuple(
+                    tuple(t.to(dev) for t in bucket.shard_view(
+                        dim, len(devices), _n_docs(index), shard=s))
+                    for s, dev in enumerate(devices))
+    return got
+
+
+def _placed(index, devices, bucket_ids=None) -> list:
+    """Shard ``s`` of every bucket of ``bucket_ids`` (all by default; the
+    dense layout's one bucket whatever they are) on ``devices[s]``: one
+    list of (embs, masks, doc_ids) views a device (:func:`_shards`)."""
+    devices = tuple(devices)
+    if not isinstance(index, PackedIndex):
+        bucket_ids = (0,)
+    elif bucket_ids is None:
+        bucket_ids = range(len(index.buckets))
+    shards = [_shards(index, b, devices) for b in bucket_ids]
+    return [[sh[s] for sh in shards] for s in range(len(devices))]
+
+
+def _topk_search_sharded(index, q_embs, q_masks, k: int, *, backend,
+                         chunk_docs, devices, bucket_ids=None, root=None):
+    """The sharded merge over ``devices`` (of ``bucket_ids``, all by
+    default): each shard's (n_q, k) block is computed on its device
+    (sentinel-padded to k columns where the shard holds fewer
+    candidates), all shards launched before any block is read; the
+    blocks are copied to ``root`` (the queries' device by default) and
+    merged there.  Returns (ids, scores), each (n_q, min(k, n_docs)).
+    The flat mesh's streaming top-k (``--mesh host``) and one host
+    group's tier of the grid."""
+    n_docs = _n_docs(index)
+    placed = _placed(index, devices, bucket_ids)
+    on = {}
+    blocks = []
+    for dev, views in zip(devices, placed):
+        if dev not in on:
+            on[dev] = (q_embs.to(dev),
+                       None if q_masks is None else q_masks.to(dev))
+        q, qm = on[dev]
+        vals, ids = [], []
+        for e, mk, di in views:
+            v, i = _chunk_candidates(e, mk, di, q, qm, k, backend=backend,
+                                     chunk_docs=chunk_docs, pad_from=n_docs)
+            vals.append(v)
+            ids.append(i)
+        vals, ids = torch.cat(vals, dim=1), torch.cat(ids, dim=1)
+        kl = min(k, vals.shape[1])
+        i, v = _merge_topk(vals, ids, kl)
+        if kl < k:          # k above the shard's docs: a square block
+            i = torch.cat([i, i.new_full((i.shape[0], k - kl), n_docs)], 1)
+            v = torch.cat([v, v.new_full((v.shape[0], k - kl), -torch.inf)],
+                          1)
+        blocks.append((i, v))
+    root = q_embs.device if root is None else root
+    return _merge_topk(torch.cat([v.to(root) for _, v in blocks], dim=1),
+                       torch.cat([i.to(root) for i, _ in blocks], dim=1),
+                       min(k, n_docs))
+
+
+def _group_view(index, placement: PlacementPlan, group: int):
+    """The slice of ``index`` host group ``group`` stores (every bucket
+    with ``group`` in its replica chain), or ``None``."""
+    return _bucket_view(index, placement.buckets_of(group))
+
+
+def _resolve_placement(index, placement: PlacementPlan | None,
+                       n_groups: int) -> PlacementPlan:
+    """``placement`` checked against the grid and the index, or the
+    bytes-balanced default for a whole index; a partial (group-loaded)
+    view without an explicit placement raises."""
+    n_buckets = (len(index.buckets) if isinstance(index, PackedIndex)
+                 else 1)
+    if placement is None:
+        covered = _real_docs(index)
+        if covered < _n_docs(index):
+            raise ValueError(
+                f"index is a partial (group-loaded) view covering "
+                f"{covered} of {_n_docs(index)} documents; pass an "
+                "explicit placement (e.g. PlacementPlan(n_groups, "
+                "(group,) * n_buckets)) instead of relying on the derived "
+                "default")
+        return PlacementPlan.for_index(index, n_groups)
+    if placement.n_groups != n_groups:
+        raise ValueError(
+            f"placement has {placement.n_groups} host groups, the active "
+            f"grid mesh has {n_groups}")
+    return placement.validate(n_buckets)
+
+
+def topk_search_group(index, q_embs, *, group: int, k: int = 10,
+                      q_masks=None, backend: str | None = None,
+                      placement: PlacementPlan | None = None,
+                      buckets: tuple | None = None,
+                      chunk_docs: int | None = None):
+    """One host group's tier of the grid merge tree: ``(ids, scores)``,
+    each ``(n_q, min(k, n_docs))``, on the group's first device, from
+    the buckets the placement pins to ``group``, merged over the group's
+    row of the active grid; sentinel-padded (-inf scores, ids -1 or
+    ``n_docs``) where the group holds fewer candidates, a group with no
+    bucket included.  ``buckets`` narrows the group to some of its
+    stored buckets (the failover hook); each must be in the group's
+    replica chain.  Needs active grid rules
+    (``sharding.serve_rules`` of ``launch.mesh.make_serve_mesh(hosts=...)``).
+    The launches are asynchronous: the block has arrived nowhere until
+    the caller copies it (the grid exchange)."""
+    backend = backend_lib.resolve_backend(backend, allow=backend_lib.SERVING,
+                                          device=q_embs.device)
+    chunk_docs = chunk_docs or backend_lib.STREAM_CHUNK_DOCS
+    mesh, n_groups, _, rules_placement = grid_axes_for()
+    if mesh is None:
+        raise ValueError(
+            "topk_search_group needs active grid serving rules "
+            "(sharding.serve_rules with a hosts x candidates mesh from "
+            "launch.mesh.make_serve_mesh(hosts=...))")
+    if not 0 <= group < n_groups:
+        raise ValueError(f"group {group} outside [0, {n_groups})")
+    placement = _resolve_placement(
+        index, placement if placement is not None else rules_placement,
+        n_groups)
+    if buckets is None:
+        bucket_ids = placement.buckets_of(group)
+    else:
+        for b in buckets:
+            if group not in placement.replicas_of(b):
+                raise ValueError(
+                    f"bucket {b} is not stored on group {group} (replica "
+                    f"chain {placement.replicas_of(b)}) — failover may "
+                    "only target groups that hold a replica")
+        bucket_ids = tuple(sorted(buckets))
+    devices = mesh.devices_along(("candidates",), hosts=group)
+    w = min(k, _n_docs(index))
+    if not bucket_ids:
+        n_q = q_embs.shape[0]
+        return (torch.full((n_q, w), -1, dtype=torch.int32,
+                           device=devices[0]),
+                torch.full((n_q, w), -torch.inf, device=devices[0]))
+    return _topk_search_sharded(index, q_embs, q_masks, k, backend=backend,
+                                chunk_docs=chunk_docs, devices=devices,
+                                bucket_ids=bucket_ids, root=devices[0])
+
+
+def _arrive(block, root):
+    """A group's candidate block copied to the root device, returned
+    once it is there (the host waits on the root's stream): what the
+    exchange deadline times."""
+    out = tuple(t.to(root) for t in block)
+    if root.type == "cuda":
+        torch.cuda.current_stream(root).synchronize()
+    return out
+
+
+def _serving_assignment(placement: PlacementPlan, buckets, live, tried):
+    """Route each of ``buckets`` to the first live group of its replica
+    chain not tried for it yet: (``{group: (buckets,)}`` in ascending
+    group order, the buckets with every replica exhausted)."""
+    per: dict = {}
+    lost = []
+    for b in buckets:
+        g = next((g for g in placement.replicas_of(b)
+                  if g in live and g not in tried[b]), None)
+        if g is None:
+            lost.append(b)
+        else:
+            per.setdefault(g, []).append(b)
+    return {g: tuple(bs) for g, bs in sorted(per.items())}, lost
+
+
+def _topk_search_grid(index, q_embs, q_masks, k: int, *, backend, mesh,
+                      n_groups, placement, chunk_docs, monitor=None,
+                      faults=None, selected=None, route_stats=None):
+    """The grid merge tree: every host group reduces its buckets to an
+    (n_q, w) block on its devices (:func:`topk_search_group`), the
+    blocks are exchanged to the root device — the only cross-group
+    traffic, k wide — and one root merge gives the top-k; bit-equal to
+    the single-device answer.  Each bucket is served once, by the first
+    live group of its replica chain (the first group without a
+    monitor), which stores it placed already (:func:`_shards`).
+
+    With a :class:`~repro_torch.serve.health.FleetMonitor` the exchange
+    tolerates faults: a failed or deadline-overrunning fetch strikes
+    the group (``max_strikes`` strikes demote it) and its buckets fail
+    over, after a bounded backoff, to their next live replica.  Buckets
+    with every replica down drop out and the :class:`TopKResult`
+    reports ``coverage < 1``, exact over what it covers.  A fetch is
+    done only when its block is on the root device (:func:`_arrive`),
+    so the deadline times the group's compute and its copy.  A
+    :class:`~repro_torch.serve.health.FaultPlan` injects kills and
+    delays at the dispatch and exchange seams.  Without a monitor a
+    fault propagates (``GroupFailure``).
+
+    ``selected`` (the router's bucket shortlist) restricts the tree to
+    those buckets; a group serving none is neither dispatched nor counted against coverage.
+    ``route_stats`` receives the consulted groups."""
+    placement = _resolve_placement(index, placement, n_groups)
+    if faults is not None:
+        faults.begin_round()
+    root = q_embs.device
+    n_docs = _n_docs(index)
+
+    def dispatch(group, bucket_ids):
+        if faults is not None:
+            faults.check(group, "dispatch")
+        return topk_search_group(
+            index, q_embs, group=group, k=k, q_masks=q_masks,
+            backend=backend, placement=placement, buckets=bucket_ids,
+            chunk_docs=chunk_docs)
+
+    def fetch(group, block):
+        if faults is not None:
+            faults.check(group, "exchange")
+        return _arrive(block, root)
+
+    def attempt(group, bucket_ids):
+        """One group's dispatch and deadline-bounded fetch under the
+        monitor, with up to ``monitor.retries`` retries; the block, or
+        None after striking the group."""
+        for r in range(monitor.retries + 1):
+            if r:
+                time.sleep(monitor.backoff(r - 1))
+            try:
+                block = dispatch(group, bucket_ids)
+                t0 = time.perf_counter()
+                if monitor.exchange_timeout is None:
+                    got = fetch(group, block)
+                else:
+                    ex = concurrent.futures.ThreadPoolExecutor(1)
+                    try:
+                        got = ex.submit(fetch, group, block).result(
+                            timeout=monitor.exchange_timeout)
+                    finally:
+                        # no wait: a straggler must not extend the
+                        # deadline it just blew
+                        ex.shutdown(wait=False)
+                monitor.record_exchange(group, time.perf_counter() - t0)
+                return got
+            except (health_lib.GroupFailure,
+                    concurrent.futures.TimeoutError):
+                monitor.strike(group)
+        return None
+
+    weights = bucket_weights(index)
+    all_buckets = (range(placement.n_buckets) if selected is None
+                   else selected)
+    tried = {b: set() for b in all_buckets}
+    live = range(n_groups) if monitor is None else monitor.live()
+    pending, lost = _serving_assignment(placement, all_buckets, live, tried)
+    answered, blocks, consulted, failover = [], [], set(), 0
+    while pending:
+        for g, bs in pending.items():
+            for b in bs:
+                tried[b].add(g)
+            consulted.add(g)
+        if monitor is None:
+            # no deadline: launch every group before fetching any block;
+            # a fault raises
+            launched = {g: dispatch(g, bs) for g, bs in pending.items()}
+            results = {g: fetch(g, blk) for g, blk in launched.items()}
+        elif len(pending) == 1:
+            results = {g: attempt(g, bs) for g, bs in pending.items()}
+        else:
+            # one worker a pending group, so a straggler costs the
+            # slowest group's time, not the sum; rules are thread-local,
+            # so each worker runs under the caller's
+            rules = current_rules() or {}
+
+            def ruled_attempt(group, bucket_ids):
+                with axis_rules(rules):
+                    return attempt(group, bucket_ids)
+
+            with concurrent.futures.ThreadPoolExecutor(
+                    max_workers=len(pending)) as pool:
+                futs = {g: pool.submit(ruled_attempt, g, bs)
+                        for g, bs in pending.items()}
+                results = {g: f.result() for g, f in futs.items()}
+        failed = []
+        for g, bs in pending.items():
+            if results[g] is None:
+                failed.extend(bs)
+            else:
+                blocks.append(results[g])
+                answered.extend(bs)
+        if not failed:
+            break
+        pending, dead = _serving_assignment(placement, failed,
+                                            monitor.live(), tried)
+        lost.extend(dead)
+        if pending:
+            time.sleep(monitor.backoff(failover))
+            failover += 1
+
+    if selected is not None and route_stats is not None:
+        route_stats.update(groups_consulted=len(consulted),
+                           n_groups=n_groups)
+    denom = sum(weights[b] for b in all_buckets)
+    coverage = sum(weights[b] for b in answered) / max(denom, 1)
+    live_docs = (sum(index.buckets[b].n_docs for b in answered)
+                 if isinstance(index, PackedIndex)
+                 else (n_docs if answered else 0))
+    cap = min(k, live_docs)
+    if not blocks or cap == 0:
+        empty = _empty_topk(q_embs)
+        return TopKResult(empty[0], empty[1], coverage)
+    # each bucket was served by one group, so the ids are unique; the cap
+    # at the answered docs keeps sentinels out of a degraded answer
+    i, v = _merge_topk(torch.cat([v for _, v in blocks], dim=1),
+                       torch.cat([i for i, _ in blocks], dim=1), cap)
+    return TopKResult(i, v, coverage)
+
+
 def _topk_search_routed(index, q_embs, q_masks, k: int, *, backend,
                         chunk_docs, route, routing, n_probe,
-                        route_threshold, route_stats, mutation=None):
+                        route_threshold, route_stats, mutation=None,
+                        gmesh=None, n_groups=1, placement=None, devices=None,
+                        monitor=None, faults=None):
     """The candidate-routing tier in front of the merge (see
     :func:`topk_search`).  The centroid pass runs on the device in one
     sweep; the (n_q, n_buckets) scores and bounds come to the host,
-    where the shortlist is chosen before any bucket is scored.  Under
-    ``mutation`` every delta leaf joins the routed base, scored
-    exhaustively (the table knows nothing of fresh upserts)."""
+    where the shortlist is chosen before any bucket is scored — under a
+    grid before group dispatch (``gmesh``), so a group owning no
+    selected bucket is not consulted; on a flat mesh (``devices``) the
+    selected buckets shard over it.  Under ``mutation`` every delta leaf
+    joins the routed base, scored exhaustively (the table knows nothing
+    of fresh upserts)."""
     from repro_torch.serve import routing as routing_lib
 
     routing_lib.check_route(route, routing, index, n_probe)
@@ -386,10 +764,26 @@ def _topk_search_routed(index, q_embs, q_masks, k: int, *, backend,
     delta_real = (0 if mutation is None
                   else sum(_real_docs(d) for d in mutation.deltas))
 
-    def run(bucket_ids):
-        view = _bucket_view(index, tuple(bucket_ids))
+    def run(bucket_ids, stats=None):
+        bucket_ids = tuple(bucket_ids)
+        if gmesh is not None:
+            return _topk_search_grid(
+                index, q_embs, q_masks, k, backend=backend, mesh=gmesh,
+                n_groups=n_groups, placement=placement,
+                chunk_docs=chunk_docs, monitor=monitor, faults=faults,
+                selected=bucket_ids, route_stats=stats)
+        view = _bucket_view(index, bucket_ids)
         if view is None and mutation is None:
             return _empty_topk(q_embs)
+        if devices is not None:
+            i, v = _topk_search_sharded(
+                index, q_embs, q_masks, k, backend=backend,
+                chunk_docs=chunk_docs, devices=devices,
+                bucket_ids=bucket_ids)
+            # the sharded root caps at the corpus; the selection may
+            # hold fewer docs, whose surplus columns are sentinels
+            cap = min(k, _real_docs(view))
+            return i[:, :cap], v[:, :cap]
         real_cap = None
         if mutation is not None:
             base_real = 0 if view is None else _real_docs(view)
@@ -409,7 +803,7 @@ def _topk_search_routed(index, q_embs, q_masks, k: int, *, backend,
         tau = (sv[:, k - 1] if sv.shape[1] >= k
                else np.full((sv.shape[0],), -np.inf, np.float32))
         selected = routing_lib.select_bounded(u_host, tau, seeds)
-    out = run(selected)
+    out = run(selected, route_stats)
     if route_stats is not None:
         nb = routing.n_buckets
         route_stats.update(route=route, n_buckets=nb,
@@ -424,7 +818,9 @@ def topk_search(index, q_embs, *, k: int = 10, q_masks=None,
                 n_probe: int | None = None,
                 route_threshold: float | None = None,
                 route_stats: dict | None = None,
-                mutation: MutationView | None = None):
+                mutation: MutationView | None = None,
+                placement: PlacementPlan | None = None, monitor=None,
+                faults=None):
     """Streaming exact top-k MaxSim: ``(top_idx, top_scores)``, each
     (n_q, min(k, n_docs)), equal to the (-score, id)-ordered top-k of
     :func:`maxsim_scores` without ever holding an (n_q, n_docs) score
@@ -447,7 +843,21 @@ def topk_search(index, q_embs, *, k: int = 10, q_masks=None,
     tombstoned doc ids to -inf before each slab's reduction — equal, bit
     for bit, to re-packing the mutated corpus from scratch.  Output
     columns are capped at the live docs; none live gives (n_q, 0).
-    Under a routed mode the deltas are scored in full."""
+    Under a routed mode the deltas are scored in full.
+
+    Under ``sharding.serve_rules(mesh)`` the sweep runs over the mesh:
+    on the flat host mesh every bucket shards over the ``model`` axis
+    (:func:`_topk_search_sharded`); on a ``hosts x candidates`` grid
+    each host group serves the buckets its placement pins to it and one
+    (n_q, k) block a group is exchanged (:func:`_topk_search_grid`).
+    Both give the single-device answer bit for bit.  ``placement``
+    overrides the rules' plan (the rebalance hook); ``monitor`` (a
+    ``serve.health.FleetMonitor``) makes the grid exchange
+    fault-tolerant, and the result a :class:`TopKResult` whose
+    ``coverage`` is the share of stored bucket bytes answered;
+    ``faults`` (a ``serve.health.FaultPlan``) injects failures.  These
+    three are grid-only.  Mutation serving is single-device and raises
+    under a mesh."""
     backend = backend_lib.resolve_backend(backend, allow=backend_lib.SERVING,
                                           device=q_embs.device)
     chunk_docs = chunk_docs or backend_lib.STREAM_CHUNK_DOCS
@@ -455,12 +865,34 @@ def topk_search(index, q_embs, *, k: int = 10, q_masks=None,
         return _empty_topk(q_embs)
     if _n_docs(index) == 0 and mutation is None:
         return _empty_topk(q_embs)
+    gmesh, n_groups, _, rules_placement = grid_axes_for()
+    mesh, axes, n_shards = mesh_axes_for("candidates")
+    devices = None if mesh is None else mesh.devices_along(axes)
+    if mutation is not None and (gmesh is not None or devices is not None):
+        raise ValueError(
+            "mutation serving (delta buckets + tombstones) is "
+            "single-device: compact the delta log "
+            "(serve.mutation.Compactor) before serving under a "
+            "candidates mesh or grid placement")
+    placement = placement if placement is not None else rules_placement
     if route != "exhaustive":
         return _topk_search_routed(
             index, q_embs, q_masks, k, backend=backend,
             chunk_docs=chunk_docs, route=route, routing=routing,
             n_probe=n_probe, route_threshold=route_threshold,
-            route_stats=route_stats, mutation=mutation)
+            route_stats=route_stats, mutation=mutation, gmesh=gmesh,
+            n_groups=n_groups, placement=placement,
+            devices=None if gmesh is not None else devices,
+            monitor=monitor, faults=faults)
+    if gmesh is not None:
+        return _topk_search_grid(
+            index, q_embs, q_masks, k, backend=backend, mesh=gmesh,
+            n_groups=n_groups, placement=placement, chunk_docs=chunk_docs,
+            monitor=monitor, faults=faults)
+    if devices is not None:
+        return _topk_search_sharded(
+            index, q_embs, q_masks, k, backend=backend,
+            chunk_docs=chunk_docs, devices=devices)
     return _topk_local(index, q_embs, q_masks, k, backend=backend,
                        chunk_docs=chunk_docs, mutation=mutation)
 
@@ -544,15 +976,22 @@ def search(index, q_embs, *, k: int = 10, n_first: int = 64,
            routing=None, n_probe: int | None = None,
            route_threshold: float | None = None,
            route_stats: dict | None = None,
-           mutation: MutationView | None = None):
+           mutation: MutationView | None = None,
+           placement: PlacementPlan | None = None, monitor=None,
+           faults=None):
     """Two-stage (or e2e) retrieval.  ``return_full=True`` returns
     (top_idx, top_scores, full) with the densified (n_q, n_docs) score
     matrix (the metrics contract: non-candidates score -1e30);
     ``return_full=False`` (the serving default) returns (top_idx,
     top_scores) and streams — e2e through :func:`topk_search`, two-stage
     through the chunked first stage.  Results are identical.  A routed
-    ``route`` and a ``mutation`` view (see :func:`topk_search`) apply
-    to the streaming e2e route only."""
+    ``route``, a ``mutation`` view and the mesh arguments
+    (``placement``, ``monitor``, ``faults``; see :func:`topk_search`)
+    apply to the streaming e2e route only.
+    Under a mesh the two-stage route runs on the index's device, as the
+    reference's does in effect: its pooled first stage carries a
+    sharding hint only (``sharding.constrain``, the identity here), and
+    the rerank gathers its candidates on the root."""
     backend = backend_lib.resolve_backend(backend, allow=backend_lib.SERVING,
                                           device=q_embs.device)
     n_docs = _n_docs(index)
@@ -581,7 +1020,9 @@ def search(index, q_embs, *, k: int = 10, n_first: int = 64,
                                route=route, routing=routing,
                                n_probe=n_probe,
                                route_threshold=route_threshold,
-                               route_stats=route_stats, mutation=mutation)
+                               route_stats=route_stats, mutation=mutation,
+                               placement=placement, monitor=monitor,
+                               faults=faults)
         scores = maxsim_scores(index, q_embs, q_masks, backend=backend)
         top_scores, top_idx = topk_lowest_index(scores, k)
         return top_idx, top_scores, scores
@@ -623,15 +1064,40 @@ class RetrievalServer:
     server always takes the streaming e2e sweep.  The table is checked
     against the index here, and :meth:`swap_index` needs the new
     epoch's table.
+
+    Meshes: a closure serves under the sharding rules active when it
+    was built (``sharding.serve_rules(mesh)``), and the mesh, its axes,
+    the grid's placement and the rebalance override join its key, so a
+    closure built without a mesh never answers inside one, nor one
+    built on one device a grid.  Building a closure places the index's
+    shards on their devices (once per epoch; ``_shards``).  On a grid,
+    ``monitor`` (a ``serve.health.FleetMonitor``) and ``faults`` (a
+    ``serve.health.FaultPlan``) make the exchange fault-tolerant, and
+    ``on_group_loss`` picks what happens when every replica of some
+    buckets is gone: ``"degrade"`` answers from the rest with
+    ``coverage < 1``; ``"rebalance"`` re-places the lost groups'
+    buckets over the survivors (``PlacementPlan.rebalance``; this one
+    process holds the whole index) and answers the same query again at
+    full coverage; ``"fail"`` raises ``serve.health.DegradedCoverage``.
     """
 
     def __init__(self, index, *, k: int = 10, n_first: int = 64,
                  backend: str | None = None, chunk_docs: int | None = None,
                  max_cached_closures: int = 32, route: str = "exhaustive",
                  routing=None, n_probe: int | None = None,
-                 route_threshold: float | None = None):
+                 route_threshold: float | None = None, monitor=None,
+                 on_group_loss: str = "degrade", faults=None):
+        if on_group_loss not in ("degrade", "rebalance", "fail"):
+            raise ValueError(
+                f"on_group_loss={on_group_loss!r} not in "
+                "('degrade', 'rebalance', 'fail')")
         from repro_torch.serve import routing as routing_lib
         routing_lib.check_route(route, routing, index, n_probe)
+        self.monitor = monitor
+        self.on_group_loss = on_group_loss
+        self.faults = faults
+        self._placement = None          # the rebalance override (grid)
+        self._rebalanced_for = frozenset()
         self.route = route
         self.routing = routing
         self.n_probe = n_probe
@@ -721,18 +1187,36 @@ class RetrievalServer:
     def _warm_index(self):
         """Build the packed index's derived views (pooled vectors, the
         cap_max-wide gather view, compressed for a residual index on
-        ``fused``) once, before two-stage serving."""
-        if (isinstance(self.index, PackedIndex) and self.route == "exhaustive"
-                and self._mutation is None
-                and self.n_first < self.index.n_docs):
+        ``fused``) once, before two-stage serving; under a mesh, place
+        the shards the e2e sweep scores on their devices."""
+        two_stage = (self.route == "exhaustive" and self._mutation is None
+                     and self.n_first < _n_docs(self.index))
+        if isinstance(self.index, PackedIndex) and two_stage:
             self.index.pooled()
             if _decodes_in_kernel(self.index, self.backend):
                 self.index.padded_residual()
             else:
                 self.index.padded()
+        if two_stage:
+            return
+        gmesh, n_groups, _, placement = grid_axes_for()
+        mesh, axes, _ = mesh_axes_for("candidates")
+        if gmesh is not None and self.route == "exhaustive":
+            placement = _resolve_placement(
+                self.index, self._placement or placement, n_groups)
+            for g in range(n_groups):
+                if placement.buckets_of(g):
+                    _placed(self.index,
+                            gmesh.devices_along(("candidates",), hosts=g),
+                            placement.buckets_of(g))
+        elif gmesh is None and mesh is not None:
+            _placed(self.index, mesh.devices_along(axes))
 
     def _closure_for(self, q_embs):
-        key = tuple(q_embs.shape[:2]) + self.epoch_key
+        mesh, axes, _ = mesh_axes_for("candidates")
+        gmesh, n_groups, _, placement = grid_axes_for()
+        key = (tuple(q_embs.shape[:2]) + self.epoch_key
+               + (mesh, axes, gmesh, n_groups, placement, self._placement))
         with self._lock:
             entry = self._search.get(key)
             if entry is not None:
@@ -760,26 +1244,71 @@ class RetrievalServer:
     def _build_closure(self):
         self._warm_index()
         e2e = self.route != "exhaustive" or self._mutation is not None
-        return functools.partial(
+        run = functools.partial(
             self._run, self.index, k=self.k, n_first=self.n_first,
             backend=self.backend, chunk_docs=self._chunk_docs,
             end_to_end=e2e, route=self.route, routing=self.routing,
             n_probe=self.n_probe, route_threshold=self.route_threshold,
-            mutation=self._mutation)
+            mutation=self._mutation, placement=self._placement,
+            monitor=self.monitor, faults=self.faults)
+        rules = current_rules() or {}
+
+        def closure(q):
+            with axis_rules(rules):
+                return run(q)
+        return closure
+
+    def _maybe_rebalance(self) -> bool:
+        """The ``rebalance`` policy: re-place the buckets stranded on the
+        monitor's demoted groups over the survivors
+        (``PlacementPlan.rebalance``; surviving assignments stay put).
+        Idempotent per demoted set; run under the state lock from inside
+        a query's read section, so concurrent degraded queries agree on
+        one new placement."""
+        if self.monitor is None or self.on_group_loss != "rebalance":
+            return False
+        with self._lock:
+            demoted = self.monitor.demoted
+            if not demoted or demoted == self._rebalanced_for:
+                return False
+            gmesh, n_groups, _, placement = grid_axes_for()
+            if gmesh is None:
+                return False
+            base = _resolve_placement(
+                self.index, self._placement or placement, n_groups)
+            self._placement = base.rebalance(
+                demoted, weights=bucket_weights(self.index))
+            self._rebalanced_for = demoted
+            return True
 
     def query_batch(self, q_embs):
         """Serve one query batch — a tensor on the index's device, or
         host rows (numpy or a CPU tensor), moved there in one copy: a
         :class:`TopKResult` of host (numpy) arrays, brought back in one
-        copy and stamped with the ``epoch_key`` it was answered under."""
+        copy and stamped with the ``epoch_key`` it was answered under.
+        Its ``coverage`` is below 1 where grid serving lost every
+        replica of some buckets (``on_group_loss``: ``"rebalance"``
+        re-answers this query at full coverage, ``"fail"`` raises
+        ``serve.health.DegradedCoverage``)."""
         q_embs = torch.as_tensor(q_embs).to(self.index.device)
         with self._read_gate():
             epoch_key = self.epoch_key
-            idx, scores = self._closure_for(q_embs)(q_embs)
+            out = self._closure_for(q_embs)(q_embs)
+            coverage = getattr(out, "coverage", 1.0)
+            if coverage < 1.0 and self._maybe_rebalance():
+                # this query, from the rebalanced plan (a new closure key)
+                out = self._closure_for(q_embs)(q_embs)
+                coverage = getattr(out, "coverage", 1.0)
+            if coverage < 1.0 and self.on_group_loss == "fail":
+                raise health_lib.DegradedCoverage(
+                    f"top-k covers {coverage:.4f} of stored bucket bytes "
+                    f"(demoted groups: {sorted(self.monitor.demoted)}); "
+                    "on_group_loss='fail' refuses degraded results")
+            idx, scores = out
             # one device-to-host copy: the fp32 scores travel as their
             # int32 bit patterns beside the int32 ids
             both = torch.stack([idx.to(torch.int32),
                                 scores.view(torch.int32)]).cpu().numpy()
-            res = TopKResult(both[0], both[1].view(np.float32))
+            res = TopKResult(both[0], both[1].view(np.float32), coverage)
             res.epoch_key = epoch_key
             return res

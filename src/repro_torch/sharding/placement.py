@@ -9,9 +9,9 @@ manifest records the plan, each group's buckets persist under their own
 sub-manifest and body, so a group restores only the buckets placed on
 it, and ``serve.mutation.Compactor`` re-splits a compacted epoch with
 :meth:`PlacementPlan.rebalance_repack`.  Serving over a grid of host
-groups (the reference's ``topk_search_group`` and the per-group merge
-tier) is not ported yet; a placed artifact loads whole or by
-``group=g`` on one device.
+groups (``serve.retrieval.topk_search_group`` and the per-group merge
+tier) reads the plan from ``sharding.serve_rules(grid, placement=...)``;
+a placed artifact serves there loaded whole or by ``group=g``.
 
 **Replication** (``replicas=r``): each bucket is pinned to ``r``
 *distinct* groups — a replica chain, primary first.  ``rebalance``

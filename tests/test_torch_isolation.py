@@ -60,6 +60,16 @@ with ServeLoop(res.server, flush_ms=1.0) as loop:
 assert one.top_idx.shape == (8,) and (one.top_idx == res.idx[0]).all()
 print("serve loop cpu ok")
 
+from repro_torch.launch.mesh import make_serve_mesh
+from repro_torch.serve.retrieval import topk_search
+from repro_torch.sharding import axis_rules, serve_rules
+for hosts in (1, 2):
+    with axis_rules(serve_rules(make_serve_mesh(hosts, ["cpu"] * 4))):
+        got = topk_search(res.packed, res.q_emb, k=4)
+    want = topk_search(res.packed, res.q_emb, k=4)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+print("mesh cpu ok")
+
 from repro_torch.configs import dlrm_rm2
 from repro_torch.launch.serve import serve_ctr
 try:
@@ -117,6 +127,7 @@ def test_port_imports_and_runs_with_jax_blocked():
     assert "cpu ok" in out.stdout
     assert "serve cli raised without cuda" in out.stdout
     assert "serve loop cpu ok" in out.stdout
+    assert "mesh cpu ok" in out.stdout
     assert "serve_ctr raised without cuda" in out.stdout
     assert "serve_ctr cpu ok" in out.stdout
     assert "train raised without cuda" in out.stdout

@@ -419,3 +419,184 @@ class TestResidualKernelsOnCard:
             prev[:, 1:] = rs[:, :9] - rs[:, 1:10]
             tie = (prev <= ATOL) | (rs[:, :10] - rs[:, 1:] <= ATOL)
             assert ((fi == ri[:, :10]) | tie).all()
+
+
+class _GuardSpy:
+    """Stands in for ``torch.cuda.device``: records the device each
+    launch made current, and whether a C entry ran inside it."""
+
+    def __init__(self):
+        self.entered, self.inside = [], 0
+
+    def __call__(self, device):
+        spy = self
+
+        class _Ctx:
+            def __enter__(self):
+                spy.entered.append(torch.device(device))
+                spy.depth = 1
+
+            def __exit__(self, *exc):
+                spy.depth = 0
+
+        return _Ctx()
+
+
+class TestDeviceGuard:
+    """Every kernel launch runs with its tensors' card current (the
+    launch, ``cudaFuncSetAttribute`` and ``sm_count()`` act on the
+    current device): each wrapper's launch goes through
+    ``build.launch``, which enters ``torch.cuda.device`` around the C
+    entry.  Here the wrappers' launch helpers run on CPU tensors against
+    a stand-in library, counting guarded calls."""
+
+    LAUNCHERS = ["maxsim_top2", "maxsim_topk", "multi_fp32", "multi_bf16",
+                 "rerank_fp32", "rerank_bf16", "residual_multi",
+                 "residual_rerank", "embedding_bag", "flash_attention",
+                 "split_planes"]
+
+    @pytest.fixture
+    def spy(self, monkeypatch):
+        from repro_torch.kernels import build
+        guard = _GuardSpy()
+        guard.depth, guard.calls = 0, []
+
+        class _Lib:
+            def __getattr__(self, entry):
+                def call(*args):
+                    guard.calls.append((entry, guard.depth))
+                    return 0
+                return call
+
+        monkeypatch.setattr(torch.cuda, "device", guard)
+        monkeypatch.setattr(build, "library", lambda name: _Lib())
+        monkeypatch.setattr(build, "stream_ptr", lambda t: 0)
+        return guard
+
+    @pytest.mark.parametrize("which", LAUNCHERS)
+    def test_every_launch_is_guarded(self, spy, which):
+        from repro_torch.kernels import build
+        from repro_torch.kernels.embedding_bag import ops as eb
+        from repro_torch.kernels.flash_attention import ops as fa
+        g = torch.Generator().manual_seed(0)
+        s = torch.randn(64, 16, generator=g)
+        t = torch.randn(2, 8, 16, generator=g)
+        a = torch.ones(2, 8, dtype=torch.bool)
+        q = torch.randn(2, 4, 16, generator=g)
+        d = torch.randn(3, 8, 16, generator=g)
+        dm = torch.ones(3, 8, dtype=torch.bool)
+        codes = torch.zeros(3, 8, dtype=torch.int8)
+        resq = torch.zeros(3, 8, 8, dtype=torch.uint8)
+        scale = torch.ones(3, 8, 1)
+        cb = torch.randn(4, 16, generator=g)
+        run = {
+            "maxsim_top2": lambda: t2._launch(s, t, a),
+            "maxsim_topk": lambda: tk._launch(s, t, a, 4),
+            "multi_fp32": lambda: cm._launch(
+                "colbert_maxsim_multi_launch", q, d, dm, None, 3),
+            "multi_bf16": lambda: cm._launch(
+                "colbert_maxsim_multi_launch", q, d.bfloat16(), dm, None,
+                3),
+            "rerank_fp32": lambda: cm._launch(
+                "colbert_maxsim_rerank_launch", q, d[None].expand(
+                    2, -1, -1, -1).contiguous(), dm[None].expand(
+                    2, -1, -1).contiguous(), None, 3),
+            "rerank_bf16": lambda: cm._launch(
+                "colbert_maxsim_rerank_launch", q, d.bfloat16()[None].expand(
+                    2, -1, -1, -1).contiguous(), dm[None].expand(
+                    2, -1, -1).contiguous(), None, 3),
+            "residual_multi": lambda: cm._residual_launch(
+                "colbert_maxsim_residual_multi_launch", q, None, codes, resq,
+                scale, cb, None, dm, 4),
+            "residual_rerank": lambda: cm._residual_launch(
+                "colbert_maxsim_residual_rerank_launch", q, None,
+                codes[None].expand(2, -1, -1).contiguous(),
+                resq[None].expand(2, -1, -1, -1).contiguous(),
+                scale[None].expand(2, -1, -1, -1).contiguous(), cb[None],
+                torch.zeros(2, 3, dtype=torch.int32),
+                dm[None].expand(2, -1, -1).contiguous(), 4),
+            "embedding_bag": lambda: eb._launch(
+                torch.randn(10, 4, generator=g),
+                torch.zeros(3, 2, dtype=torch.int32), "sum"),
+            "flash_attention": lambda: fa._launch(
+                torch.randn(2, 8, 16), torch.randn(2, 8, 16),
+                torch.randn(2, 8, 16), True, None, 2, 2, 8, 8, 16),
+            "split_planes": lambda: build.launch(
+                "colbert_maxsim", "colbert_maxsim_split_planes", d.device,
+                d.data_ptr(), 24, 16, 8, 0, 0, 0),
+        }[which]
+        run()
+        assert spy.calls and all(depth for _, depth in spy.calls), spy.calls
+        assert spy.entered == [torch.device("cpu")] * len(spy.calls)
+
+    def test_no_wrapper_calls_a_library_directly(self):
+        """Every C entry of the op wrappers is reached through
+        ``build.launch`` alone."""
+        from pathlib import Path
+        root = Path(cm.__file__).resolve().parents[1]
+        for ops in sorted(root.glob("*/ops.py")):
+            text = ops.read_text()
+            assert "build.launch(" in text, ops
+            assert "build.library(" not in text, ops
+            assert "build.check(" not in text, ops
+
+
+@pytest.mark.cuda
+class TestLaunchOnSecondCard:
+    """A launch on ``cuda:1`` from a thread whose current device is
+    ``cuda:0`` equals the same launch on ``cuda:0``, bit for bit."""
+
+    def test_every_kernel_on_cuda_1(self):
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two GPUs: the launch guard is checked "
+                        "across cards (chip_smoke's [grid] does it where "
+                        "the host has them)")
+        from repro_torch.kernels.embedding_bag.ops import embedding_bag_op
+        from repro_torch.kernels.flash_attention.ops import (
+            flash_attention_op)
+        g = torch.Generator().manual_seed(0)
+        s = torch.randn(256, 128, generator=g)
+        t = torch.randn(4, 64, 128, generator=g)
+        a = torch.rand(4, 64, generator=g) > 0.2
+        q = torch.randn(8, 32, 128, generator=g)
+        d = torch.randn(16, 64, 128, generator=g)
+        dm = torch.rand(16, 64, generator=g) > 0.2
+        cands = torch.randn(8, 12, 64, 128, generator=g)
+        cm_ = torch.rand(8, 12, 64, generator=g) > 0.2
+        table = torch.randn(100, 64, generator=g)
+        ids = torch.randint(0, 100, (32, 4), generator=g, dtype=torch.int32)
+        att = torch.randn(2, 4, 128, 64, generator=g).bfloat16()
+        codes = torch.randint(0, 8, (16, 64), generator=g).to(torch.int8)
+        resq = torch.randint(0, 256, (16, 64, 64), generator=g).to(
+            torch.uint8)
+        scale = torch.rand(16, 64, 1, generator=g)
+        cb = torch.randn(8, 128, generator=g)
+        ops = [
+            lambda x: t2.maxsim_top2_op(*x(s, t, a)),
+            lambda x: tk.maxsim_topk_op(*x(s, t, a), k=8),
+            lambda x: cm.colbert_maxsim_multi_op(*x(q, d, dm)),
+            lambda x: cm.colbert_maxsim_multi_op(*x(q, d.bfloat16(), dm)),
+            lambda x: cm.colbert_maxsim_rerank_op(*x(q, cands, cm_)),
+            lambda x: cm.colbert_maxsim_rerank_op(*x(q, cands.bfloat16(),
+                                                      cm_)),
+            lambda x: cm.colbert_maxsim_residual_multi_op(
+                *x(q, codes, resq, scale, cb, dm), bits=4),
+            lambda x: cm.colbert_maxsim_residual_rerank_op(
+                *x(q, codes[:12][None].expand(8, -1, -1).contiguous(),
+                   resq[:12][None].expand(8, -1, -1, -1).contiguous(),
+                   scale[:12][None].expand(8, -1, -1, -1).contiguous(),
+                   cb[None], torch.zeros(8, 12, dtype=torch.int32), cm_),
+                bits=4),
+            lambda x: embedding_bag_op(*x(table, ids)),
+            lambda x: flash_attention_op(*x(att, att, att), causal=True),
+        ]
+        torch.cuda.set_device(0)
+        for op in ops:
+            outs = []
+            for dev in ("cuda:0", "cuda:1"):
+                out = op(lambda *ts: [u.to(dev) for u in ts])
+                out = out if isinstance(out, tuple) else (out,)
+                assert all(o.device == torch.device(dev) for o in out)
+                outs.append([o.cpu() for o in out])
+            for x0, x1 in zip(*outs):
+                assert torch.equal(x0, x1)

@@ -571,3 +571,77 @@ class TestLazyViews:
         assert not any(t.is_alive() for t in threads)
         assert len(calls) == 1
         assert got[0] is got[1] is not None
+
+
+class TestGrid:
+    """The loop in front of a server on a 2 x 2 grid of CPU positions:
+    the dispatcher serves under the rules of the thread that built the
+    loop, and every streamed answer equals its query served alone on
+    that grid (and on one device)."""
+
+    def _grid_rules(self, packed, replicas=1):
+        from repro_torch.launch.mesh import make_serve_mesh
+        from repro_torch.sharding import PlacementPlan, serve_rules
+        grid = make_serve_mesh(2, [torch.device("cpu")] * 4)
+        return serve_rules(grid, placement=PlacementPlan.for_index(
+            packed, 2, replicas=replicas))
+
+    def test_dispatcher_carries_the_constructing_threads_rules(self):
+        from repro_torch.sharding import axis_rules, current_rules
+        packed = _packed(40, n_docs=24, m=16, dim=8)
+        server = _server(packed, k=5)
+        rules = self._grid_rules(packed)
+        seen = []
+        real = server.query_batch
+
+        def recording(q):
+            seen.append(current_rules())
+            return real(q)
+
+        server.query_batch = recording
+        with axis_rules(rules):
+            sl = ServeLoop(server, flush_ms=1.0)
+        with sl:
+            sl.query(_queries(41, 1, 4, dim=8)[0])
+        assert seen == [rules]
+
+    @pytest.mark.parametrize("replicas", [1, 2])
+    def test_answers_equal_each_query_alone_on_the_grid(self, replicas):
+        from repro_torch.serve import health
+        from repro_torch.sharding import axis_rules
+        packed = _packed(42, n_docs=24, m=16, dim=8)
+        q = _queries(43, 8, 4, dim=8)
+        rules = self._grid_rules(packed, replicas)
+        mon = health.FleetMonitor(2)
+        server = _server(packed, k=5, monitor=mon)
+        alone_one_device = _alone(_server(packed, k=5), q)
+        results = [None] * len(q)
+        errors = []
+
+        def client(lo, hi):
+            try:
+                for i in range(lo, hi):
+                    results[i] = sl.query(q[i])
+            except Exception as e:      # re-raised below
+                errors.append(e)
+
+        with axis_rules(rules):
+            alone = _alone(server, q)
+            with ServeLoop(server, flush_ms=2.0, max_batch=4) as sl:
+                threads = [threading.Thread(target=client,
+                                            args=(2 * c, 2 * c + 2))
+                           for c in range(4)]
+                for t in threads:
+                    t.start()
+                sl.swap_index(packed)     # mid-run: only epoch_key moves
+                for t in threads:
+                    t.join(JOIN_S)
+        assert not errors, errors[0]
+        gens = set()
+        for i, r in enumerate(results):
+            assert r.coverage == 1.0
+            gens.add(r.epoch_key[0])
+            _assert_same(r, alone[i])
+            _assert_same(r, alone_one_device[i])
+        assert gens and gens <= {0, 1}
+        assert mon.demoted == frozenset()
