@@ -138,6 +138,12 @@ passed — any failure exits non-zero):
    read from this leg.  Before it, B1 is timed at the leg's widest
    bucket beside the 2,908-doc shape of phase 5; those launches also
    warm the leg's kernel before its timer.
+6c. Batch invariance (``[invariance]``): on the leg's first 64 docs, B1
+   and B2 on one doc alone against the same doc in the 64-doc launch,
+   and Alg. 1's (ranks, errs, orders) of docs 0 and 5 alone against the
+   first 8 docs' batch on each backend, bit for bit (gated on ``fused``
+   and ``shortlist_topk``; the ``reference`` and ``shortlist`` oracles
+   reported).  These launches do not count.
    The retrieval phases' tensors are freed before the next phase.
 6b. The serving CLI (``[cli]``): child processes of ``python -m
    repro_torch.launch.serve`` on the card at the smoke config, the
@@ -193,7 +199,15 @@ passed — any failure exits non-zero):
    once per (encoder, corpus, step).  First-k, IDF and stopword keep
    masks equal on the card and the CPU; on the first 64 docs, norm masks
    beyond 1e-6 of theta, LP margins within 1e-4 and LP masks beyond 1e-4
-   of theta, and attention masks beyond a 1e-5 score gap.  B1-B3's
+   of theta, and attention masks beyond a 1e-5 score gap.  Then
+   ``speedup``'s pruning-backend sweep at the main path's shapes (1,024
+   full-length docs x 180, dim 128, N 2,048; one backend a call, a
+   warm-up and a timed call each: docs/s, launches, kernel ms; B1 only
+   on ``fused``, B2 only on ``shortlist_topk``), its ragged sweep
+   (1,024 docs of 4-180 tokens, flat against bucketed) and
+   ``paper.kernels`` (B1, B4, B3, B8, B7 against their plain versions
+   at the reference's shapes; ``CLAIM_fused_matches_oracle`` must hold);
+   their launches stay out of the rows' ``paper`` key.  B1-B3's
    launches and summed kernel ms on this path go under each row's
    ``paper`` key.  The phase's tensors are freed at its end.
 9. Dense LM path (``[lm]``) at minitron-4b's full ``CONFIG`` (32
@@ -236,6 +250,23 @@ passed — any failure exits non-zero):
    dcn-v2 and wide-deep at their full configs, each built after the
    previous model is freed: ``serve_ctr`` at ``serve_p99`` on both
    backends, bit for bit, 1 and 2 B8 launches a ``fused`` forward.
+11b. Table pruning (``[table]``, ``core.table_pruning``) on dlrm-rm2's
+   model still on the card, before dcn-v2: ``prune_table`` on each of
+   the 26 field tables ((1,048,576, 64) fp32), N 8,192, keep 0.5, a
+   generator seeded 0, through B1 over 256 chunks of 4,096 rows (one
+   launch a table, counted; the chunks merged on the device): seconds,
+   B1 launches and kernel ms, rows kept, and the peak allocated above
+   the resident model, which must stay below one (N, V) fp32 matrix
+   (34.4 GB).  On table 0 with ``prune_table``'s samples: B1 over chunks
+   against the plain chunked version (argbest equal wherever the top-2
+   gap exceeds 1e-5, best and second within 1e-5: B1's rule in
+   ``kernels/score_check.py``); the chunked launch against one document
+   of 1,048,576 rows (bit-equal, or held to the same rule); errors and
+   keep masks bit-equal at chunk 4,096 and 65,536 and equal to
+   ``prune_table``'s; against the plain path's errors within 1e-5 x (2
+   x the fullest cell's samples + argbest flips) / N, keep masks equal
+   outside rows below that; the rows of nonzero error; B1's time a
+   table beside its bound (d 64 in the kernel's 128-wide planes).
 12. B8 (``embedding_bag``) against its plain version at three of the
    paths' own shapes: dlrm-rm2's ``serve_bulk`` lookup (6,815,744 bags
    of one id, D 64), the user-tower mean at batch 262,144 (26 ids, D
@@ -251,8 +282,9 @@ passed — any failure exits non-zero):
    B3 also carry a ``paper`` key: their launches and summed kernel ms
    over phase 8's drivers; every row carries a ``mutation`` key: its
    launches and summed kernel ms over phase 4b's three view serves, a
-   ``loop`` key: the same over phase 4c's eight loop runs, and a
-   ``grid`` key: the same over phase 4d.
+   ``loop`` key: the same over phase 4c's eight loop runs, a ``grid``
+   key: the same over phase 4d, and a ``table`` key: the same over
+   phase 11b's 26 tables.
 
 Tolerances: retrieval values within 1e-5 abs (unit-norm fp32 inputs,
 dim 128; on norm-11 docs, of a float64 MaxSim); token/doc ids equal
@@ -451,7 +483,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import (colbert_base, dcn_v2, dlrm_rm2,
                                      minitron_4b, wide_deep)
-    from repro_torch.core import pruning_pipeline
+    from repro_torch.core import pruning_pipeline, voronoi
     from repro_torch.kernels import build
     from repro_torch.kernels.colbert_maxsim import ops as cm_ops
     from repro_torch.kernels.colbert_maxsim import ref as cm_ref
@@ -2057,6 +2089,41 @@ def main() -> int:
         expect(share >= 0.99, f"fused vs shortlist_topk equal ranks {share}")
         expect(launches["maxsim_top2"] > 0, "maxsim_top2 not launched")
 
+        # 6c. batch invariance: a doc alone against the same doc in its
+        # batch, bit for bit — B1 and B2 on the fused leg's first 64
+        # docs, then Alg. 1's (ranks, errs, orders) on each backend over
+        # its first 8 (gated on fused and shortlist_topk; reported on the
+        # reference oracles)
+        t = time.perf_counter()
+        e64, m64 = e[:64].contiguous(), mk[:64].contiguous()
+        pick = sorted({0, 1, len(e64) // 2, len(e64) - 1})
+        b1 = maxsim_top2_op(samples, e64, m64)
+        b2 = maxsim_topk_op(samples, e64, m64, k=K)
+        k_ok = {"maxsim_top2": True, "maxsim_topk": True}
+        for j in pick:
+            a1 = maxsim_top2_op(samples, e64[j:j + 1], m64[j:j + 1])
+            a2 = maxsim_topk_op(samples, e64[j:j + 1], m64[j:j + 1], k=K)
+            k_ok["maxsim_top2"] &= all(torch.equal(x[0], y[j])
+                                       for x, y in zip(a1, b1))
+            k_ok["maxsim_topk"] &= all(torch.equal(x[0], y[j])
+                                       for x, y in zip(a2, b2))
+        inv = {}
+        for bk_ in ("fused", "shortlist_topk", "shortlist", "reference"):
+            whole = voronoi.pruning_order_batch(e[:8], mk[:8], samples,
+                                                backend=bk_)
+            inv[bk_] = all(
+                torch.equal(x[0], y[j])
+                for j in (0, 5) for x, y in zip(voronoi.pruning_order_batch(
+                    e[j:j + 1], mk[j:j + 1], samples, backend=bk_), whole))
+        log(f"[invariance] a doc alone vs in its batch, bit for bit "
+            f"({time.perf_counter() - t:.2f} s): kernels ({len(e64)} docs, "
+            f"docs {pick}) {k_ok}; pruning orders (8 docs, docs 0 and 5) "
+            f"{inv}")
+        expect(all(k_ok.values()), f"B1/B2 not batch-invariant: {k_ok}")
+        expect(inv["fused"] and inv["shortlist_topk"],
+               f"pruning orders not batch-invariant: {inv}")
+        del b1, b2, a1, a2, whole, e64, m64
+
         # launches and summed kernel time from the run of the path each
         # kernel is on
         for r_ in rows:
@@ -2284,9 +2351,9 @@ def main() -> int:
         from repro_torch.models.attention import attention_weights_received
         from repro_torch.paper import (common as pc, fig1_geometry,
                                        fig3_aggressive, fig45_positions,
-                                       fig6_me_ndcg, speedup,
-                                       table1_indomain, table2_ablation,
-                                       table3_beir)
+                                       fig6_me_ndcg, kernels as pk,
+                                       speedup, table1_indomain,
+                                       table2_ablation, table3_beir)
         from repro_torch.serve.retrieval import maxsim_scores
 
         scale = pc.FULL
@@ -2439,6 +2506,43 @@ def main() -> int:
             on = {k for k, v in n_[0].items() if v}
             expect(on == want[name], f"[paper] {name} launched {sorted(on)}, "
                    f"expected {sorted(want[name])}")
+
+        # the pruning-backend sweep, one backend a call, and the ragged
+        # sweep at the main path's shapes (each a warm-up call and a timed
+        # one), then the kernel micro-benchmarks; their launches stay out
+        # of the rows' ``paper`` key
+        sweep_want = {"reference": set(), "fused": {"maxsim_top2"},
+                      "shortlist": set(), "shortlist_topk": {"maxsim_topk"},
+                      "bucketed_shortlist": set(), "ragged": set()}
+        bk = {}
+        for name in speedup.BACKEND_RUNS:
+            out = drive(name, lambda: speedup.run_pruning_backends(
+                **speedup.FULL_SWEEP, device="cuda", backends=(name,)))
+            bk[name], bk["shape"] = out[name], out["shape"]
+        rg = drive("ragged", lambda: speedup.run_ragged_pruning(
+            **speedup.FULL_SWEEP, device="cuda"))
+        kr = drive("kernels", lambda: pk.run(device="cuda"))
+        sweeps = {k: drivers.pop(k) for k in (*sweep_want, "kernels")}
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            speedup.report_backends(bk)
+            speedup.report_ragged(rg)
+            pk.report(kr)
+        for line in buf.getvalue().splitlines():
+            log(f"[paper] {line}")
+        for name, (n_, ms, wall) in sweeps.items():
+            on = {k for k, v in n_.items() if v}
+            log(f"[paper] sweep {name}: {wall:.2f} s; launches "
+                f"{json.dumps({k: v for k, v in n_.items() if v})}; kernel "
+                f"ms {json.dumps({k: round(v, 3) for k, v in ms.items()})}")
+            if name in sweep_want:
+                expect(on == sweep_want[name], f"[paper] sweep {name} "
+                       f"launched {sorted(on)}, expected "
+                       f"{sorted(sweep_want[name])}")
+        expect(kr[1][0], "[paper] kernels: CLAIM_fused_matches_oracle fails")
+        expect(all(bk[n] > 0 for n in speedup.BACKEND_RUNS)
+               and rg["flat"] > 0 and rg["bucketed"] > 0,
+               "[paper] a sweep rate is not positive")
 
         # VP ranks on the kernels against the reference backend, once per
         # (encoder, corpus, step size)
@@ -2735,6 +2839,129 @@ def main() -> int:
         rows[-1]["launches"] = n_fa["fused"]
         rows[-1]["path_ms"] = fa_ms
 
+    table_counts = {}
+
+    @torch.no_grad()
+    def table_phase(model, cfg):
+        """Phase 11b, ``[table]``: Voronoi pruning of dlrm-rm2's field
+        tables (``core.table_pruning``) on the model already on the card,
+        through B1 over row chunks; table 0 held to the plain version."""
+        from repro_torch.core import table_pruning as tp
+        from repro_torch.core.sampling import sample_sphere
+        from repro_torch.kernels.maxsim_top2.ops import maxsim_top2_rows_op
+        from repro_torch.kernels.maxsim_top2.ref import maxsim_top2_rows_ref
+
+        V, n_f, D = cfg.table_rows, cfg.n_sparse, cfg.embed_dim
+        N, keep_f = 8192, 0.5
+        tables = model.tables.view(n_f, V, D)
+
+        def gen():
+            return torch.Generator(device="cuda").manual_seed(0)
+
+        maxsim_top2_rows_op(torch.randn((64, D), device="cuda"),
+                            tables[0, :256], 128)          # module load
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        maxsim_top2_op.launches = 0
+        secs, keeps = [], []
+        timer.start()
+        t_all = time.perf_counter()
+        for f in range(n_f):
+            t = time.perf_counter()
+            keeps.append(tp.prune_table(gen(), tables[f], keep_f,
+                                        n_samples=N))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        total = time.perf_counter() - t_all
+        ms = timer.stop().get("maxsim_top2", 0.0)
+        n_launch = maxsim_top2_op.launches
+        peak = torch.cuda.max_memory_allocated() - resident
+        table_counts["maxsim_top2"] = {"launches": n_launch, "path_ms": ms}
+        n_keep = int(np.ceil(np.float32(keep_f * V)))
+        kept = {int(k.sum()) for k in keeps}
+        log(f"[table] {cfg.name}: {n_f} tables of {V} x {D} fp32, N {N}, "
+            f"keep {keep_f}: {total:.3f} s in all, "
+            f"{statistics.median(secs):.4f} s a table (median; min "
+            f"{min(secs):.4f}, max {max(secs):.4f}); B1 launches {n_launch},"
+            f" kernel ms {ms:.3f}; peak allocated above the resident model "
+            f"{peak} bytes (one (N, V) fp32 matrix: {N * V * 4}); rows kept "
+            f"{sorted(kept)}")
+        expect(n_launch == n_f, f"[table] B1 launches {n_launch}, expected "
+               f"{n_f}")
+        expect(kept == {n_keep}, f"[table] rows kept {kept}, expected "
+               f"{n_keep}")
+        expect(peak < N * V * 4, f"[table] peak {peak} bytes reaches an "
+               f"(N, V) fp32 matrix")
+
+        # table 0: B1 over chunks against the plain chunked version; the
+        # chunked launch against one document of V rows; errors and keep
+        # masks at two chunk sizes and on the plain path
+        s = sample_sphere(gen(), N, D, device="cuda")   # prune_table's
+        t0 = tables[0]
+        t = time.perf_counter()
+        got = maxsim_top2_rows_op(s, t0, 4096)
+        want = maxsim_top2_rows_ref(s, t0, 4096)
+        err = max((got[k] - want[k]).abs().max().item() for k in (0, 1))
+        gap = want[0] - want[1]
+        bi_bad = int(((got[2] != want[2]) & (gap > ATOL)).sum())
+        log(f"[table] table 0, B1 over {-(-V // 4096)} chunks of 4,096 rows "
+            f"vs plain: "
+            f"max |best, second err| {err:.3e}, argbest equal "
+            f"{(got[2] == want[2]).float().mean().item():.6f} (untied "
+            f"mismatches {bi_bad}), argsecond equal "
+            f"{(got[3] == want[3]).float().mean().item():.6f}")
+        expect(err <= ATOL and bi_bad == 0,
+               "[table] B1 over row chunks disagrees with plain")
+        one = maxsim_top2_rows_op(s, t0, V)
+        same = [torch.equal(a, b) for a, b in zip(one, got)]
+        one_err = max((one[k] - got[k]).abs().max().item() for k in (0, 1))
+        log(f"[table] one document of {V} rows vs the chunks: (best, "
+            f"second, argbest, argsecond) bit-equal {same}, max |err| "
+            f"{one_err:.3e}")
+        expect(one_err <= ATOL and bool(((one[2] == got[2])
+                                         | (gap <= ATOL)).all()),
+               "[table] one-doc B1 launch disagrees with the chunked one")
+        e4 = tp.table_row_errors(t0, s, 4096)
+        e64 = tp.table_row_errors(t0, s, 65536)
+        ep = tp.table_row_errors(t0, s, 4096, backend="reference")
+        k4, k64, kp = (tp.keep_mask(x, keep_f) for x in (e4, e64, ep))
+        cells = torch.bincount(got[2].long(), minlength=V)
+        flips = int((got[2] != want[2]).sum())
+        tol = ATOL * (2 * int(cells.max()) + flips) / N
+        e_err = (e4 - ep).abs().max().item()
+        near = (e4 <= tol) & (ep <= tol)
+        mask_diff = int((k4 != kp).sum())
+        nz = int((e4 > 0).sum())
+        log(f"[table] table 0 errors: chunk 4,096 vs 65,536 bit-equal "
+            f"{torch.equal(e4, e64)}, keep masks equal "
+            f"{torch.equal(k4, k64)}, equal to prune_table's "
+            f"{torch.equal(k4, keeps[0])}; vs the plain path: max |err| "
+            f"{e_err:.3e} (tol {tol:.3e}: {cells.max().item()} samples in "
+            f"the fullest cell, {flips} argbest flips), keep masks differ in "
+            f"{mask_diff} rows (all with error <= tol: "
+            f"{bool(near[k4 != kp].all())}); rows of nonzero error {nz} of "
+            f"{V} ({nz / V:.4%}; plain {int((ep > 0).sum())}) "
+            f"({time.perf_counter() - t:.2f} s)")
+        expect(torch.equal(e4, e64) and torch.equal(k4, k64)
+               and torch.equal(k4, keeps[0]),
+               "[table] errors or masks change with the chunk size")
+        expect(e_err <= tol and bool(near[k4 != kp].all()),
+               "[table] errors or masks stray from the plain path")
+        flops = 2.0 * N * V * D * split_products(s, t0)
+        b_ms, b_by = bound(flops, nbytes(s, t0) + N * 16, tc_flops=flops)
+        k_ms = cuda_ms(lambda: maxsim_top2_rows_op(s, t0, 4096), reps=3)
+        p_ms = cuda_ms(lambda: maxsim_top2_rows_ref(s, t0, 4096), reps=1)
+        log(f"[table] B1 a table on the path {ms / n_f:.3f} ms; "
+            f"maxsim_top2_rows_op on table 0 {k_ms:.3f} ms (the merge "
+            f"included), its plain version {p_ms:.3f} ms; bound "
+            f"{b_ms:.3f} ms ({b_by}; {split_products(s, t0)} bf16 products "
+            f"a score, d {D} in the kernel's 128-wide planes)")
+        del tables, keeps, s, t0, got, want, one, e4, e64, ep, k4, k64, kp
+        del gap, cells, near
+        gc.collect()
+        torch.cuda.empty_cache()
+
     @torch.no_grad()
     def recsys_phase():
         """Phases 11 and 12, ``[recsys]``: dlrm-rm2, dcn-v2 and wide-deep
@@ -2946,7 +3173,11 @@ def main() -> int:
                             g.reshape(-1, 1), "sum"))
         held.append(b8_case("dlrm-rm2 user tower mean", model.tables, g,
                             "mean"))
-        del model, t3, emb, want, got, ref, sparse, g
+        del t3, emb, want, got, ref, sparse, g
+        gc.collect()
+        torch.cuda.empty_cache()
+        table_phase(model, cfg)
+        del model
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2997,6 +3228,8 @@ def main() -> int:
                                      {"launches": 0, "path_ms": 0.0})
         r_["grid"] = grid_counts.get(r_["name"],
                                      {"launches": 0, "path_ms": 0.0})
+        r_["table"] = table_counts.get(r_["name"],
+                                       {"launches": 0, "path_ms": 0.0})
     log(json.dumps({"kernels": rows}))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

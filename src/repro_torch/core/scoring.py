@@ -72,8 +72,28 @@ def top2_from_scores(scores, alive):
     return best, second, bi.to(torch.int32), si.to(torch.int32)
 
 
+def doc_scores(samples, d_emb):
+    """samples @ d_emb.T for each doc: samples (N, dim), ``d_emb``
+    (..., m, dim) -> (..., N, m), one product a doc.  A product over a
+    batch of docs — ``samples @ batch.mT`` folds the batch into the rows
+    of one GEMM, a batched product picks its blocking by the batch
+    count — gives a doc other bits beside other batchmates (MKL at
+    several threads, and at one thread once the folded rows change;
+    cuBLAS picks kernels by shape), so pruning would depend on a doc's
+    bucket or data shard.  A doc's own product is the same call
+    whatever shares its batch."""
+    if d_emb.dim() == 2:
+        return samples @ d_emb.T
+    lead, (m, dim) = d_emb.shape[:-2], d_emb.shape[-2:]
+    flat = d_emb.reshape(-1, m, dim)
+    if not flat.shape[0]:
+        return samples.new_zeros(lead + (samples.shape[0], m))
+    return torch.stack([samples @ d.T for d in flat]).reshape(
+        lead + (samples.shape[0], m))
+
+
 def top2_scores(samples, d_emb, d_mask):
     """Per-sample (best, second, argbest, argsecond) of samples @ d_emb.T
     — the oracle for the ``maxsim_top2`` kernel.  ``d_emb`` (m, dim) or a
     batch (B, m, dim) with ``d_mask`` (B, m)."""
-    return top2_from_scores(samples @ d_emb.transpose(-1, -2), d_mask)
+    return top2_from_scores(doc_scores(samples, d_emb), d_mask)

@@ -18,11 +18,17 @@ Python loop over steps in which each step is a few launches for the
 whole bucket — never one launch per document, and no host sync inside
 the loop.
 
-Determinism: the Eq. 8 accumulation (a segment sum of gaps by cell) is
-a one-hot batched product, as the reference's shortlist path writes it
-(``voronoi.py:418-419``), not ``index_add_``: atomics sum in an order
-that changes from run to run on the card, and the greedy argmin over
-errors would then flip on near-ties from one run to the next.
+Determinism and batch invariance: a doc's (ranks, errs, orders) are the
+same bits whatever docs share its batch, bucket or data shard.  Score
+products take one product a doc (``scoring.doc_scores``).  The Eq. 8
+accumulation (a segment sum of gaps by cell) is, on the card, a one-hot
+batched product in fixed-size doc chunks, as the reference's shortlist
+path writes it (``voronoi.py:418-419``), not ``index_add_``: atomics sum
+in an order that changes from run to run, and the greedy argmin over
+errors would then flip on near-ties from one run to the next.  On the
+CPU it is ``scatter_add_``, which sums each doc's gaps in sample order
+(MKL's batched product gives a doc other bits at another position in
+its chunk).
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import backend as backend_lib
-from repro_torch.core.scoring import NEG_INF, top2_from_scores, top2_scores
+from repro_torch.core.scoring import (NEG_INF, doc_scores,
+                                     top2_from_scores, top2_scores)
 from repro_torch.kernels.maxsim_top2.ops import (maxsim_top2_op,
                                                  maxsim_top2_update_op)
 from repro_torch.kernels.maxsim_topk.ops import maxsim_topk_op
@@ -75,13 +82,15 @@ _CELL_DOCS = 64
 
 
 def _cell_sums(gap, bi, m: int):
-    """sum_n gap[b, n] * [bi[b, n] == t] -> (B, m), as a one-hot batched
-    product (deterministic; see module docstring) in chunks of a fixed
-    number of docs that depends on (N, m) only, the last chunk
-    zero-padded: a batched product's blocking depends on its batch
-    count (on the card and on the CPU), so a doc's sums are the same
-    bits whichever docs share its bucket or its data shard."""
+    """sum_n gap[b, n] * [bi[b, n] == t] -> (B, m), deterministic and
+    the same bits whichever docs share a doc's bucket or data shard (see
+    module docstring).  On the CPU, ``scatter_add_`` in sample order; on
+    the card, a one-hot batched product in chunks of a fixed number of
+    docs that depends on (N, m) only, the last chunk zero-padded (a
+    batched product's blocking depends on its batch count)."""
     B, n = gap.shape
+    if gap.device.type == "cpu":
+        return gap.new_zeros((B, m)).scatter_add_(1, bi, gap)
     tok = torch.arange(m, device=gap.device, dtype=bi.dtype)
     step = max(1, min(_CELL_DOCS, _ONEHOT_BUDGET // max(n * m, 1)))
     pad = (-B) % step
@@ -198,7 +207,7 @@ def _pruning_order_reference(d_embs, d_masks, samples, *, step_size,
     ``bf16_scores`` caches the masked scores in bf16, so every reduction
     and the errors run in bf16 as in the reference; ``single_pass``
     reduces each row once (:func:`_top2_single_pass`)."""
-    scores = samples @ d_embs.transpose(-1, -2)
+    scores = doc_scores(samples, d_embs)
     scores = torch.where(d_masks[:, None, :], scores, NEG_INF)
     if bf16_scores:
         scores = scores.bfloat16()
@@ -242,7 +251,7 @@ def _pruning_order_shortlist(d_embs, d_masks, samples, *, shortlist,
     dev = d_embs.device
     if rescan == "dense":
         scores = torch.where(d_masks[:, None, :],
-                             samples @ d_embs.transpose(-1, -2), NEG_INF)
+                             doc_scores(samples, d_embs), NEG_INF)
         if bf16_scores:
             scores = scores.bfloat16()
 
@@ -554,7 +563,7 @@ def mean_error(d_emb, d_mask, keep_mask, samples, *,
     ``ball_normalized`` the Eq. 7 factor 1/2 converts it to the ball
     measure.  ``d_emb`` (m, dim) or a batch (B, m, dim): one ME per
     document."""
-    s = samples @ d_emb.transpose(-1, -2)
+    s = doc_scores(samples, d_emb)
     s_all = torch.where(d_mask[..., None, :], s, NEG_INF)
     s_keep = torch.where((d_mask & keep_mask)[..., None, :], s, NEG_INF)
     me = (s_all.amax(-1) - s_keep.amax(-1)).mean(-1)
@@ -595,7 +604,7 @@ def _beam_chunk(d_emb, d_mask, samples, beam, target):
     n = samples.shape[0]
     dev = d_emb.device
     scores = torch.where(d_mask[:, None, :],
-                         samples @ d_emb.transpose(-1, -2), NEG_INF)
+                         doc_scores(samples, d_emb), NEG_INF)
     alive = d_mask[:, None, :].expand(B, beam, m).clone()
     cum = torch.full((B, beam), torch.inf, device=dev)
     cum[:, 0] = 0.0                    # only beam 0 is live at the start

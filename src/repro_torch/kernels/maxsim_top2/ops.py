@@ -15,6 +15,9 @@ entry) into scratch allocated here; the kernel takes dim <= 128.
   ``skip_unaffected=False`` path, which its batch entry uses).
 * :func:`voronoi_errors_fused` — Eq. 8 per-token errors from one
   kernel pass.
+* :func:`maxsim_top2_rows_op` — the same top-2 over every row of one
+  large table (Voronoi table pruning): the rows in chunks launched as
+  the documents of one launch, merged on the device.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.maxsim_top2.ref import maxsim_top2_ref
+from repro_torch.kernels.maxsim_top2.ref import (maxsim_top2_ref,
+                                                 maxsim_top2_rows_ref,
+                                                 merge_chunk_top2)
 from repro_torch.kernels.maxsim_topk.ops import DIM_MAX
 
 
@@ -92,3 +97,34 @@ def voronoi_errors_fused(samples, tokens, alive):
     from repro_torch.core.voronoi import token_errors
     state = maxsim_top2_op(samples, tokens, alive)
     return token_errors(state, alive, samples.shape[0])
+
+
+def maxsim_top2_rows_op(samples, table, chunk: int = 4096):
+    """samples (N, dim); table (V, dim) -> (best, second, argbest,
+    argsecond) over every row, each (N,); f32, f32, int32, int32.
+
+    One B1 launch takes the table as ceil(V / chunk) documents of
+    ``chunk`` rows (the last padded with dead zero rows), so a table of
+    a million rows fills the card's grid and the split pre-pass runs a
+    block a chunk, where one document of V rows would run 64 blocks and
+    one pre-pass block; :func:`~.ref.merge_chunk_top2` then merges the
+    chunks' (C, N) results on the device.  A CPU tensor runs
+    :func:`~.ref.maxsim_top2_rows_ref`.  Counts one launch."""
+    if table.device.type == "cpu":
+        return maxsim_top2_rows_ref(samples, table, chunk)
+    if table.device.type != "cuda":
+        raise ValueError(f"maxsim_top2 runs on cpu or cuda, not "
+                         f"{table.device}")
+    V, dim = table.shape
+    if V < 1 or chunk < 1:
+        raise ValueError(f"need a table of >= 1 row and chunk >= 1, got "
+                         f"{V} rows and chunk {chunk}")
+    C = -(-V // chunk)
+    pad = C * chunk - V
+    rows = table if not pad else torch.cat([table,
+                                            table.new_zeros((pad, dim))])
+    alive = torch.ones(C * chunk, dtype=torch.bool, device=table.device)
+    alive[V:] = False
+    out = _launch(samples, rows.view(C, chunk, dim), alive.view(C, chunk))
+    starts = torch.arange(C, device=table.device) * chunk
+    return merge_chunk_top2(*out, starts=starts)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.scoring import NEG_INF
+from repro_torch.core.scoring import NEG_INF, doc_scores
 
 
 def topk_lowest_index(scores, k: int):
@@ -24,6 +24,6 @@ def topk_lowest_index(scores, k: int):
 def maxsim_topk_ref(samples, tokens, alive, k: int):
     """samples (N, dim); tokens (..., m, dim); alive (..., m) ->
     values (..., N, k) f32 and indices (..., N, k) int32."""
-    scores = samples.float() @ tokens.float().transpose(-1, -2)
+    scores = doc_scores(samples.float(), tokens.float())
     scores = torch.where(alive[..., None, :], scores, NEG_INF)
     return topk_lowest_index(scores, k)

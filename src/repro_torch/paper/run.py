@@ -8,8 +8,10 @@ Prints the reference harness's ``name,us_per_call,derived`` CSV and the
 drivers).  With no module named, runs them all.  ``--scale bench`` is
 the reference's CPU-scaled encoders and corpus, ``full`` the full
 ``colbert`` config on a 4x corpus (``common.FULL``); ``--cache`` keeps
-the trained encoders as checkpoints there.  Runs on ``cuda`` unless
-``--device cpu``.
+the trained encoders as checkpoints there.  ``speedup`` also runs the
+pruning-backend and ragged-pruning sweeps (the main path's shapes at
+``full``), ``kernels`` the kernel micro-benchmarks at the reference's
+shapes.  Runs on ``cuda`` unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ import sys
 import traceback
 
 from repro_torch.paper import (common, fig1_geometry, fig3_aggressive,
-                               fig45_positions, fig6_me_ndcg, speedup,
-                               table1_indomain, table2_ablation,
+                               fig45_positions, fig6_me_ndcg, kernels,
+                               speedup, table1_indomain, table2_ablation,
                                table3_beir)
 
 MODULES = {
@@ -32,6 +34,7 @@ MODULES = {
     "fig45": fig45_positions,
     "fig6": fig6_me_ndcg,
     "speedup": speedup,
+    "kernels": kernels,
 }
 
 

@@ -102,6 +102,24 @@ with tempfile.TemporaryDirectory() as d:
     step, tree = checkpoint.restore_latest(d, {"w": torch.zeros(3)})
     assert step == 9 and tree["w"].dtype == torch.bfloat16, tree
 print("train and checkpoint cpu ok")
+
+from repro_torch.core.table_pruning import prune_table
+from repro_torch.paper import kernels as paper_kernels, speedup
+keep = prune_table(torch.Generator().manual_seed(0), torch.randn(50, 8), 0.5,
+                   n_samples=64)
+assert keep.dtype == torch.bool and int(keep.sum()) == 25
+try:
+    paper_kernels.run()
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+    print("paper kernels raised without cuda")
+else:
+    raise SystemExit("paper.kernels ran without CUDA and without device='cpu'")
+rows, (holds, _, _), _ = paper_kernels.run(device="cpu")
+bk = speedup.run_pruning_backends(n_docs=2, m=8, dim=8, n_samples=32,
+                                  device="cpu")
+assert holds and all(bk[n] > 0 for n in speedup.BACKEND_RUNS)
+print("table pruning and paper modules cpu ok")
 """
 
 
@@ -132,6 +150,8 @@ def test_port_imports_and_runs_with_jax_blocked():
     assert "serve_ctr cpu ok" in out.stdout
     assert "train raised without cuda" in out.stdout
     assert "train and checkpoint cpu ok" in out.stdout
+    assert "paper kernels raised without cuda" in out.stdout
+    assert "table pruning and paper modules cpu ok" in out.stdout
 
 
 def test_kernel_wrappers_take_plain_version_on_cpu():
@@ -139,13 +159,15 @@ def test_kernel_wrappers_take_plain_version_on_cpu():
     from repro_torch.kernels.colbert_maxsim.ops import (
         colbert_maxsim_multi_op)
     from repro_torch.kernels.embedding_bag.ops import embedding_bag_op
-    from repro_torch.kernels.maxsim_top2.ops import maxsim_top2_op
+    from repro_torch.kernels.maxsim_top2.ops import (maxsim_top2_op,
+                                                     maxsim_top2_rows_op)
     from repro_torch.kernels.maxsim_topk.ops import maxsim_topk_op
     before = (maxsim_top2_op.launches, maxsim_topk_op.launches,
               colbert_maxsim_multi_op.launches, embedding_bag_op.launches)
     s, t = torch.randn(8, 4), torch.randn(2, 6, 4)
     a = torch.ones(2, 6, dtype=torch.bool)
     maxsim_top2_op(s, t, a)
+    maxsim_top2_rows_op(s, torch.randn(9, 4), chunk=4)
     maxsim_topk_op(s, t, a, k=3)
     colbert_maxsim_multi_op(torch.randn(2, 3, 4), t, a)
     embedding_bag_op(torch.randn(8, 4), torch.zeros(3, 2, dtype=torch.int32))

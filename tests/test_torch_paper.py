@@ -20,7 +20,9 @@ the reference's losses.
 
 import contextlib
 import dataclasses
+import inspect
 import io
+import re
 import types
 
 import numpy as np
@@ -33,6 +35,7 @@ try:
 
     from benchmarks import (bench_fig1_geometry, bench_fig3_aggressive,
                             bench_fig45_positions, bench_fig6_me_ndcg,
+                            bench_kernels, bench_speedup,
                             bench_table1_indomain, bench_table2_ablation,
                             bench_table3_beir)
     from benchmarks import common as j_common
@@ -45,8 +48,9 @@ from repro_torch.core import baselines
 from repro_torch.models.colbert import ColBERT
 from repro_torch.models.convert import params_from_jax
 from repro_torch.paper import (common, fig1_geometry, fig3_aggressive,
-                               fig45_positions, fig6_me_ndcg, run, speedup,
-                               table1_indomain, table2_ablation, table3_beir)
+                               fig45_positions, fig6_me_ndcg, kernels, run,
+                               speedup, table1_indomain, table2_ablation,
+                               table3_beir)
 
 pytestmark = pytest.mark.skipif(jax is None, reason="needs the JAX package")
 
@@ -234,6 +238,49 @@ class TestRows:
         assert "speedup/CLAIM_vp_order_of_magnitude_faster,0.0,holds=" in out
         with pytest.raises(SystemExit):
             run.main(["--device", "cpu", "nope"])
+
+    def test_pruning_sweeps_match_reference_names(self, capsys):
+        """The two sweeps at shapes below the reference's: every backend
+        at a rate above 0, and ``main``'s CSV names (and the ragged
+        claim's name) those of the reference's ``main`` fed the same
+        results."""
+        bk = speedup.run_pruning_backends(n_docs=2, m=10, dim=16,
+                                          n_samples=64, device="cpu")
+        rg = speedup.run_ragged_pruning(n_docs=5, m=12, dim=16,
+                                        n_samples=64, device="cpu")
+        assert set(bk) == set(speedup.BACKEND_RUNS) | {"shape"}
+        assert all(bk[n] > 0 for n in speedup.BACKEND_RUNS)
+        assert rg["flat"] > 0 and rg["bucketed"] > 0
+        assert 4 <= rg["shape"]["mean_len"] <= 12
+        capsys.readouterr()
+
+        def names(module, port):
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(module, "run", lambda *a, **k: (1.0, 2.0, 2))
+                mp.setattr(module, "run_pruning_backends",
+                           lambda *a, **k: bk)
+                mp.setattr(module, "run_ragged_pruning", lambda *a, **k: rg)
+                module.main(**({"device": "cpu"} if port else {}))
+            out = capsys.readouterr().out.splitlines()
+            return [line.split(",")[0] for line in out]
+
+        want = names(bench_speedup, False)
+        assert names(speedup, True) == want
+        assert "speedup/CLAIM_bucketed_pipeline_beats_flat_on_ragged" in want
+
+    def test_kernels_rows_and_claim(self, capsys):
+        """``paper.kernels`` prints the reference's row names in its order
+        and ``CLAIM_fused_matches_oracle`` holds (on the CPU the kernel
+        column is the plain version, and the rows say so)."""
+        kernels.main(device="cpu")
+        out = capsys.readouterr().out.splitlines()
+        want = re.findall(r'"(kernels/[A-Za-z0-9_]+)"',
+                          inspect.getsource(bench_kernels))
+        assert [line.split(",")[0] for line in out] == want
+        assert all("plain version" in line for line in out)
+        claim = out[-1]
+        assert claim.startswith("kernels/CLAIM_fused_matches_oracle,0.0,"
+                                "holds=True;"), claim
 
 
 class TestTrainAndEncode:
