@@ -232,6 +232,11 @@ passed — any failure exits non-zero):
    visible pair on the bf16 tensor cores (Q·Kᵀ, P_hi·V and P_lo·V); the
    earlier bound (P·V at the fp32 rate) and a single bf16 P·V's are
    logged beside it.
+10b. B7 at BERT4Rec's serving shape (512 sequences x 2 heads, S 200, d
+   32, fp32, non-causal: the CUDA-core kernel, its tail tile 8 keys and 8
+   rows wide) against its plain version within 2e-4, timed beside the
+   plain version and ``scaled_dot_product_attention``; bound: 4·d flops
+   per visible pair at the fp32 rate.
 11. Recsys CTR path (``[recsys]``), after the LM's tensors are freed:
    dlrm-rm2 at its full ``CONFIG`` (26 tables of 1,048,576 x 64 fp32,
    6.98 GB, stacked into one (F·V, 64) matrix; random weights from seed
@@ -274,6 +279,38 @@ passed — any failure exits non-zero):
    beside the plain version and ``torch.nn.functional.embedding_bag``
    (the library yardstick, which the port never calls).  Bound: the
    gathered rows, the ids and the output once each at 3.35 TB/s.
+11c. Recsys training and BERT4Rec serving (``[recsys-train]``), after
+   ``[recsys]`` and ``[table]`` have freed their tensors; each model at
+   its full ``CONFIG`` with random weights from seed 0 drawn on the card,
+   built after the previous one is freed, through ``launch.train.run``
+   (preset ``full``):
+   dlrm-rm2 at ``train_batch`` 65,536 (no cut; the 6.98 GB table's dense
+   gradient and two moments make ~28 GB of state): 12 steps
+   uninterrupted, then 6 steps, a stop with a checkpoint in the
+   reference's format and a resume to 12; the losses bit-equal, every
+   train-state leaf bit-equal (the table-sized leaves by an exact
+   integer digest of their bits); median step ms, peak memory, the
+   checkpoint's bytes, and ``ctr_serve_step`` on the trained model on
+   ``fused`` (1 B8 launch, zeroed just before and read just after) equal
+   bit for bit to ``reference``.  dcn-v2 and wide-deep: 4 steps each of
+   one 65,536 batch, as ``tests/test_arch_smoke.py`` asks of the
+   reference (loss finite and falling), then ``ctr_serve_step`` (1 and
+   2 B8 launches).  bert4rec (1,000,002 x 64 fp32 embeddings, 2 blocks,
+   2 heads, seq 200, d_ff 256): the sampled-softmax step at the cell's
+   30 masked positions and 1,024 negatives, batch 8,192 of 65,536 (cut:
+   the plain attention's backward keeps each layer's (B, 2, 200, 200)
+   fp32 scores and probabilities, 21 GB each at 65,536), stopped and
+   resumed as dlrm-rm2, every leaf bit-equal; one full-logit
+   ``bert4rec_train_step`` at batch 2 ((2, 200, 1,000,002) logits);
+   ``serve_p99`` (512 x 200, the whole catalog, top-100) on ``fused``
+   and ``reference`` with B7's launch count zeroed just before each run
+   and read just after (2, one a block, and 0), user vectors within
+   ``B4R_USER_TOL`` and top-100 ids equal wherever the gap to a
+   neighbour exceeds that tolerance times the catalog's largest row L1
+   norm; ``retrieval_cand`` (1 x 200 against the catalog) likewise;
+   ``serve_bulk`` at 32,768 of 262,144 (cut: each (B, 200, 256) FFN
+   hidden is 53.7 GB at 262,144) on ``fused``.  Each run's ms and the
+   phase's seconds are printed.
 13. The ``kernels`` JSON line; ``path_ms`` is each kernel's summed
    event time over the launches ``launches`` counts: the main path (B2,
    bf16 B3/B4), the fused pruning leg (B1), the compressed and routed
@@ -284,7 +321,10 @@ passed — any failure exits non-zero):
    launches and summed kernel ms over phase 4b's three view serves, a
    ``loop`` key: the same over phase 4c's eight loop runs, a ``grid``
    key: the same over phase 4d, and a ``table`` key: the same over
-   phase 11b's 26 tables.
+   phase 11b's 26 tables; B7 also carries a ``bert4rec`` key (launches
+   and summed kernel ms over phase 11c's ``serve_p99`` runs) and B8 a
+   ``ctr_train`` key (the same over phase 11c's ``ctr_serve_step``
+   checks).
 
 Tolerances: retrieval values within 1e-5 abs (unit-norm fp32 inputs,
 dim 128; on norm-11 docs, of a float64 MaxSim); token/doc ids equal
@@ -346,6 +386,16 @@ N_DOCS, N_QUERIES, FUSED_DOCS = 4096, 64, 256
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_STOP, TRAIN_DOCS = 128, 40, 20, 1024
 # [loop]: fresh queries streamed through ServeLoop by this many clients
 LOOP_QUERIES, LOOP_CLIENTS = 1024, 8
+# [recsys-train]: CTR steps at the train_batch shape (no cut), 12 steps
+# stopped after 6 and resumed; BERT4Rec's sampled step at 8,192 of
+# 65,536 and serve_bulk at 32,768 of 262,144 (cuts: attention's backward
+# and the FFN hidden, see phase 11c)
+CTR_TRAIN_BATCH, RT_STEPS, RT_STOP = 65_536, 12, 6
+B4R_TRAIN_BATCH, B4R_BULK = 8_192, 32_768
+# BERT4Rec user vectors, fused (B7) vs reference: B7's fp32 rule (2e-4 a
+# attention output) carried through two blocks' projections and FFNs
+# (gain ~1-3 each at this init) and the mean over 200 positions
+B4R_USER_TOL = 2e-3
 
 
 def log(*a):
@@ -481,8 +531,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.configs import (colbert_base, dcn_v2, dlrm_rm2,
-                                     minitron_4b, wide_deep)
+    from repro_torch.configs import (bert4rec, colbert_base, dcn_v2,
+                                     dlrm_rm2, minitron_4b, wide_deep)
     from repro_torch.core import pruning_pipeline, voronoi
     from repro_torch.kernels import build
     from repro_torch.kernels.colbert_maxsim import ops as cm_ops
@@ -498,8 +548,9 @@ def main() -> int:
     from repro_torch.kernels.maxsim_topk.ref import maxsim_topk_ref
     from repro_torch.data.synthetic import ctr_batch, lm_batch
     from repro_torch.launch.serve import (prefill_lm, retrieve_cand,
-                                          serve_ctr, serve_lm,
-                                          serve_retrieval)
+                                          serve_bert4rec,
+                                          serve_bert4rec_bulk, serve_ctr,
+                                          serve_lm, serve_retrieval)
     from repro_torch.models import recsys
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.retrieval import (RetrievalServer, TokenIndex,
@@ -2839,6 +2890,40 @@ def main() -> int:
         rows[-1]["launches"] = n_fa["fused"]
         rows[-1]["path_ms"] = fa_ms
 
+        # 10b. B7 at BERT4Rec's serving shape: fp32 (the CUDA-core
+        # kernel), non-causal, d 32, S 200 (the last key tile and query
+        # tile 8 wide), within 2e-4 of the plain version.  Bound: 4·d
+        # flops per visible pair (Q·Kᵀ and P·V) at the fp32 rate.
+        bc = bert4rec.CONFIG
+        Bq, H = bert4rec.SHAPES["serve_p99"].dims["batch"], bc.n_heads
+        S, d = bc.seq_len, bc.embed_dim // bc.n_heads
+        q, k, v = (torch.randn((Bq, H, S, d), generator=gen, device="cuda")
+                   for _ in range(3))
+        err = (fa_ops.flash_attention_op(q, k, v)
+               - flash_attention_ref(q, k, v)).abs().max().item()
+        lib_err = (F.scaled_dot_product_attention(q, k, v)
+                   - flash_attention_ref(q, k, v)).abs().max().item()
+        ms = cuda_ms(lambda: fa_ops.flash_attention_op(q, k, v))
+        plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v), reps=2)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        flops = 4.0 * d * S * S * Bq * H
+        nb = nbytes(q, k, v) + nbytes(q)
+        b_ms, b_by = bound(flops, nb)
+        log(f"[kernel] flash_attention bert4rec: B={Bq} H={H} S={S} d={d} "
+            f"fp32 non-causal: max_abs_err {err:.3e} (SDPA vs plain "
+            f"{lib_err:.3e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+            f"library (SDPA) {lib_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}; "
+            f"{flops:.4g} flops at the fp32 rate, {100 * b_ms / ms:.1f} % of "
+            f"it; {nb} bytes)")
+        expect(err <= 2e-4, "flash_attention at the bert4rec shape "
+               "disagrees with plain")
+        rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], err)
+        rows[-1]["bert4rec_shape"] = {
+            "shape": [Bq, H, S, d], "dtype": "float32", "causal": False,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        del q, k, v
+
     table_counts = {}
 
     @torch.no_grad()
@@ -3205,6 +3290,303 @@ def main() -> int:
         rows[-1]["launches"] = bulk_launches
         rows[-1]["path_ms"] = bulk_b8_ms
 
+    b7_bert4rec = {"launches": 0, "path_ms": 0.0}
+    b8_ctr_train = {"launches": 0, "path_ms": 0.0}
+
+    def digest(t):
+        """An exact integer digest of a 4-byte tensor's bits: the int64
+        sum of its 32-bit words weighted by position mod 65,521 (plus 1),
+        in chunks on the tensor's device, wrapping.  Equal digests stand
+        for bit-equal table-sized leaves without a second copy of
+        either."""
+        w = t.detach().reshape(-1).view(torch.int32)
+        total = torch.zeros((), dtype=torch.int64, device=w.device)
+        for c in range(0, w.numel(), 1 << 26):
+            x = w[c:c + (1 << 26)].long()
+            pos = torch.arange(c, c + x.numel(), device=w.device) % 65521
+            total += (x * (pos + 1)).sum()
+        return int(total)
+
+    def state_digests(state):
+        return [(n, digest(x)) for n, x in
+                checkpoint.tree_flatten(train_step.state_tree(state))]
+
+    def ctr_serve_check(tag, model, batch, want_launches):
+        """``ctr_serve_step`` on ``fused`` (B8's launches zeroed just
+        before and read just after) against ``reference``, bit for bit;
+        the launches and kernel ms go to B8's ``ctr_train`` key."""
+        fused = train_step.ctr_serve_step(recsys.ctr_forward,
+                                          backend="fused")
+        fused(model, {k: v[:8] for k, v in batch.items()})   # warm-up
+        embedding_bag_op.launches = 0
+        timer.start()
+        t = time.perf_counter()
+        p = fused(model, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        n = embedding_bag_op.launches
+        k_ms = timer.stop().get("embedding_bag", 0.0)
+        b8_ctr_train["launches"] += n
+        b8_ctr_train["path_ms"] += k_ms
+        want = train_step.ctr_serve_step(recsys.ctr_forward,
+                                         backend="reference")(model, batch)
+        equal = torch.equal(p, want)
+        ok = bool(torch.isfinite(p).all() & (p >= 0).all() & (p <= 1).all())
+        log(f"[recsys-train] {tag} ctr_serve_step (trained, batch "
+            f"{p.shape[0]}) fused: {ms:.3f} ms, embedding_bag launches {n} "
+            f"({k_ms:.3f} ms); equals reference bit for bit: {equal}; "
+            f"probabilities finite in [0, 1]: {ok}")
+        expect(n == want_launches, f"{tag} ctr_serve_step launched "
+               f"embedding_bag {n} times, expected {want_launches}")
+        expect(equal and ok, f"{tag} ctr_serve_step disagrees or malformed")
+
+    def stop_resume(arch, batch, ckpt, after=None):
+        """``launch.train.run`` at preset ``full``: RT_STEPS steps
+        uninterrupted, then RT_STOP steps stopped with a checkpoint and a
+        resumed run to RT_STEPS; losses and train-state leaves held bit
+        for bit.  ``after(model)`` runs on the uninterrupted run's model
+        before it is freed."""
+        kw = dict(preset="full", steps=RT_STEPS, batch=batch, log_every=0,
+                  ckpt_every=0)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        full = train_lib.run(arch, **kw)
+        full_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        want = state_digests(full["state"])
+        losses, step_ms = full["losses"], [x * 1e3 for x in full["step_s"]]
+        n_params = sum(p.numel() for p in full["state"]["params"].parameters())
+        if after is not None:
+            after(full["state"]["params"])
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        part = train_lib.run(arch, ckpt_dir=str(ckpt), stop_after=RT_STOP,
+                             **kw)
+        part_s, part_losses = time.perf_counter() - t, part["losses"]
+        del part
+        gc.collect()
+        torch.cuda.empty_cache()
+        ck_bytes = sum(f.stat().st_size for f in
+                       (ckpt / f"step_{RT_STOP:09d}").iterdir())
+        t = time.perf_counter()
+        resumed = train_lib.run(arch, ckpt_dir=str(ckpt), **kw)
+        resumed_s = time.perf_counter() - t
+        got = state_digests(resumed["state"])
+        start, rest = resumed["start"], resumed["losses"]
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(ckpt, ignore_errors=True)
+        med = statistics.median(step_ms)
+        log(f"[recsys-train] {arch} batch {batch}: {n_params} params; "
+            f"losses (uninterrupted) {json.dumps(losses)}")
+        log(f"[recsys-train] {arch} step ms (uninterrupted, host clock to "
+            f"the loss on the host): median {med:.2f}, first "
+            f"{step_ms[0]:.2f}, max {max(step_ms):.2f}; "
+            f"{batch / med * 1e3:.0f} samples/s; peak allocated "
+            f"{peak / 1e9:.3f} GB ({base / 1e9:.3f} GB before the run); "
+            f"calls: uninterrupted {full_s:.2f} s, "
+            f"stopped at {RT_STOP} with its checkpoint {part_s:.2f} s, "
+            f"resumed (restore, {RT_STEPS - RT_STOP} steps, checkpoint) "
+            f"{resumed_s:.2f} s; checkpoint {ck_bytes} bytes")
+        same = part_losses + rest == losses
+        diff = [n for (n, a), (_, b) in zip(got, want) if a != b]
+        log(f"[recsys-train] {arch} resumed from step {start}: losses "
+            f"bit-equal {same}; leaves whose digests differ {diff} (of "
+            f"{len(want)})")
+        expect(start == RT_STOP and same and not diff
+               and len(got) == len(want),
+               f"{arch}: the resumed run differs from the uninterrupted one")
+        expect(all(np.isfinite(x) for x in losses), f"{arch}: a loss is "
+               f"not finite")
+        return losses
+
+    def recsys_train_phase():
+        """Phase 11c, ``[recsys-train]``: CTR training of dlrm-rm2, dcn-v2
+        and wide-deep and BERT4Rec's training and serving at their full
+        configs on the card."""
+        phase_t = time.perf_counter()
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_recsys."))
+        log(f"[recsys-train] checkpoints under a temporary directory "
+            f"({shutil.disk_usage(tmp).free / 1e9:.1f} GB free)")
+        try:
+            # dlrm-rm2 at train_batch, stopped and resumed
+            cfg = dlrm_rm2.CONFIG
+            serve_b = ctr_batch(1, 0, 512, cfg.n_dense, cfg.n_sparse,
+                                cfg.table_rows, device="cuda")
+            stop_resume("dlrm-rm2", CTR_TRAIN_BATCH, tmp / "dlrm",
+                        lambda m: ctr_serve_check("dlrm-rm2", m, serve_b, 1))
+            del serve_b
+
+            # dcn-v2 and wide-deep: one 65,536 batch, 4 steps
+            for mod, want_launches in ((dcn_v2, 1), (wide_deep, 2)):
+                c = mod.CONFIG
+                arch = c.name
+                opt = optimizer.AdamWConfig(lr=1e-3, warmup_steps=0,
+                                            total_steps=4)
+                init_fn, step_fn, make_batch = train_lib.build_trainable(
+                    arch, "full", CTR_TRAIN_BATCH, 32, opt,
+                    torch.device("cuda"))
+                state = train_step.make_train_state(init_fn(0))
+                b = {k: v.to("cuda") for k, v in make_batch(0).items()}
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                losses, ms = [], []
+                for _ in range(4):
+                    t = time.perf_counter()
+                    state, m = step_fn(state, b)
+                    losses.append(float(m["loss"]))
+                    ms.append((time.perf_counter() - t) * 1e3)
+                log(f"[recsys-train] {arch} batch {CTR_TRAIN_BATCH}, one "
+                    f"batch 4 steps: losses {json.dumps(losses)}; step ms "
+                    f"{[round(x, 2) for x in ms]}; peak allocated "
+                    f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+                expect(all(np.isfinite(x) for x in losses)
+                       and losses[-1] < losses[0],
+                       f"{arch}: training loss not finite and falling")
+                ctr_serve_check(arch, state["params"],
+                                {k: v[:512] for k, v in b.items()},
+                                want_launches)
+                del state, b, m
+                gc.collect()
+                torch.cuda.empty_cache()
+
+            bert4rec_phase(tmp)
+        finally:
+            checkpoint.wait_pending()
+            shutil.rmtree(tmp, ignore_errors=True)
+        log(f"[recsys-train] kernel keys: flash_attention bert4rec "
+            f"{json.dumps(b7_bert4rec)}, embedding_bag ctr_train "
+            f"{json.dumps(b8_ctr_train)}; the phase took "
+            f"{time.perf_counter() - phase_t:.2f} s ({smi})")
+
+    def bert4rec_phase(tmp):
+        """BERT4Rec at its full config: the sampled step stopped and
+        resumed, one full-logit step, and the serving cells."""
+        from repro_torch.data.synthetic import bert4rec_batch
+        from repro_torch.launch.serve import _bert4rec_items
+        cfg = bert4rec.CONFIG
+        kept = {}
+
+        def keep(model):
+            kept["model"] = model
+        stop_resume("bert4rec", B4R_TRAIN_BATCH, tmp / "b4r", keep)
+        model = kept.pop("model")
+
+        # one full-logit step at batch 2
+        opt = optimizer.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                    total_steps=RT_STEPS)
+        b = bert4rec_batch(0, 0, 2, cfg.seq_len, cfg.n_items, device="cuda")
+        state = train_step.make_train_state(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        state, m = train_step.bert4rec_train_step(cfg, opt)(state, b)
+        loss = float(m["loss"])
+        ms = (time.perf_counter() - t) * 1e3
+        log(f"[recsys-train] bert4rec full-logit step, batch 2 x "
+            f"{cfg.seq_len} ((2, {cfg.seq_len}, {cfg.n_items + 2}) logits): "
+            f"loss {loss:.5f}, {ms:.2f} ms (first call), peak allocated "
+            f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f} GB "
+            f"above {base / 1e9:.3f} GB")
+        expect(np.isfinite(loss), "bert4rec full-logit loss not finite")
+        del state, m, b
+        gc.collect()
+        torch.cuda.empty_cache()
+        model.requires_grad_(False)
+
+        # serve_p99 on fused and reference
+        B = bert4rec.SHAPES["serve_p99"].dims["batch"]
+        items = _bert4rec_items(cfg, B, 0, "cuda")
+        for backend in ("fused", "reference"):               # warm-up
+            serve_bert4rec(cfg, 4, backend=backend, model=model)
+        tops, n = {}, {}
+        for backend in ("fused", "reference"):
+            fa_ops.flash_attention_op.launches = 0
+            timer.start()
+            tops[backend], tm = serve_bert4rec(
+                cfg, B, k=100 if backend == "fused" else 101,
+                backend=backend, model=model)
+            n[backend] = fa_ops.flash_attention_op.launches
+            k_ms = timer.stop().get("flash_attention", 0.0)
+            if backend == "fused":
+                b7_bert4rec["launches"] += n[backend]
+                b7_bert4rec["path_ms"] += k_ms
+            log(f"[recsys-train] bert4rec serve_p99 {backend}: {B} x "
+                f"{cfg.seq_len} against {cfg.n_items + 2} items, top-100 in "
+                f"{tm['serve_s'] * 1e3:.3f} ms; flash_attention launches "
+                f"{n[backend]} ({k_ms:.3f} ms)")
+        expect(n["fused"] == cfg.n_blocks and n["reference"] == 0,
+               f"bert4rec serve_p99 flash_attention launches {n}, expected "
+               f"{cfg.n_blocks} on fused and 0 on reference")
+        with torch.no_grad():
+            u = {bk: recsys.bert4rec_user_vectors(model, cfg, items,
+                                                  backend=bk)[1]
+                 for bk in ("fused", "reference")}
+        u_err = (u["fused"] - u["reference"]).abs().max().item()
+        score_tol = B4R_USER_TOL * model.embed.weight.abs().sum(-1).max(
+        ).item()
+        (fv, fi), (rv, ri) = tops["fused"], tops["reference"]
+        agree, bad = ids_ok(fi, ri[:, :100], rv, tol=score_tol)
+        s_err = (fv - rv[:, :100]).abs().max().item()
+        log(f"[recsys-train] bert4rec serve_p99 fused vs reference: user "
+            f"vectors max |err| {u_err:.3e} (tol {B4R_USER_TOL}); top-100 "
+            f"ids equal {agree:.5f}, mismatches past a gap of {score_tol:.3e} "
+            f"{bad}; max |score err| {s_err:.3e}")
+        expect(u_err <= B4R_USER_TOL and bad == 0 and s_err <= score_tol
+               and fi.shape == (B, 100)
+               and bool(torch.isfinite(fv).all()),
+               "bert4rec serve_p99 disagrees with the reference backend")
+        del u, tops, items
+
+        # retrieval_cand: one sequence against the catalog
+        one = {}
+        for backend in ("fused", "reference"):               # warm-up
+            serve_bert4rec(cfg, 1, backend=backend, model=model, seed=1)
+        for backend in ("fused", "reference"):
+            one[backend], tm = serve_bert4rec(
+                cfg, 1, k=100 if backend == "fused" else 101,
+                backend=backend, model=model)
+            log(f"[recsys-train] bert4rec retrieval_cand {backend}: 1 x "
+                f"{cfg.seq_len} against {cfg.n_items + 2} items, top-100 in "
+                f"{tm['serve_s'] * 1e3:.3f} ms")
+        (fv, fi), (rv, ri) = one["fused"], one["reference"]
+        agree, bad = ids_ok(fi, ri[:, :100], rv, tol=score_tol)
+        log(f"[recsys-train] bert4rec retrieval_cand fused vs reference: ids "
+            f"equal {agree:.4f}, mismatches past the gap {bad}; best ids "
+            f"{fi[0, :5].tolist()}")
+        expect(bad == 0 and fi.shape == (1, 100),
+               "bert4rec retrieval_cand disagrees with the reference backend")
+
+        # serve_bulk on fused
+        serve_bert4rec_bulk(cfg, 64, backend="fused", model=model)
+        fa_ops.flash_attention_op.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        timer.start()
+        scores, tm = serve_bert4rec_bulk(cfg, B4R_BULK, backend="fused",
+                                         model=model)
+        nb = fa_ops.flash_attention_op.launches
+        k_ms = timer.stop().get("flash_attention", 0.0)
+        log(f"[recsys-train] bert4rec serve_bulk fused: {B4R_BULK} x "
+            f"{cfg.seq_len} scored against one target each in "
+            f"{tm['serve_s'] * 1e3:.3f} ms ({B4R_BULK / tm['serve_s']:.0f} "
+            f"sequences/s); flash_attention launches {nb} ({k_ms:.3f} ms); "
+            f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} "
+            f"GB")
+        expect(nb == cfg.n_blocks and scores.shape == (B4R_BULK,)
+               and bool(torch.isfinite(scores).all()),
+               "bert4rec serve_bulk malformed")
+        del model, scores
+        gc.collect()
+        torch.cuda.empty_cache()
+
     retrieval_phases()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3219,6 +3601,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     recsys_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    recsys_train_phase()
 
     # 13. kernels line
     for r_ in rows:
@@ -3230,6 +3615,10 @@ def main() -> int:
                                      {"launches": 0, "path_ms": 0.0})
         r_["table"] = table_counts.get(r_["name"],
                                        {"launches": 0, "path_ms": 0.0})
+        if r_["name"] == "flash_attention":
+            r_["bert4rec"] = b7_bert4rec
+        if r_["name"] == "embedding_bag":
+            r_["ctr_train"] = b8_ctr_train
     log(json.dumps({"kernels": rows}))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

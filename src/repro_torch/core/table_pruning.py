@@ -11,7 +11,9 @@ Where the reference reduces the whole (N, V) score matrix at once (its
 chunks (``kernels.maxsim_top2``'s ``maxsim_top2_rows_op``: B1 on the
 card, its plain version on the CPU), so at dlrm-rm2's 1,048,576 rows and
 8,192 samples nothing (N, V)-shaped (34.4 GB) is built, and sums Eq. 8
-by global cell with a sort (:func:`_cell_sums`), not a one-hot.  The
+by global cell in sample order (``core.segment.segment_rows_sum``: a
+stable sort, then each cell's gaps added one after another; no one-hot
+and no atomics, whose order changes from run to run).  The
 errors are the same bits for any ``chunk``.
 
 With N samples at most N rows can own a sample, so every other row's
@@ -28,34 +30,11 @@ import torch
 
 from repro_torch.core import backend as backend_lib
 from repro_torch.core.sampling import sample_sphere
+from repro_torch.core.segment import segment_rows_sum
 from repro_torch.kernels.maxsim_top2.ops import maxsim_top2_rows_op
 from repro_torch.kernels.maxsim_top2.ref import maxsim_top2_rows_ref
 
 __all__ = ["keep_mask", "prune_table", "table_row_errors"]
-
-
-def _cell_sums(gap, bi, n_rows: int):
-    """sum over n of gap[n] * [bi[n] == r] -> (n_rows,): each row's gaps
-    added in sample order (a stable sort by row, then the runs summed
-    position by position), on the CPU and the card alike — no one-hot
-    (N x V) and no atomics, whose order changes from run to run."""
-    order = torch.sort(bi, stable=True).indices
-    keys, vals = bi[order].long(), gap[order]
-    out = gap.new_zeros(n_rows)
-    if not keys.numel():
-        return out
-    head = torch.ones_like(keys, dtype=torch.bool)
-    head[1:] = keys[1:] != keys[:-1]
-    run = torch.cumsum(head, 0) - 1
-    first = torch.nonzero(head).squeeze(1)
-    pos = torch.arange(keys.numel(), device=keys.device) - first[run]
-    runs = gap.new_zeros((first.numel(), int(pos.max()) + 1))
-    runs[run, pos] = vals
-    acc = runs[:, 0]
-    for j in range(1, runs.shape[1]):
-        acc = acc + runs[:, j]
-    out[keys[first]] = acc
-    return out
 
 
 def table_row_errors(table, samples, chunk: int = 4096,
@@ -70,7 +49,8 @@ def table_row_errors(table, samples, chunk: int = 4096,
     top2 = (maxsim_top2_rows_op if backend == backend_lib.FUSED
             else maxsim_top2_rows_ref)
     best, second, bi, _ = top2(samples, table, chunk)
-    return _cell_sums(best - second, bi, table.shape[0]) / samples.shape[0]
+    return segment_rows_sum(best - second, bi.long(),
+                            table.shape[0]) / samples.shape[0]
 
 
 def keep_mask(errs, keep_fraction: float):

@@ -1,5 +1,5 @@
 """Synthetic data: embedding- and token-level corpora with planted
-relevance, LM prompt batches and CTR batches.
+relevance, LM prompt batches, CTR batches and BERT4Rec batches.
 
 ``embedding_corpus`` and ``domain_shifted`` are copies of the
 reference's (pure numpy): documents are bags of token vectors built
@@ -18,8 +18,11 @@ gives the same arrays as the reference.
 ``lm_batch`` is the counterpart of the reference's ``lm_batch``: uniform
 token ids from a numpy generator seeded with (seed, step).  The
 reference draws from ``jax.random``, so the ids differ from its; tests
-feed the same numpy ids to both packages.  ``ctr_batch`` is the
-counterpart of the reference's ``ctr_batch`` in the same way.
+feed the same numpy ids to both packages.  ``ctr_batch`` and
+``bert4rec_batch`` are the counterparts of the reference's in the same
+way (same keys, ranges and [MASK] = 3 rule), and
+``bert4rec_sampled_batch`` draws the sampled-softmax batch that the
+reference's ``launch.train`` draws inline.
 """
 
 from __future__ import annotations
@@ -190,5 +193,43 @@ def ctr_batch(seed: int, step: int, batch: int, n_dense: int, n_sparse: int,
         "sparse_ids": rng.integers(0, table_rows, size=(batch, n_sparse),
                                    dtype=np.int32),
         "labels": (rng.random(batch) < 0.3).astype(np.float32),
+    }
+    return {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+
+
+def bert4rec_batch(seed: int, step: int, batch: int, seq: int, n_items: int,
+                   mask_rate: float = 0.15, *, device="cpu"):
+    """The masked-item batch: {"items": (batch, seq) int32 inputs, the
+    masked positions [MASK] = 3; "labels": the unmasked ids, uniform in
+    [4, n_items); "mask_positions": (batch, seq) bool Bernoulli
+    (mask_rate); "attn_mask": all True} as tensors on ``device``,
+    deterministic in (seed, step)."""
+    rng = np.random.default_rng((seed, step))
+    items = rng.integers(4, n_items, size=(batch, seq), dtype=np.int32)
+    maskpos = rng.random((batch, seq)) < mask_rate
+    arrays = {"items": np.where(maskpos, 3, items).astype(np.int32),
+              "labels": items, "mask_positions": maskpos,
+              "attn_mask": np.ones((batch, seq), bool)}
+    return {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+
+
+def bert4rec_sampled_batch(seed: int, step: int, batch: int, seq: int,
+                           n_items: int, n_masked: int = 4,
+                           n_negatives: int = 32, *, device="cpu"):
+    """The sampled-softmax batch, drawn as the reference's ``launch.train``
+    draws it: {"items": (batch, seq) int32 uniform in [4, n_items),
+    "mask_idx": (batch, n_masked) positions uniform in [0, seq),
+    "labels": (batch, n_masked) ids in [4, n_items), "negatives":
+    (n_negatives,) ids in [4, n_items)} as tensors on ``device``,
+    deterministic in (seed, step)."""
+    rng = np.random.default_rng((seed, step))
+    arrays = {
+        "items": rng.integers(4, n_items, size=(batch, seq), dtype=np.int32),
+        "mask_idx": rng.integers(0, seq, size=(batch, n_masked),
+                                 dtype=np.int32),
+        "labels": rng.integers(4, n_items, size=(batch, n_masked),
+                               dtype=np.int32),
+        "negatives": rng.integers(4, n_items, size=(n_negatives,),
+                                  dtype=np.int32),
     }
     return {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}

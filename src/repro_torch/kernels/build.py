@@ -235,3 +235,16 @@ def require(t: torch.Tensor, what: str, dtype, shape, device) -> None:
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd records and an input requires grad: no kernel
+    of the port has a backward (the reference's Pallas kernels have
+    none either), so a launch would return an output that carries no
+    gradient back, and training would silently stop updating what fed
+    it.  The plain path (``backend="reference"``) is differentiable."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{name}: an input requires grad, and the kernel has no "
+            f"backward; differentiate through the plain path "
+            f"(backend='reference') or call it under torch.no_grad()")

@@ -8,15 +8,18 @@ version).
 The query-batch versions take one product a query, as the kernels do
 (each query's scores read only its own row), so a query's scores are
 the same bits alone or among any batchmates — the serving loop's
-contract.  Each query's product is batched over the docs, so a doc's
-(l, m) token scores are a product of their own, the same bits whichever
-docs share the call — the sharded serving contract (a doc's score does
-not depend on its shard or slab).  Products over a whole query batch or
-over all docs at once are neither: their blocking depends on the batch,
-and on the CPU (MKL) a score can differ in the last bit
-(``tests/test_torch_serve_loop.py`` holds the loop's answers to the query
-served alone, ``tests/test_torch_sharded_serving.py`` sharded answers to
-the single-device one).
+contract.  Each query's product runs over zero-padded blocks of a fixed
+``DOC_BLOCK`` docs, so a doc's (l, m) token scores are the same bits
+whichever docs share the call and wherever it sits among them — the
+sharded serving contract (a doc's score does not depend on its shard or
+slab).  Products over a whole query batch or over all docs at once are
+neither: their blocking depends on the batch, and on the CPU (MKL) a
+score can differ in the last bit (an AVX-512 host at 8 threads gave a
+doc of l 8, m 20 other bits alone than among 37 under one batched
+product; ``tests/test_torch_maxsim_ref_invariance.py`` holds a doc alone
+to the doc in a batch, ``tests/test_torch_serve_loop.py`` the loop's
+answers to the query served alone, ``tests/test_torch_sharded_serving.py``
+sharded answers to the single-device one).
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import torch
 
 from repro_torch.core.scoring import NEG_INF
 from repro_torch.train.compress import dequantize_residual, residual_values
+
+DOC_BLOCK = 64   # docs a batched product; a fixed count (module docstring)
 
 
 def _reduce(s, d_masks, q_masks):
@@ -46,8 +51,18 @@ def colbert_maxsim_ref(q_emb, d_embs, d_masks, q_mask=None):
 
 def _doc_batched(q, d):
     """(n_docs, l, m) token scores of one query q (l, dim) against d
-    (n_docs, m, dim): one product a doc (module docstring)."""
-    return torch.matmul(q[None], d.transpose(1, 2))
+    (n_docs, m, dim): one batched product a block of ``DOC_BLOCK`` docs,
+    the last block zero-padded, so a doc's scores do not depend on the
+    docs beside it (module docstring)."""
+    n = d.shape[0]
+    if not n:
+        return q.new_zeros((0, q.shape[0], d.shape[1]))
+    pad = (-n) % DOC_BLOCK
+    if pad:
+        d = torch.cat([d, d.new_zeros((pad,) + d.shape[1:])])
+    q = q[None]
+    return torch.cat([torch.matmul(q, d[c:c + DOC_BLOCK].transpose(1, 2))
+                      for c in range(0, n + pad, DOC_BLOCK)])[:n]
 
 
 def _per_query(q_embs, d_blocks):

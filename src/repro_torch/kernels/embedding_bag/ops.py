@@ -7,7 +7,9 @@ sum of its rows (``mode="sum"``) or that sum divided by ``nnz``
 wraps, outside [-V, V) gives a NaN row.
 
 A CPU tensor runs the plain version (``ref.py``); a CUDA tensor
-launches the kernel or raises.  ``embedding_bag_op.launches`` counts
+launches the kernel or raises, and raises where autograd records and
+the table requires grad (the kernel has no backward;
+``build.refuse_grad``).  ``embedding_bag_op.launches`` counts
 launches.  The kernel takes a contiguous fp32 table (the configs' type)
 and contiguous int32 ids; it reads 16-byte rows when ``D % 4 == 0`` and
 the table is 16-byte aligned, 4-byte elements otherwise.
@@ -58,6 +60,7 @@ def embedding_bag_op(table, ids, *, mode: str = "sum"):
     _check(table, ids, mode)
     if table.device.type == "cpu":
         return embedding_bag_ref(table, ids, mode)
+    build.refuse_grad("embedding_bag", table)
     if table.device.type != "cuda":
         raise ValueError(f"embedding_bag runs on cpu or cuda, not "
                          f"{table.device}")

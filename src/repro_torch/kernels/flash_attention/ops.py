@@ -8,7 +8,11 @@ plain version repeats k and v on the CPU; the kernel indexes the KV head
 and repeats nothing.
 
 A CPU tensor runs the plain version (``ref.py``); a CUDA tensor launches
-the kernel or raises.  ``flash_attention_op.launches`` counts launches.
+the kernel or raises.  The kernel has no backward: where autograd
+records and an input requires grad, a CUDA tensor raises
+(``build.refuse_grad``) rather than return an output cut from the
+graph; the plain version on the CPU is differentiable.
+``flash_attention_op.launches`` counts launches.
 The kernel takes fp32 or bf16 (q, k and v alike), head dims up to
 128 that are multiples of 8, and contiguous 16-byte-aligned tensors.
 fp32 runs its CUDA-core route; bf16 (the LM path) its Hopper route
@@ -87,6 +91,7 @@ def flash_attention_op(q, k, v, *, causal: bool = False,
             k = k.repeat_interleave(H // KV, dim=-3)
             v = v.repeat_interleave(H // KV, dim=-3)
         return flash_attention_ref(q, k, v, causal=causal, window=window)
+    build.refuse_grad("flash_attention", q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")

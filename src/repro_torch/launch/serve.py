@@ -64,6 +64,18 @@ forward on a CTR batch) for dlrm-rm2, dcn-v2 and wide-deep, and
 :func:`retrieve_cand` its ``retrieval_cand`` cell (the two-tower user
 vector scored against table 0's rows, top-k).  Their lookups run the
 EmbeddingBag kernel on the ``fused`` backend.
+
+BERT4Rec: :func:`serve_bert4rec` is the body of the reference's
+``serve_p99`` and ``retrieval_cand`` cells (``launch/steps.py``): pooled
+user vectors of a batch of item sequences, scored against the whole
+1,000,002-row embedding catalog, top-k with ties to the lowest id;
+:func:`serve_bert4rec_bulk` is its ``serve_bulk`` cell (each user vector
+dotted with one given target item).  The encoder has no key mask there,
+so its attention runs the flash-attention kernel (B7) on ``fused``.
+
+The CLI serves colbert and the LM family.  The reference's CLI has no
+recsys path (for a non-LM arch it decodes an LM smoke config), so the
+port's raises for a recsys arch and names the functions above.
 """
 
 from __future__ import annotations
@@ -83,6 +95,7 @@ from repro_torch.core import backend as backend_lib
 from repro_torch.core import metrics, pruning_pipeline
 from repro_torch.core.sampling import sample_sphere
 from repro_torch.data import synthetic
+from repro_torch.kernels.maxsim_topk.ref import topk_lowest_index
 from repro_torch.models import convert, recsys
 from repro_torch.models import transformer as tfm
 from repro_torch.models.colbert import ColBERTConfig, init_params
@@ -710,11 +723,8 @@ def serve_ctr(cfg, batch: int = 512, *, backend: str | None = None,
     _sync(device)
     timings["batch_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    if isinstance(model, recsys.WideDeep):
-        logits = model(b["sparse_ids"], backend=backend)
-    else:
-        logits = model(b["dense"], b["sparse_ids"], backend=backend)
-    probs = torch.sigmoid(logits)
+    probs = train_step.ctr_serve_step(recsys.ctr_forward,
+                                      backend=backend)(model, b)
     _sync(device)
     timings["forward_s"] = time.perf_counter() - t
     return probs, timings
@@ -740,6 +750,65 @@ def retrieve_cand(cfg, *, k: int = 100, backend: str | None = None,
     _sync(device)
     timings["retrieve_s"] = time.perf_counter() - t
     return out, timings
+
+
+def _bert4rec_items(cfg, batch, seed, device):
+    """``batch`` item sequences of ``cfg.seq_len`` uniform in [4,
+    n_items) (``bert4rec_batch`` with nothing masked), on ``device``."""
+    return synthetic.bert4rec_batch(seed, 0, batch, cfg.seq_len, cfg.n_items,
+                                    mask_rate=0.0, device=device)["items"]
+
+
+@torch.no_grad()
+def serve_bert4rec(cfg, batch: int = 512, *, k: int = 100,
+                   backend: str | None = None, device=None, seed: int = 0,
+                   model=None):
+    """The reference's BERT4Rec ``serve_p99`` cell (batch 512) and, at
+    batch 1, its ``retrieval_cand`` cell: the pooled user vectors of
+    ``batch`` sequences drawn from ``seed`` scored against every row of
+    the embedding catalog, top ``k`` (values and int32 ids, descending,
+    ties to the lowest id: ``lax.top_k``'s rule), on ``device`` (``cuda``
+    unless the caller names another; raises without a GPU, and when
+    ``model`` lives elsewhere).  The model is drawn from ``seed`` on the
+    device unless ``model`` is given; ``backend`` selects the attention
+    path (``fused``: B7).  Returns ((values, ids), the synchronized
+    stage seconds)."""
+    timings = {}
+    model, device = _recsys_model(cfg, model, device, seed, timings)
+    items = _bert4rec_items(cfg, batch, seed, device)
+    t = time.perf_counter()
+    _, user = recsys.bert4rec_user_vectors(model, cfg, items,
+                                           backend=backend)
+    out = topk_lowest_index(recsys.score_candidates(
+        user, model.embed.weight.to(user.dtype)), k)
+    _sync(device)
+    timings["serve_s"] = time.perf_counter() - t
+    return out, timings
+
+
+@torch.no_grad()
+def serve_bert4rec_bulk(cfg, batch: int = 262_144, *,
+                        backend: str | None = None, device=None,
+                        seed: int = 0, model=None):
+    """The reference's BERT4Rec ``serve_bulk`` cell: each of ``batch``
+    pooled user vectors dotted with the embedding of one target item ->
+    (batch,) f32 scores.  Sequences as in :func:`serve_bert4rec`, the
+    targets uniform in [4, n_items) from ``seed``; device, model and
+    backend as there.  Returns (scores, the synchronized stage
+    seconds)."""
+    timings = {}
+    model, device = _recsys_model(cfg, model, device, seed, timings)
+    items = _bert4rec_items(cfg, batch, seed, device)
+    targets = torch.as_tensor(np.random.default_rng((seed, 1)).integers(
+        4, cfg.n_items, size=batch, dtype=np.int32), device=device)
+    t = time.perf_counter()
+    _, user = recsys.bert4rec_user_vectors(model, cfg, items,
+                                           backend=backend)
+    it = model.embed.weight[targets.long()].to(user.dtype)
+    scores = (user * it).sum(-1)
+    _sync(device)
+    timings["serve_s"] = time.perf_counter() - t
+    return scores, timings
 
 
 def top_k_digest(idx, scores) -> str:
@@ -954,6 +1023,13 @@ def main(argv=None):
               f"{top_k_digest(res.idx, res.scores)}")
         return res
     lms = [a for a in configs.all_archs() if configs.get(a).family == "lm"]
+    if args.arch in configs.all_archs() and \
+            configs.get(args.arch).family == "recsys":
+        raise NotImplementedError(
+            f"--arch {args.arch}: the serve CLI has no recsys path (the "
+            f"reference's has none either); serve the recsys family through "
+            f"launch.serve's serve_ctr, retrieve_cand, serve_bert4rec and "
+            f"serve_bert4rec_bulk")
     if args.arch not in lms:
         raise NotImplementedError(
             f"--arch {args.arch}: the port's serve CLI runs colbert and the "

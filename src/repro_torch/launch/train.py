@@ -4,10 +4,17 @@
       --preset smoke --steps 50 --ckpt-dir /tmp/ckpt --ckpt-every 20
 
 Counterpart of ``repro.launch.train`` for the retrieval family (the
-ColBERT encoder); the other families raise ``NotImplementedError``
-until their train steps are ported (ROADMAP § A item 8).  It trains on
-``cuda`` unless the caller passes ``device="cpu"`` (``--device cpu``),
-and raises without a GPU otherwise.
+ColBERT encoder) and the recsys family: dlrm-rm2, dcn-v2 and wide-deep
+train through ``ctr_train_step`` on ``ctr_batch``, bert4rec through the
+sampled-softmax step on ``bert4rec_sampled_batch`` (4 masked positions
+and 32 negatives a batch, as the reference's ``launch.train`` draws
+them; at ``preset="full"`` the ``train_batch`` shape's 30 and 1,024).
+The LM and GNN families, and every arch the port does not have, raise
+``NotImplementedError`` until their train steps are ported (ROADMAP § A
+item 8).  It trains on ``cuda`` unless the caller passes
+``device="cpu"`` (``--device cpu``), and raises without a GPU
+otherwise.  A recsys model is drawn from a generator on the training
+device, so a full config's tables are drawn on the card.
 
 Restart semantics: the driver always restores the newest valid
 checkpoint and resumes the step-indexed data pipeline at the restored
@@ -28,17 +35,25 @@ from repro_torch import configs
 from repro_torch.core import backend as backend_lib
 from repro_torch.data import pipeline, synthetic
 from repro_torch.models import colbert as colbert_lib
+from repro_torch.models import recsys
 from repro_torch.train import checkpoint, elastic, optimizer, train_step
 
 
 def build_trainable(arch: str, preset: str, batch: int, seq: int,
                     opt_cfg: optimizer.AdamWConfig, device):
     """Returns (init_fn(seed) -> model on ``device``, step_fn,
-    make_batch(step) -> dict of numpy arrays).  ``seq`` is the LM
-    family's sequence length; the retrieval family's lengths are its
-    config's."""
+    make_batch(step) -> dict of arrays or CPU tensors).  ``seq`` is the
+    LM family's sequence length; the other families' lengths are their
+    configs'."""
+    if arch not in configs.all_archs():
+        raise NotImplementedError(
+            f"{arch}: the port has no such arch yet; it trains "
+            f"{', '.join(_trainable())} (ROADMAP § A item 8)")
     entry = configs.get(arch)
     cfg = entry.smoke if preset == "smoke" else entry.config
+    if entry.family == "recsys":
+        return _recsys_trainable(arch, entry, cfg, preset, batch, opt_cfg,
+                                 device)
     if entry.family != "retrieval":
         raise NotImplementedError(
             f"{arch}: training the {entry.family} family is not ported yet "
@@ -64,6 +79,39 @@ def build_trainable(arch: str, preset: str, batch: int, seq: int,
     return (init_fn,
             train_step.colbert_train_step(cfg, opt_cfg, reg="sim",
                                           alpha=0.1),
+            make_batch)
+
+
+def _trainable() -> list[str]:
+    return [a for a in configs.all_archs()
+            if configs.get(a).family in ("retrieval", "recsys")]
+
+
+def _recsys_trainable(arch, entry, cfg, preset, batch, opt_cfg, device):
+    """The recsys branch of the reference's ``launch.train``: bert4rec's
+    sampled-softmax step, or the CTR step of dlrm-rm2, dcn-v2 and
+    wide-deep."""
+    def init_fn(seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return recsys.init_model(gen, cfg, device)
+
+    if arch == "bert4rec":
+        dims = entry.shapes["train_batch"].dims
+        n_masked, n_neg = ((dims["n_masked"], dims["n_negatives"])
+                           if preset == "full" else (4, 32))
+
+        def make_batch(s):
+            return synthetic.bert4rec_sampled_batch(
+                0, s, batch, cfg.seq_len, cfg.n_items, n_masked, n_neg)
+
+        return (init_fn, train_step.bert4rec_sampled_train_step(cfg, opt_cfg),
+                make_batch)
+
+    def make_batch(s):
+        return synthetic.ctr_batch(0, s, batch, 13, cfg.n_sparse,
+                                   cfg.table_rows)
+
+    return (init_fn, train_step.ctr_train_step(recsys.ctr_forward, opt_cfg),
             make_batch)
 
 
@@ -110,10 +158,11 @@ def run(arch: str, *, preset: str = "smoke", steps: int = 50, batch: int = 8,
             losses.append(loss)
             monitor.record("host0", step_s[-1])
             if log_every and s % log_every == 0:
+                acc = metrics.get("in_batch_acc")
                 print(f"[train] step {s} loss {loss:.4f} "
                       f"lr {float(metrics['lr']):.2e} "
-                      f"gnorm {float(metrics['grad_norm']):.2f} "
-                      f"acc {float(metrics['in_batch_acc']):.3f}")
+                      f"gnorm {float(metrics['grad_norm']):.2f}"
+                      + ("" if acc is None else f" acc {float(acc):.3f}"))
             if ckpt_dir and ckpt_every and (s + 1) % ckpt_every == 0:
                 checkpoint.save_async(ckpt_dir, s + 1,
                                       train_step.state_tree(state))
@@ -130,7 +179,9 @@ def run(arch: str, *, preset: str = "smoke", steps: int = 50, batch: int = 8,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=configs.all_archs())
+    ap.add_argument("--arch", required=True,
+                    help="a ported arch; another raises naming what is "
+                         "still to port")
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)

@@ -33,6 +33,15 @@ def rms_norm(x, gamma, eps=1e-6):
     return (y * gamma.float()).to(dt)
 
 
+def layer_norm(x, gamma, beta, eps=1e-6):
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(dt)
+
+
 def rope(x, positions, theta: float = 1e4):
     """Rotary position embedding. x: (..., seq, heads, head_dim);
     positions: (..., seq) — (1, S) for a prefill, (B, 1) per row for a
@@ -48,6 +57,24 @@ def rope(x, positions, theta: float = 1e4):
     return out.to(x.dtype)
 
 
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def swiglu(x, w_gate, w_up, w_down):
     """silu(x W_gate) * (x W_up) W_down with ``nn.Linear`` modules."""
     return w_down(F.silu(w_gate(x)) * w_up(x))
+
+
+def mlp(x, ws, bs=None, act=F.relu, final_act: bool = False):
+    """Plain MLP over the last axis; ``ws`` a list of (in, out) weights
+    (the reference's layout, ``x @ w``), ``bs`` their biases or None."""
+    h = x
+    for i, w in enumerate(ws):
+        h = h @ w
+        if bs is not None and bs[i] is not None:
+            h = h + bs[i]
+        if i < len(ws) - 1 or final_act:
+            h = act(h)
+    return h

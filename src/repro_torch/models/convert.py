@@ -23,12 +23,19 @@ to numpy by the caller — and each returns a ``state_dict`` for
   ``embed.T`` in both packages.
 * ``ln1``/``ln2`` (d_model,) per layer and ``ln_f`` stay vectors.
 
-``params_to_jax(sd)`` is the inverse of ``params_from_jax``: it takes a
-``ColBERT`` state_dict, or any dict of tensors under its names (AdamW's
-moments), and returns the reference's nested dict of tensors, layers
-stacked and matrices (in, out), so the port's train state is written
-under the reference's leaf names and layouts.  ``jax_ranks(sd)`` gives
-each entry's rank in that tree (the optimizer's decay rule reads it).
+``params_to_jax(sd, family)`` is the inverse of ``params_from_jax(tree,
+family)``: it takes a state_dict of the family's model, or any dict of
+tensors under its names (AdamW's moments), and returns the reference's
+nested dict of tensors (layers stacked, matrices (in, out), tables
+(F, V, D)), so the port's train state is written under the reference's
+leaf names and layouts.  ``jax_ranks(sd, family)`` gives each entry's
+rank in that tree (the optimizer's decay rule reads it: the reference
+decays every leaf of rank >= 2), and ``jax_place(name, family)`` where
+it lives there.  The families (``family_of(model)``): ``"colbert"``
+(``ColBERT``, the default), ``"lm"`` (``Transformer``: the dense LM
+family and BERT4Rec, whose tree is the LM tree with tied embeddings and
+no ``lm_head``), and ``"dlrm-rm2"``, ``"dcn-v2"``, ``"wide-deep"``
+(``DLRM``, ``DCN``, ``WideDeep``).
 
 ``recsys_params_from_jax(tree, arch_id)`` takes the tree of
 ``repro.models.recsys.dlrm_init``, ``dcn_init`` or ``widedeep_init``
@@ -89,61 +96,132 @@ def lm_params_from_jax(tree) -> dict[str, torch.Tensor]:
     return sd
 
 
-def params_from_jax(tree) -> dict[str, torch.Tensor]:
+def params_from_jax(tree, family: str = "colbert") -> dict[str, torch.Tensor]:
+    """The reference's tree of ``family`` (module docstring) -> a
+    state_dict of the port's model."""
+    if family in _RECSYS_MLPS:
+        return recsys_params_from_jax(tree, family)
+    if family == "lm":
+        return lm_params_from_jax(tree)
+    _check_family(family)
     sd = {f"backbone.{k}": t
           for k, t in lm_params_from_jax(tree["backbone"]).items()}
     sd["proj.weight"] = _tensor(tree["proj"]).T.contiguous()
     return sd
 
 
-_LAYER_LEAF = re.compile(r"backbone\.layers\.(\d+)\.(.+)")
+_LAYER_LEAF = re.compile(r"layers\.(\d+)\.(.+)")
 _LAYER_PATHS = {"ln1": ("ln1",), "ln2": ("ln2",),
                 "attn.wq.weight": ("attn", "wq"),
                 "attn.wk.weight": ("attn", "wk"),
                 "attn.wv.weight": ("attn", "wv"),
                 "attn.wo.weight": ("attn", "wo"),
+                "attn.wq.bias": ("attn", "bq"),
+                "attn.wk.bias": ("attn", "bk"),
+                "attn.wv.bias": ("attn", "bv"),
                 "w_gate.weight": ("ffn", "w_gate"),
                 "w_up.weight": ("ffn", "w_up"),
                 "w_down.weight": ("ffn", "w_down")}
-_TOP_PATHS = {"backbone.embed.weight": ("backbone", "embed"),
-              "backbone.ln_f": ("backbone", "ln_f"),
-              "proj.weight": ("proj",)}
+_LM_TOP = {"embed.weight": ("embed",), "ln_f": ("ln_f",),
+           "lm_head.weight": ("lm_head",)}
+_RECSYS_MLPS = {"dlrm-rm2": ("bot", "top"), "dcn-v2": ("mlp",),
+                "wide-deep": ("mlp",)}
+FAMILIES = ("colbert", "lm") + tuple(_RECSYS_MLPS)
+_RECSYS_LEAF = re.compile(r"(bot|top|mlp|cross)\.(\d+)\.(weight|bias)")
+_RECSYS_TOP = {"tables": ("tables",), "wide": ("wide",), "bias": ("bias",)}
 
 
-def jax_place(name: str) -> tuple[tuple[str, ...], int | None, bool]:
-    """Where a ``ColBERT`` state_dict entry lives in the reference's
-    tree: (key path, layer index on the stacked axis or None, whether
-    the reference holds it transposed: every matrix but the
-    embeddings)."""
-    transposed = name.endswith(".weight") and name != "backbone.embed.weight"
+def _check_family(family: str) -> None:
+    if family not in FAMILIES:
+        raise KeyError(f"no parameter layout for family {family!r}; have "
+                       f"{list(FAMILIES)}")
+
+
+def family_of(model) -> str:
+    """The layout family of a port model (module docstring)."""
+    from repro_torch.models import colbert, recsys, transformer
+    for cls, family in ((colbert.ColBERT, "colbert"),
+                        (transformer.Transformer, "lm"),
+                        (recsys.DLRM, "dlrm-rm2"), (recsys.DCN, "dcn-v2"),
+                        (recsys.WideDeep, "wide-deep")):
+        if isinstance(model, cls):
+            return family
+    raise TypeError(f"no parameter layout for {type(model).__name__}")
+
+
+def _lm_place(name: str, prefix: tuple[str, ...] = ()):
     m = _LAYER_LEAF.fullmatch(name)
+    transposed = name.endswith(".weight") and name != "embed.weight"
     if m:
-        return (("backbone", "layers") + _LAYER_PATHS[m.group(2)],
+        return (prefix + ("layers",) + _LAYER_PATHS[m.group(2)],
                 int(m.group(1)), transposed)
-    return _TOP_PATHS[name], None, transposed
+    return prefix + _LM_TOP[name], None, transposed
 
 
-def jax_ranks(sd: dict[str, torch.Tensor]) -> dict[str, int]:
+def jax_place(name: str, family: str = "colbert"
+              ) -> tuple[tuple, int | None, bool]:
+    """Where a state_dict entry of ``family``'s model lives in the
+    reference's tree: (key path, layer index on the stacked axis or
+    None, whether the reference holds it transposed: every matrix but
+    the embeddings and tables).  A recsys path holds an int where the
+    reference has a tuple (an MLP's ``ws``/``bs``, DCN's ``cross``)."""
+    _check_family(family)
+    if family == "lm":
+        return _lm_place(name)
+    if family == "colbert":
+        if name == "proj.weight":
+            return ("proj",), None, True
+        if not name.startswith("backbone."):
+            raise KeyError(name)
+        return _lm_place(name[len("backbone."):], ("backbone",))
+    if name in _RECSYS_TOP:
+        return _RECSYS_TOP[name], None, False
+    m = _RECSYS_LEAF.fullmatch(name)
+    if not m:
+        raise KeyError(name)
+    group, i, kind = m.group(1), int(m.group(2)), m.group(3)
+    if group == "cross":
+        return ("cross", i, "w" if kind == "weight" else "b"), None, \
+            kind == "weight"
+    return (group, "ws" if kind == "weight" else "bs", i), None, \
+        kind == "weight"
+
+
+def jax_ranks(sd: dict[str, torch.Tensor], family: str = "colbert"
+              ) -> dict[str, int]:
     """Each entry's rank in the reference's tree: one more than its own
-    for a layer's entry (the reference stacks layers on a leading
-    axis)."""
-    return {n: t.dim() + (jax_place(n)[1] is not None)
+    for a layer's entry (the reference stacks layers on a leading axis)
+    and for the stacked (F·V, D) tables, which are (F, V, D) there
+    (W&D's (F·V, 1) wide table is (F, V), rank 2 in both)."""
+    _check_family(family)
+    if family in _RECSYS_MLPS:
+        return {n: t.dim() + (n == "tables") for n, t in sd.items()}
+    return {n: t.dim() + (jax_place(n, family)[1] is not None)
             for n, t in sd.items()}
 
 
-def params_to_jax(sd: dict[str, torch.Tensor]) -> dict:
-    """The inverse of :func:`params_from_jax`: a ``ColBERT`` state_dict
-    (or any dict of tensors under its names, such as AdamW's moments) ->
-    the reference's nested dict, layers stacked on a leading axis and
-    matrices (in, out).  Stacked and transposed leaves are new tensors;
-    the others are the entries themselves, detached."""
+def params_to_jax(sd: dict[str, torch.Tensor], family: str = "colbert", *,
+                  n_features: int | None = None) -> dict:
+    """The inverse of :func:`params_from_jax`: a state_dict of
+    ``family``'s model (or any dict of tensors under its names, such as
+    AdamW's moments) -> the reference's nested dict, layers stacked on a
+    leading axis, matrices (in, out), a recsys model's tables (F, V, D)
+    and W&D's wide table (F, V) for ``n_features`` = F.  Stacked and
+    transposed leaves are new tensors; the others are the entries
+    themselves (or views of them), detached."""
+    if family in _RECSYS_MLPS and not n_features:
+        raise ValueError(f"{family}: the tables' feature count is needed")
     tree: dict = {}
-    stacks: dict[tuple[str, ...], dict[int, torch.Tensor]] = {}
+    stacks: dict[tuple, dict[int, torch.Tensor]] = {}
     for name, t in sd.items():
-        path, layer, transposed = jax_place(name)
+        path, layer, transposed = jax_place(name, family)
         t = t.detach()
         if transposed:
             t = t.T.contiguous()
+        if name == "tables":
+            t = t.view(n_features, -1, t.shape[-1])
+        elif name == "wide":
+            t = t.view(n_features, -1)
         if layer is None:
             _put(tree, path, t)
         else:
@@ -151,25 +229,32 @@ def params_to_jax(sd: dict[str, torch.Tensor]) -> dict:
     for path, by_layer in stacks.items():
         _put(tree, path, torch.stack([by_layer[i]
                                       for i in range(len(by_layer))]))
-    return tree
+    return _tuples(tree)
 
 
-def _put(tree: dict, path: tuple[str, ...], leaf) -> None:
+def _put(tree: dict, path: tuple, leaf) -> None:
     for k in path[:-1]:
         tree = tree.setdefault(k, {})
     tree[path[-1]] = leaf
 
 
-_RECSYS_MLPS = {"dlrm-rm2": ("bot", "top"), "dcn-v2": ("mlp",),
-                "wide-deep": ("mlp",)}
+def _tuples(tree):
+    """Dicts keyed 0..n-1 by int (the recsys paths' tuple positions) ->
+    tuples, as the reference holds them."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _tuples(v) for k, v in tree.items()}
+    if out and all(isinstance(k, int) for k in out):
+        return tuple(out[i] for i in range(len(out)))
+    return out
 
 
 def recsys_params_from_jax(tree, arch_id: str) -> dict[str, torch.Tensor]:
     if arch_id not in _RECSYS_MLPS:
         raise KeyError(f"no recsys model for arch {arch_id!r}; have "
                        f"{sorted(_RECSYS_MLPS)}")
-    tables = np.asarray(tree["tables"])
-    sd = {"tables": _tensor(tables.reshape(-1, tables.shape[-1]))}
+    tables = _tensor(tree["tables"])
+    sd = {"tables": tables.reshape(-1, tables.shape[-1])}
     for name in _RECSYS_MLPS[arch_id]:
         for i, (w, b) in enumerate(zip(tree[name]["ws"], tree[name]["bs"])):
             sd[f"{name}.{i}.weight"] = _tensor(w).T.contiguous()
@@ -178,6 +263,6 @@ def recsys_params_from_jax(tree, arch_id: str) -> dict[str, torch.Tensor]:
         sd[f"cross.{i}.weight"] = _tensor(layer["w"]).T.contiguous()
         sd[f"cross.{i}.bias"] = _tensor(layer["b"])
     if arch_id == "wide-deep":
-        sd["wide"] = _tensor(np.asarray(tree["wide"]).reshape(-1, 1))
+        sd["wide"] = _tensor(tree["wide"]).reshape(-1, 1)
         sd["bias"] = _tensor(tree["bias"])
     return sd

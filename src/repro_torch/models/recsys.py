@@ -1,10 +1,12 @@
-"""Recsys models of the CTR family and the two-tower retrieval head.
+"""Recsys models: the CTR family, BERT4Rec and the two-tower head.
 
 Counterpart of ``repro.models.recsys`` for DLRM (RM-2), DCN-v2 and Wide
 & Deep, their configs and ``*_init``/``*_forward`` functions, the
 model-level ``embedding_bag``, ``user_tower``, ``score_candidates`` and
-``retrieve_topk``.  BERT4Rec, ``alltoall_lookup`` (multi-GPU) and the
-training heads are not ported yet.
+``retrieve_topk``, and BERT4Rec (``Bert4RecConfig``, ``bert4rec_init``,
+``bert4rec_forward``, ``bert4rec_user_vectors``,
+``bert4rec_sampled_logits``, ``sampled_softmax_loss``).
+``alltoall_lookup`` (row-sharded tables) is not ported yet.
 
 Tables.  The reference draws each model's F tables as one (F·V, D)
 matrix and views it as (F, V, D); here every model keeps the stacked
@@ -27,6 +29,17 @@ function (0 + x = x in fp32).
 Everything else is plain PyTorch in fp32 (TF32 off, ``core/backend``);
 the MLPs' matmuls sum in another order than XLA's, so logits agree with
 the reference to fp32 rounding, not bit for bit.
+
+Training differentiates the ``reference`` path: neither package has a
+backward kernel, and the kernel wrappers refuse an input that requires
+grad.  The plain lookups gather with ``core.segment.take_rows``, whose
+backward adds a row's repeats in a fixed order, so a resumed run is bit
+for bit an uninterrupted one.
+
+BERT4Rec is the port's bidirectional ``Transformer`` (fp32, tied
+embeddings, vocab ``n_items + 2``); ``bert4rec_init`` returns one.  Its
+full-sequence attention takes the flash-attention kernel (B7) on
+``fused`` when there is no key mask, as the serving cells run it.
 """
 
 from __future__ import annotations
@@ -39,17 +52,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import backend as backend_lib
+from repro_torch.core.segment import take_rows
 from repro_torch.kernels.embedding_bag.ops import INT32_MAX, embedding_bag_op
 from repro_torch.kernels.embedding_bag.ref import (bag_reduce, gather_rows,
                                                    wrap_ids)
 from repro_torch.kernels.maxsim_topk.ref import topk_lowest_index
+from repro_torch.models import transformer as tfm
 from repro_torch.models.common import dense_init
 
 __all__ = [
-    "DCN", "DCNConfig", "DLRM", "DLRMConfig", "WideDeep", "WideDeepConfig",
-    "dcn_forward", "dcn_init", "dlrm_forward", "dlrm_init", "embedding_bag",
-    "init_model", "retrieve_topk", "score_candidates", "user_tower",
-    "widedeep_forward", "widedeep_init",
+    "Bert4RecConfig", "DCN", "DCNConfig", "DLRM", "DLRMConfig", "WideDeep",
+    "WideDeepConfig", "bert4rec_forward", "bert4rec_init",
+    "bert4rec_sampled_logits", "bert4rec_user_vectors", "ctr_forward",
+    "dcn_forward",
+    "dcn_init", "dlrm_forward", "dlrm_init", "embedding_bag", "init_model",
+    "retrieve_topk", "sampled_softmax_loss", "score_candidates",
+    "user_tower", "widedeep_forward", "widedeep_init",
 ]
 
 
@@ -99,11 +117,13 @@ def _resolve(backend, tables):
 
 def _feature_rows(tables, ids):
     """The plain per-feature gather: stacked (F·V, D) viewed as (F, V, D),
-    ``tables[f][ids[:, f]]`` under ``jnp.take``'s rule -> (B, F, D)."""
+    ``tables[f][ids[:, f]]`` under ``jnp.take``'s rule -> (B, F, D),
+    through ``take_rows`` (a backward in a fixed order)."""
     n_feat = ids.shape[1]
-    t3 = tables.view(n_feat, -1, tables.shape[1])
-    safe, valid = wrap_ids(ids, t3.shape[1])
-    rows = t3[torch.arange(n_feat, device=ids.device)[None, :], safe]
+    V = tables.shape[0] // n_feat
+    safe, valid = wrap_ids(ids, V)
+    offset = torch.arange(n_feat, device=ids.device) * V
+    rows = take_rows(tables, safe + offset)
     return torch.where(valid[..., None], rows, float("nan"))
 
 
@@ -387,8 +407,97 @@ def widedeep_forward(model: WideDeep, sparse_ids, *, backend=None):
     return model(sparse_ids, backend=backend)
 
 
+def ctr_forward(model: nn.Module, batch, *, backend=None):
+    """The (B,) logits of a CTR batch (``dense``, ``sparse_ids``) through
+    a DLRM, DCN-v2 or Wide & Deep (which reads no dense features)."""
+    if isinstance(model, WideDeep):
+        return model(batch["sparse_ids"], backend=backend)
+    return model(batch["dense"], batch["sparse_ids"], backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# BERT4Rec [arXiv:1904.06690] — bidirectional transformer over item seqs
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Bert4RecConfig:
+    name: str = "bert4rec"
+    n_items: int = 1_000_000
+    embed_dim: int = 64
+    n_blocks: int = 2
+    n_heads: int = 2
+    seq_len: int = 200
+    d_ff: int = 256
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.float32
+
+    def lm_config(self) -> tfm.LMConfig:
+        return tfm.LMConfig(
+            name="bert4rec-core", n_layers=self.n_blocks,
+            d_model=self.embed_dim, n_heads=self.n_heads,
+            n_kv_heads=self.n_heads, d_ff=self.d_ff,
+            vocab=self.n_items + 2,      # +mask +pad
+            causal=False, tie_embeddings=True, rope_theta=1e4,
+            param_dtype=self.param_dtype, compute_dtype=self.compute_dtype,
+            remat=False)
+
+    def param_count(self) -> int:
+        return self.lm_config().param_count()
+
+
+def bert4rec_init(generator: torch.Generator, cfg: Bert4RecConfig,
+                  device=None) -> tfm.Transformer:
+    """The reference's ``tfm.init_params`` of ``cfg.lm_config()``, drawn
+    from ``generator`` on its device (or ``device``)."""
+    return tfm.init_params(generator, cfg.lm_config(), device)
+
+
+def bert4rec_forward(model: tfm.Transformer, cfg: Bert4RecConfig, item_ids,
+                     attn_mask=None, *, backend=None):
+    """Masked-item logits over the catalog: (B, S, n_items + 2)."""
+    return model(item_ids, attn_mask, backend=backend)
+
+
+def bert4rec_user_vectors(model: tfm.Transformer, cfg: Bert4RecConfig,
+                          item_ids, attn_mask=None, *, backend=None):
+    """(sequence-token embeddings (B, S, D), pooled user vectors (B, D)):
+    the mean over the sequence, or over its ``attn_mask`` positions."""
+    h = model.hidden_states(item_ids, attn_mask, backend=backend)
+    if attn_mask is None:
+        return h, h.mean(dim=1)
+    w = attn_mask[..., None].to(h.dtype)
+    return h, (h * w).sum(1) / torch.clamp(w.sum(1), min=1.0)
+
+
+def bert4rec_sampled_logits(model: tfm.Transformer, cfg: Bert4RecConfig,
+                            item_ids, mask_idx, labels, negatives, *,
+                            backend=None):
+    """The sampled-softmax training head (a full (B, S, 1M) logit tensor
+    is not a real system's training path).  item_ids (B, S); mask_idx
+    (B, M) masked positions; labels (B, M) gold item ids; negatives (N,)
+    shared sampled ids.  Returns (pos_logit (B, M), neg_logits
+    (B, M, N)).  The gathers are ``take_rows`` (a fixed-order
+    backward)."""
+    h = model.hidden_states(item_ids, backend=backend)          # (B, S, D)
+    B, S, D = h.shape
+    rows = torch.arange(B, device=h.device)[:, None] * S + mask_idx.long()
+    hm = take_rows(h.reshape(B * S, D), rows)                   # (B, M, D)
+    table = model.embed.weight.to(h.dtype)                      # (V, D)
+    pos_emb = take_rows(table, labels.long())                   # (B, M, D)
+    neg_emb = take_rows(table, negatives.long())                # (N, D)
+    pos_logit = (hm * pos_emb).sum(-1)                          # (B, M)
+    neg_logits = hm @ neg_emb.T                                 # (B, M, N)
+    return pos_logit, neg_logits
+
+
+def sampled_softmax_loss(pos_logit, neg_logits):
+    all_logits = torch.cat([pos_logit[..., None], neg_logits],
+                           dim=-1).float()
+    return (torch.logsumexp(all_logits, dim=-1) - pos_logit).mean()
+
+
 _INIT = {DLRMConfig: dlrm_init, DCNConfig: dcn_init,
-         WideDeepConfig: widedeep_init}
+         WideDeepConfig: widedeep_init, Bert4RecConfig: bert4rec_init}
 
 
 def init_model(generator: torch.Generator, cfg, device=None) -> nn.Module:

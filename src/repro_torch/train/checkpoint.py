@@ -29,10 +29,21 @@ tree is flattened as ``jax.tree_util`` flattens it: dicts by sorted key
 (``['k']``), NamedTuples by field (``.f``), lists and tuples by index
 (``[i]``); ``None`` holds no leaf.  So a checkpoint written by either
 package restores in the other.
+
+One extension: a msgpack bin object holds less than 4 GiB, so a leaf of
+more than ``BIN_MAX`` bytes (dlrm-rm2's (26, 1,048,576, 64) fp32 tables
+are 6.98 GB) is written as consecutive bin objects of ``BIN_MAX`` bytes
+and a tail, its manifest entry saying how many (``"chunks"``, present
+only above one) and its crc32 running over them all.  The reference's
+writer cannot hold such a leaf (its ``msgpack`` packer raises), so
+every checkpoint it can write is read here unchanged; its reader takes
+no chunked leaf, nor a leaf above ``msgpack``'s default 100 MiB buffer.
+The reader streams the body leaf by leaf into each leaf's own buffer.
 """
 
 from __future__ import annotations
 
+import io
 import itertools
 import json
 import os
@@ -55,6 +66,7 @@ _DTYPE_NAMES = {t: n for n, t in _DTYPES.items()}
 
 # msgpack bin8 / bin16 / bin32: a type byte, then the length big-endian
 _BIN = ((0xC4, 1), (0xC5, 2), (0xC6, 4))
+BIN_MAX = 1 << 31        # bytes a bin object of a chunked leaf (docstring)
 
 
 def atomic_json_dump(path: str, obj) -> None:
@@ -127,22 +139,42 @@ def _bin_header(n: int) -> bytes:
     raise ValueError(f"a msgpack bin object holds < 2**32 bytes, not {n}")
 
 
-def _read_bins(body: memoryview, count: int):
-    """The first ``count`` msgpack bin objects of ``body``, as memoryview
-    slices; raises ``IOError`` on another type or a truncated body."""
-    out, off = [], 0
-    widths = dict(_BIN)
-    while len(out) < count and off < len(body):
-        width = widths.get(body[off])
-        if width is None:
-            raise IOError(f"byte {off} of the body is no msgpack bin object")
-        n = int.from_bytes(body[off + 1:off + 1 + width], "big")
-        start = off + 1 + width
-        if start + n > len(body):
+def _read_bin_header(f) -> int:
+    """The length of the msgpack bin object that starts at ``f``'s
+    position; raises ``IOError`` on another type or a truncated body."""
+    head = f.read(1)
+    if not head:
+        raise IOError("truncated checkpoint body")
+    width = dict(_BIN).get(head[0])
+    if width is None:
+        raise IOError(f"byte {f.tell() - 1} of the body is no msgpack bin "
+                      f"object")
+    raw = f.read(width)
+    if len(raw) != width:
+        raise IOError("truncated checkpoint body")
+    return int.from_bytes(raw, "big")
+
+
+def _read_leaf(f, meta) -> np.ndarray:
+    """A leaf's bytes (its ``chunks`` bin objects, one by default) read
+    from ``f`` into a fresh buffer; raises ``IOError`` on a truncated
+    body, a size other than the manifest's or a bad checksum."""
+    raw = np.empty(meta["nbytes"], np.uint8)
+    view, off, crc = memoryview(raw), 0, 0
+    for _ in range(meta.get("chunks", 1)):
+        n = _read_bin_header(f)
+        if off + n > raw.nbytes:
+            raise IOError(f"{meta['name']}: more bytes than the manifest's")
+        part = view[off:off + n]
+        if f.readinto(part) != n:
             raise IOError("truncated checkpoint body")
-        out.append(body[start:start + n])
-        off = start + n
-    return out
+        crc = zlib.crc32(part, crc)
+        off += n
+    if off != raw.nbytes:
+        raise IOError(f"{meta['name']}: fewer bytes than the manifest's")
+    if (crc & 0xFFFFFFFF) != meta["crc32"]:
+        raise IOError(f"checksum mismatch for {meta['name']}")
+    return raw
 
 
 # Steps with a writer currently inside ``save`` (committed-but-not-
@@ -196,15 +228,19 @@ def _save_locked(root: str, step: int, tree, *, keep: int,
         for name, leaf in tree_flatten(tree):
             t = _host_tensor(leaf, copy=False)
             buf = t.reshape(-1).view(torch.uint8).numpy()
-            manifest["leaves"].append({
-                "name": name,
-                "dtype": _DTYPE_NAMES[t.dtype],
-                "shape": list(t.shape),
-                "crc32": zlib.crc32(buf) & 0xFFFFFFFF,
-                "nbytes": buf.nbytes,
-            })
-            f.write(_bin_header(buf.nbytes))
-            f.write(buf.data)
+            chunks = max(1, -(-buf.nbytes // BIN_MAX))
+            crc = 0
+            for c in range(chunks):
+                part = buf[c * BIN_MAX:(c + 1) * BIN_MAX]
+                crc = zlib.crc32(part, crc)
+                f.write(_bin_header(part.nbytes))
+                f.write(part.data)
+            meta = {"name": name, "dtype": _DTYPE_NAMES[t.dtype],
+                    "shape": list(t.shape), "crc32": crc & 0xFFFFFFFF,
+                    "nbytes": buf.nbytes}
+            if chunks > 1:
+                meta["chunks"] = chunks
+            manifest["leaves"].append(meta)
         f.flush()
         os.fsync(f.fileno())
     man_path = os.path.join(tmp, "manifest.json")
@@ -258,7 +294,9 @@ def list_steps(root: str) -> list[int]:
     return sorted(out)
 
 
-def _read_body(path: str, compression: str) -> memoryview:
+def _open_body(path: str, compression: str):
+    """The checkpoint body as a binary file object (a zstd body
+    decompressed into memory)."""
     if compression == "zstd":
         try:
             import zstandard
@@ -267,11 +305,10 @@ def _read_body(path: str, compression: str) -> memoryview:
                 f"checkpoint {path} is zstd-compressed but the `zstandard` "
                 "package is not installed") from None
         with open(os.path.join(path, _BODY["zstd"]), "rb") as f:
-            return memoryview(
+            return io.BytesIO(
                 zstandard.ZstdDecompressor().decompressobj().decompress(
                     f.read()))
-    with open(os.path.join(path, _BODY[compression]), "rb") as f:
-        return memoryview(f.read())
+    return open(os.path.join(path, _BODY[compression]), "rb")
 
 
 def _verify_and_load(path: str, like_tree):
@@ -285,29 +322,24 @@ def _verify_and_load(path: str, like_tree):
     if compression not in _BODY:
         raise IOError(f"unknown compression {compression!r}")
     metas = manifest["leaves"]
-    bufs = _read_bins(_read_body(path, compression), len(metas))
-    if len(bufs) != len(metas):
-        raise IOError("truncated checkpoint body")
     like = tree_flatten(like_tree)
     if len(like) != len(metas):
         raise IOError(f"leaf count mismatch: tree wants {len(like)}, "
                       f"checkpoint has {len(metas)}")
     leaves = []
-    for meta, buf, (name, like_leaf) in zip(metas, bufs, like):
-        if (zlib.crc32(buf) & 0xFFFFFFFF) != meta["crc32"]:
-            raise IOError(f"checksum mismatch for {meta['name']}")
-        if meta["name"] != name:
-            raise IOError(f"leaf {meta['name']} where the tree has {name}")
-        shape = tuple(meta["shape"])
-        if tuple(getattr(like_leaf, "shape", shape)) != shape:
-            raise IOError(f"{name}: shape {shape}, the tree wants "
-                          f"{tuple(like_leaf.shape)}")
-        dtype = _DTYPES[meta["dtype"]]
-        if len(buf):
-            raw = torch.from_numpy(np.frombuffer(buf, np.uint8).copy())
-            leaves.append(raw.view(dtype).reshape(shape))
-        else:
-            leaves.append(torch.empty(shape, dtype=dtype))
+    with _open_body(path, compression) as f:
+        for meta, (name, like_leaf) in zip(metas, like):
+            if meta["name"] != name:
+                raise IOError(f"leaf {meta['name']} where the tree has "
+                              f"{name}")
+            shape = tuple(meta["shape"])
+            if tuple(getattr(like_leaf, "shape", shape)) != shape:
+                raise IOError(f"{name}: shape {shape}, the tree wants "
+                              f"{tuple(like_leaf.shape)}")
+            raw = torch.from_numpy(_read_leaf(f, meta))
+            dtype = _DTYPES[meta["dtype"]]
+            leaves.append(raw.view(dtype).reshape(shape) if raw.numel()
+                          else torch.empty(shape, dtype=dtype))
     return manifest["step"], tree_unflatten(like_tree, leaves)
 
 

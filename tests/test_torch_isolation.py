@@ -120,6 +120,28 @@ bk = speedup.run_pruning_backends(n_docs=2, m=8, dim=8, n_samples=32,
                                   device="cpu")
 assert holds and all(bk[n] > 0 for n in speedup.BACKEND_RUNS)
 print("table pruning and paper modules cpu ok")
+
+from repro_torch.configs import bert4rec
+from repro_torch.launch.serve import serve_bert4rec
+try:
+    serve_bert4rec(bert4rec.SMOKE, 2)
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+    print("serve_bert4rec raised without cuda")
+else:
+    raise SystemExit("serve_bert4rec ran without CUDA or device='cpu'")
+(_, ids), _ = serve_bert4rec(bert4rec.SMOKE, 2, k=3, device="cpu")
+assert ids.shape == (2, 3), ids.shape
+for arch in ("dlrm-rm2", "bert4rec"):
+    try:
+        train.run(arch, steps=1, batch=2, log_every=0)
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise SystemExit(f"train.run({arch!r}) ran without CUDA")
+    out = train.run(arch, steps=2, batch=2, log_every=0, device="cpu")
+    assert len(out["losses"]) == 2, out["losses"]
+print("recsys train and bert4rec cpu ok")
 """
 
 
@@ -152,6 +174,8 @@ def test_port_imports_and_runs_with_jax_blocked():
     assert "train and checkpoint cpu ok" in out.stdout
     assert "paper kernels raised without cuda" in out.stdout
     assert "table pruning and paper modules cpu ok" in out.stdout
+    assert "serve_bert4rec raised without cuda" in out.stdout
+    assert "recsys train and bert4rec cpu ok" in out.stdout
 
 
 def test_kernel_wrappers_take_plain_version_on_cpu():

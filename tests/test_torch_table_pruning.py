@@ -28,6 +28,7 @@ except ImportError:     # a GPU host without JAX: the cuda test still runs
 from repro_torch.core import table_pruning as tp
 from repro_torch.core import voronoi
 from repro_torch.core.scoring import NEG_INF, top2_from_scores
+from repro_torch.core.segment import segment_rows_sum
 from repro_torch.kernels.maxsim_top2 import ops as t2
 from repro_torch.kernels.maxsim_top2.ref import (maxsim_top2_rows_ref,
                                                  merge_chunk_top2)
@@ -101,10 +102,11 @@ class TestRowErrors:
         bi[::7] = 3                               # one long run
         want = np.zeros(50, np.float32)
         np.add.at(want, bi, gap)                  # sequential, in order
-        got = tp._cell_sums(torch.from_numpy(gap),
-                            torch.from_numpy(bi).int(), 50)
+        # table_row_errors sums Eq. 8 by core.segment.segment_rows_sum
+        got = segment_rows_sum(torch.from_numpy(gap),
+                               torch.from_numpy(bi).int(), 50)
         np.testing.assert_array_equal(got.numpy(), want)
-        assert torch.equal(tp._cell_sums(torch.zeros(0), torch.zeros(
+        assert torch.equal(segment_rows_sum(torch.zeros(0), torch.zeros(
             0, dtype=torch.int32), 4), torch.zeros(4))
 
 
