@@ -71,7 +71,8 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _I, _P],
-        "flash_attention_sm90_smem": [_I]},
+        "flash_attention_sm90_smem": [_I],
+        "flash_attention_fp32_smem": [_I]},
     "embedding_bag": {
         "embedding_bag_launch": [_P, _P, _L, _I, _I, _I, _I, _P, _P]},
 }

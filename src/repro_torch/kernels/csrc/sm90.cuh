@@ -2,10 +2,12 @@
 //
 // B7's device helpers (moved here from flash_attention.cu unchanged):
 // shared-memory addresses, mbarriers, 3-D TMA loads, wgmma smem
-// descriptors of 128B-swizzled operands, the wgmma fences and wrappers,
+// descriptors of swizzled operands (128B, or 64B for fp32 B7's 64-byte
+// rows), the wgmma fences and wrappers,
 // quad reductions over the four threads that share an accumulator row,
 // and the two-term bf16 split of B7's p (m64n128k16 from shared memory
-// gained an accumulate flag that defaults to B7's 1).  New beside them:
+// gained an accumulate flag that defaults to B7's 1; m64n32k16 with A
+// from registers is fp32 B7's P·V at head dims up to 32).  New beside them:
 // the wgmma shape m64n64k16 with both operands from shared memory,
 // commit and wait as two calls, a lane-0 broadcast the compiler knows
 // to be warp-uniform, named barriers, a host encoder of 3-D tensor maps,
@@ -13,8 +15,9 @@
 // two-accumulator 64 x 64 split tile (maxsim_sm90.cuh, colbert_maxsim.cu)
 // with its step-by-step, round-to-nearest variant (B3-B6; A blocks of
 // 128 or 64 rows, B panels 64 or 128 rows apart), and, for a producer
-// that writes wgmma operands itself (B4's split, B5's and B6's decode),
-// 16-byte shared stores and the generic-to-async proxy fence.
+// that writes wgmma operands itself (B4's split, B5's and B6's decode,
+// fp32 B7's split), 16-byte shared loads and stores and the
+// generic-to-async proxy fence.
 //
 // The three-term split.  For fp32 x let hi = RN_bf16(x), mid =
 // RN_bf16(x - hi) and lo = RN_bf16(x - hi - mid).  Both subtractions
@@ -103,17 +106,21 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       : "memory");
 }
 
-// wgmma shared-memory descriptor of a 128B-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-// K-major (Q, K): the stride offset is the 1,024 bytes between 8-row
-// groups; the leading offset is unused.  MN-major (V): the leading
-// offset is the stride between 64-column panels, the stride offset the
-// 1,024 bytes between groups of 8 keys.
+// wgmma shared-memory descriptor of a swizzled operand: start address,
+// leading and stride byte offsets (16-byte units), layout B128 (1, rows
+// of 128 bytes) or B64 (2, rows of 64 bytes).  K-major (Q, K): the
+// stride offset is the 8 rows of a swizzle atom (1,024 bytes in B128);
+// the leading offset is unused.  MN-major (V): the leading offset is the
+// stride between column panels, the stride offset the 8 keys of an
+// atom.  A shared address is below 2^18, so the descriptor of addr +
+// off is this one plus off / 16.
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo,
+                                              uint32_t layout = 1) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -236,6 +243,27 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 
+// D[64 x 32] += A[64 x 16] B[16 x 32]: A from registers (the bf16
+// fragment, four b32 of two values each), B from shared memory,
+// MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -289,6 +317,25 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(acc));
 }
 
+// D[64 x 32] = A[64 x 16] B[16 x 32] + (acc ? D : 0): A and B from
+// shared memory through their descriptors, both K-major.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
@@ -310,6 +357,15 @@ __device__ __forceinline__ int uniform(int x) {
 // on the barrier the readers wait for.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ float4 ld_shared_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a,

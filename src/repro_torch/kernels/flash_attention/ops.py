@@ -15,9 +15,12 @@ graph; the plain version on the CPU is differentiable.
 ``flash_attention_op.launches`` counts launches.
 The kernel takes fp32 or bf16 (q, k and v alike), head dims up to
 128 that are multiples of 8, and contiguous 16-byte-aligned tensors.
-fp32 runs its CUDA-core route; bf16 (the LM path) its Hopper route
-(TMA loads, ``wgmma`` for Q·Kᵀ and for P·V as P_hi·V + P_lo·V), which
-computes the same fp32 function to within one bf16 output rounding.
+Both routes are Hopper kernels (TMA loads, ``wgmma``).  fp32
+(BERT4Rec's encoder) splits q, k, v and p into three bf16 terms each and
+keeps the six products above 2^-24 in two fp32 accumulators: the fp32
+function to within fp32 rounding.  bf16 (the LM path) computes Q·Kᵀ and
+P·V as P_hi·V + P_lo·V: the same fp32 function to within one bf16
+output rounding.
 
 Every query row must see at least one key: with a ``window`` that needs
 ``window >= 1`` and ``Sq < Sk + window``.  A row that sees no key has

@@ -7,9 +7,13 @@ inputs go through the JAX oracle (``flash_attention_ref``) and the JAX op
 Tolerance 2e-4 abs and rel, the JAX test's: the kernel and the oracle
 sum the softmax in different orders.  ``TestSm90Arithmetic`` emulates
 the bf16 CUDA route's arithmetic (split p, 128-key tiles) and holds it
-to both under chip_smoke.py's bf16 gate.  The ``cuda``-marked tests hold
-the CUDA kernel against the plain version on the card; they need no
-JAX.
+to both under chip_smoke.py's bf16 gate; ``TestFp32SplitArithmetic``
+emulates the fp32 route's (three-term bf16 splits of q, k, v and p, six
+products into two accumulators, 32- or 64-key tiles, the softmax in
+base 2) and holds it to both at 2e-4 and to the plain version at
+``SPLIT_TOL``, which the same route with three products misses.  The
+``cuda``-marked tests hold the CUDA kernel against the plain version on
+the card; they need no JAX.
 """
 
 import itertools
@@ -32,6 +36,12 @@ from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 TOL = 2e-4
+# The fp32 route's own gate against the plain fp32 version.  Six split
+# products leave its output within ~1e-6 of plain, the plain version's
+# own distance from float64.  Keeping only hi·hi, hi·mid and mid·hi (each
+# dropped product is 2^-16 of a term) moves it 4.5e-6 to 2.4e-5 on this
+# file's fp32 cases, so 4e-6 tells a route with fewer products apart.
+SPLIT_TOL = 4e-6
 
 
 def _qkv(seed, H, KV, Sq, Sk, d, lead=()):
@@ -269,6 +279,144 @@ class TestSm90Arithmetic:
         assert ((p - hi).abs() > 2.0 ** -12 * p).any()
 
 
+# The fp32 route of the CUDA kernel (csrc/flash_attention.cu, sm90_f32):
+# 32-key tiles at d <= 32 (64 above), each 64-row warpgroup visiting the
+# tiles its rows can see; q times scale · log2(e) (one fp32 rounding),
+# then q, k, v and p split into three bf16 terms; hi·hi into one fp32
+# accumulator and hi·mid, mid·hi, hi·lo, mid·mid, lo·hi into a second,
+# for S and for O alike; an online softmax in base 2; o = (o1 + o2) /
+# max(l, 1e-30).
+ROWS_F32 = 64
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _split3(x):
+    """x (fp32) -> hi, mid, lo: bf16 values in fp32 tensors."""
+    hi = x.bfloat16().float()
+    mid = (x - hi).bfloat16().float()
+    lo = (x - hi - mid).bfloat16().float()
+    return hi, mid, lo
+
+
+def _split_mm(a, b):
+    """a @ b as the route's six bf16 products: (hi·hi, the other five)."""
+    ah, am, al = _split3(a)
+    bh, bm, bl = _split3(b)
+    return ah @ bh, am @ bh + ah @ bm + al @ bh + am @ bm + ah @ bl
+
+
+def _split_mm_three(a, b):
+    """a @ b as three bf16 products, hi·hi, hi·mid and mid·hi: a route
+    that SPLIT_TOL must refuse."""
+    ah, am, _ = _split3(a)
+    bh, bm, _ = _split3(b)
+    return ah @ bh, am @ bh + ah @ bm
+
+
+def _emulate_f32(q, k, v, *, causal, window, split_mm=_split_mm):
+    """q (H, Sq, d), k and v (KV, Sk, d) fp32 -> (H, Sq, d) fp32, as the
+    sm90_f32 kernel computes it."""
+    H, sq, d = q.shape
+    sk = k.shape[1]
+    bk = 32 if d <= 32 else 64
+    k = k.repeat_interleave(H // k.shape[0], dim=0)
+    v = v.repeat_interleave(H // v.shape[0], dim=0)
+    q = q * torch.tensor(np.float32(1.0 / math.sqrt(d)) * LOG2E)
+    neg = torch.tensor(-1e30)
+    out = torch.empty(H, sq, d)
+    for r0 in range(0, sq, ROWS_F32):
+        rows = torch.arange(r0, min(r0 + ROWS_F32, sq))
+        hi = min(sk, r0 + ROWS_F32) if causal else sk
+        lo = max(0, r0 - window + 1) if window else 0
+        m = torch.full((H, len(rows)), -math.inf)
+        l = torch.zeros(H, len(rows))
+        o1 = torch.zeros(H, len(rows), d)
+        o2 = torch.zeros(H, len(rows), d)
+        for k0 in range(lo // bk * bk, hi, bk):
+            cols = torch.arange(k0, min(k0 + bk, sk))
+            s1, s2 = split_mm(q[:, rows], k[:, cols].transpose(1, 2))
+            x = s1 + s2
+            vis = torch.ones(len(rows), len(cols), dtype=torch.bool)
+            if causal:
+                vis &= cols[None, :] <= rows[:, None]
+            if window:
+                vis &= cols[None, :] > rows[:, None] - window
+            x = torch.where(vis, x, neg)
+            mn = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2(m - mn)
+            p = torch.exp2(x - mn[..., None])
+            l = l * alpha + p.sum(-1)
+            d1, d2 = split_mm(p, v[:, cols])
+            o1 = o1 * alpha[..., None] + d1
+            o2 = o2 * alpha[..., None] + d2
+            m = mn
+        out[:, rows] = (o1 + o2) / l.clamp_min(1e-30)[..., None]
+    return out
+
+
+F32_CASES = [
+    # (H, KV, S, d, causal, window): S 100 is no multiple of the 64-key
+    # tile or the 64-row warpgroup
+    (2, 2, 100, 32, False, None),     # BERT4Rec's head dim
+    (2, 2, 100, 8, True, None),
+    (2, 2, 100, 80, True, None),
+    (2, 2, 100, 16, False, 24),
+    (4, 2, 100, 32, True, 40),        # GQA 4 / 2
+]
+
+
+class TestFp32SplitArithmetic:
+    @pytest.mark.parametrize("H,KV,S,d,causal,window", F32_CASES)
+    def test_split_route_matches_jax(self, H, KV, S, d, causal, window):
+        """The fp32 route's arithmetic, emulated in torch fp32, against
+        the JAX op (Pallas in interpret mode) and the JAX oracle at 2e-4
+        on the same numpy-seeded fp32 inputs; its error against the plain
+        fp32 version (expected near 1e-6) is printed."""
+        q, k, v = _qkv(S * H + d + 1, H, KV, S, S, d)
+        kw = dict(causal=causal, window=window)
+        got = _emulate_f32(_t(q), _t(k), _t(v), **kw)
+        _close(got, j_flash_op(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), **kw))
+        rep = H // KV
+        _close(got, j_flash_ref(jnp.asarray(q), jnp.repeat(k, rep, 0),
+                                jnp.repeat(v, rep, 0), **kw))
+        plain = ops.flash_attention_op(_t(q), _t(k), _t(v), **kw)
+        err = (got - plain).abs().max().item()
+        print(f"H{H} KV{KV} S{S} d{d} {kw}: emulated split route vs plain "
+              f"fp32 {err:.3e}")
+        assert err <= SPLIT_TOL
+
+    @pytest.mark.parametrize("H,KV,S,d,causal,window", F32_CASES)
+    def test_fewer_products_miss_the_split_gate(self, H, KV, S, d, causal,
+                                                window):
+        """The same route with three products, hi·hi, hi·mid and mid·hi,
+        in place of six: within 2e-4 of plain but past SPLIT_TOL, so the
+        card's SPLIT_TOL gate shows that the six products run."""
+        q, k, v = _qkv(S * H + d + 1, H, KV, S, S, d)
+        kw = dict(causal=causal, window=window)
+        got = _emulate_f32(_t(q), _t(k), _t(v), split_mm=_split_mm_three,
+                           **kw)
+        err = (got - ops.flash_attention_op(_t(q), _t(k), _t(v), **kw)
+               ).abs().max().item()
+        print(f"H{H} KV{KV} S{S} d{d} {kw}: three products vs plain fp32 "
+              f"{err:.3e}")
+        assert SPLIT_TOL < err <= TOL
+
+    def test_split3_is_exact_above_two_to_the_minus_100(self):
+        """hi + mid + lo == p for p in (2^-100, 1]: the route's p (and any
+        normal q, k, v value that far above the subnormals) loses nothing
+        to its split."""
+        rng = np.random.default_rng(14)
+        p = (rng.random(200_000) * 2.0 ** -rng.uniform(0, 100, 200_000))
+        p = torch.from_numpy(np.concatenate([p, [1.0, 2.0 ** -100]])
+                             .astype(np.float32))
+        p = p[p >= 2.0 ** -100]
+        hi, mid, lo = _split3(p)
+        assert torch.equal(hi.double() + mid.double() + lo.double(),
+                           p.double())
+        assert (mid != 0).any() and (lo != 0).any()
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
@@ -289,6 +437,10 @@ CARD_CASES = [
     (4, 2, 333, 100, 64, True, None),
     (4, 2, 1, 1, 128, True, None),
     (4, 2, 1, 50, 16, False, None),
+    # the fp32 route's head dims 32 (BERT4Rec's S 200), 8 and 24
+    (2, 2, 200, 200, 32, False, None),
+    (2, 2, 100, 100, 8, True, None),
+    (4, 2, 150, 150, 24, False, 30),
 ]
 
 
@@ -300,7 +452,9 @@ class TestFlashAttentionOnCard:
                                   dtype):
         """S 300, 257, 200 and 333 are no multiple of either route's
         tiles; d 72 and 80 no multiple of the 16-deep wgmma.  fp32 (the
-        CUDA-core kernel): within 2e-4 of the plain version.  bf16 (the
+        sm90_f32 kernel: split-bf16 wgmma, d padded to 32, 64 or 128):
+        within 2e-4 of the plain version, and within SPLIT_TOL, which a
+        route with fewer split products misses.  bf16 (the
         sm90 kernel): within one output rounding, 2^-7 |plain| + 1e-5,
         chip_smoke.py's gate (the kernel and the plain version round the
         same fp32 function once)."""
@@ -317,6 +471,8 @@ class TestFlashAttentionOnCard:
         assert got.dtype == dtype
         if dtype == torch.float32:
             torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+            err = (got - want).abs().max().item()
+            assert err <= SPLIT_TOL, f"max abs err {err:.3e}"
         else:
             diff = (got.float() - want.float()).abs()
             assert bool((diff <= 2.0 ** -7 * want.float().abs() + 1e-5)
