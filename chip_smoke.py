@@ -222,9 +222,52 @@ passed — any failure exits non-zero):
    ``serve_lm`` (greedy, batch 2 x 32 tokens) with its ms/token beside
    the weight-read bound; the last greedy id must be the prefill argmax
    of its own prefix.
+9b. MoE serving (``[moe]``, ``models.moe``), after minitron-4b's
+   tensors are freed.  granite-moe-3b-a800m at its full ``CONFIG`` (32
+   layers, d_model 1,536, 24 heads / 8 KV, head_dim 64, 40 experts
+   top-8, d_ff 512, vocab 49,155, tied, bf16; random weights from seed
+   0 on the card): ``prefill_lm`` on 4 x 2,048 (4 dispatch blocks,
+   capacity 512) on ``fused`` and ``reference``, B7's launch count
+   zeroed just before each run and read just after (32 and 0), every
+   layer's routing recorded (``moe.route`` wrapped, ``RouteLog``); the
+   fused prefill again, bit-equal; the share of (token, layer) routings
+   whose expert sets differ between the backends, which must match
+   wherever the reference's k-th/(k+1)-th router-logit gap exceeds
+   ``ROUTE_GAP`` at positions no earlier change reached (a changed
+   expert reaches every later position through attention), and slots
+   equal before each block's first change; the fused routing replayed
+   in the reference run, every position's logits within ``LOGIT_TOL``
+   and argmax equal past it; a fused prefill under ``torch.profiler``;
+   layer 0's MoE on the card against its copy on the CPU from the same
+   bf16 input (routing equal past ``CPU_ROUTE_GAP``, output within
+   ``MOE_LAYER_TOL`` of its largest |y| before the first change);
+   a 64-token prompt decoded token by token against the ``reference``
+   prefill, both at capacity factor E / k so neither drops an entry
+   (free-running: changed routings counted; with the prefill's routing
+   replayed: last logits within ``LOGIT_TOL``); four decode steps
+   under ``torch.profiler``; greedy ``serve_lm`` (2 x 32) at the
+   config's capacity (1 at decode: the dropped entries counted) beside
+   the weight-read bound.  Then mixtral-8x7b at full width cut to
+   ``MIX_LAYERS`` of 32 layers (cut: 94 GB of bf16 weights at full
+   depth): ``prefill_lm`` on 1 x 8,192 (its 4,096 window cuts) on both
+   backends (B7 launches: one a kept layer, and 0), the same routing and
+   replay gates, peak memory, and a ``MIX_DEC``-token decode against
+   prefill.  The phase's seconds are printed.
+9c. LM training (``[lm-train]``): granite at its full config through
+   ``lm_train_step`` (aux weight 0.01, remat, ``LMT_ACCUM``
+   microbatches of ``LMT_BATCH`` x ``LMT_SEQ``, a cut of ``train_4k``'s
+   256 x 4,096): losses and gradient norms finite, step ms, tokens/s,
+   peak memory, no kernel launched, one microbatch's forward and
+   backward under ``torch.profiler``; then ``launch.train.run`` at
+   ``LMR_LAYERS`` layers (full width; the registry's entry swapped for
+   the call), ``LMR_STEPS`` steps uninterrupted against ``LMR_STOP``
+   steps stopped with a checkpoint and resumed: losses and every
+   train-state leaf bit-equal.  The phase's seconds are printed.
 10. B7 (``flash_attention``) against its plain version at the prefill
-   shape, stablelm-3b's (32 heads, head_dim 80), a 512 sliding window
-   and qwen2.5-32b's (40 heads / 8 KV, head_dim 128), causal, bf16 (the
+   shape, stablelm-3b's (32 heads, head_dim 80), a 512 sliding window,
+   qwen2.5-32b's (40 heads / 8 KV, head_dim 128), granite's (4 x 24 / 8
+   heads, S 2,048, head_dim 64) and mixtral's (1 x 32 / 8 heads, S
+   8,192, head_dim 128, window 4,096), causal, bf16 (the
    sm90 kernel) and widened to fp32 (the sm90_f32 kernel, within 2e-4,
    timed beside its bound of 24·d flops a pair on the bf16 tensor
    cores), timed beside the plain version and
@@ -329,7 +372,10 @@ passed — any failure exits non-zero):
    ``loop`` key: the same over phase 4c's eight loop runs, a ``grid``
    key: the same over phase 4d, and a ``table`` key: the same over
    phase 11b's 26 tables; B7 also carries a ``bert4rec`` key (launches
-   and summed kernel ms over phase 11c's ``serve_p99`` runs) and a
+   and summed kernel ms over phase 11c's ``serve_p99`` runs),
+   ``granite`` and ``mixtral`` keys (launches and summed kernel ms over
+   phase 9b's fused prefill, and phase 10's shape, error, times and
+   bound there) and a
    ``bert4rec_shape`` key (phase 10b: ms, plain, SDPA, both bounds) and B8 a
    ``ctr_train`` key (the same over phase 11c's ``ctr_serve_step``
    checks).
@@ -350,13 +396,17 @@ plain version's order, so it is expected to be equal).  Training: the
 resumed and uninterrupted runs' parameters and moments equal bit for
 bit, and the restored ones equal to the trained ones bit for bit (a
 step is a pure function of the state and the step-indexed batch, and
-the checkpoint stores raw bytes); served top-10s as in phase 3.  A
-kernel row's ``max_abs_err`` is the largest over the variants held.
+the checkpoint stores raw bytes); served top-10s as in phase 3.  MoE:
+the constants ``ROUTE_GAP``, ``MOE_LAYER_TOL`` and ``CPU_ROUTE_GAP``
+beside ``LOGIT_TOL`` say what the CPU showed for each.  A kernel row's
+``max_abs_err`` is the largest over the variants held.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import gc
 import io
 import json
@@ -410,6 +460,42 @@ B4R_USER_TOL = 2e-3
 # plain; three (hi·hi, hi·mid, mid·hi) drift 4.5e-6 to 2.4e-5 (the CPU
 # emulation of tests/test_torch_flash_attention.py, its SPLIT_TOL)
 FA_SPLIT_TOL = 4e-6
+# [moe]: granite-moe-3b-a800m at its full config, prefill 4 x 2,048 (8,192
+# tokens: 4 dispatch blocks of 2,048, capacity 512 an expert); mixtral-8x7b
+# at full width cut to MIX_LAYERS of its 32 layers (its bf16 weights are
+# ~94 GB at full depth), prefill 1 x 8,192 (twice its 4,096 window) and a
+# MIX_DEC-token decode
+MOE_BATCH, MOE_SEQ = 4, 2048
+MIX_LAYERS, MIX_SEQ, MIX_DEC = 16, 8192, 16
+# Routing, fused against reference (bf16).  On a reduced granite on the
+# CPU (full width, 4 layers, 2 x 512 tokens) the two backends' layer-0
+# router logits differed by at most 2.8e-2 (median 3.5e-3; std 1.0) and
+# 4 % of the tokens changed an expert there; a changed expert perturbs
+# every later position through attention, so later layers changed 14-17 %.
+# Routings must match wherever the reference's k-th/(k+1)-th logit gap
+# exceeds ROUTE_GAP, at positions no change at an earlier layer reached.
+# Past layer 0 that leaves only each row's positions before its first
+# change (the log counts the routings held), so the logit gate with the
+# fused routing replayed below is the check that covers every layer.
+ROUTE_GAP = 0.1
+# With the fused run's routing replayed in the reference run, that CPU
+# model's logits differed by at most 0.042 (std 0.78): LOGIT_TOL holds
+# the replayed comparison.  One MoE layer on the card against the same
+# layer on the CPU from the same bf16 input: the expert products' fp32
+# sums in another order (fp64 against fp32 on the CPU, granite's layer
+# at T 2,048) moved the bf16 output by at most 0.0045 of its largest
+# |y|; the card's and the CPU's fp32 router products differ in the last
+# bits only.
+MOE_LAYER_TOL = 2 ** -6        # of the layer's largest |y|
+CPU_ROUTE_GAP = 1e-4
+# [lm-train]: granite at its full config, 8 x 4,096 tokens as 4
+# microbatches of 2 (train_4k's 256 x 4,096 cut to one card: AdamW's fp32
+# moments alone are 26.4 GB), remat, aux weight 0.01, LMT_STEPS steps;
+# then a stop-and-resume through launch/train.py at full width cut to
+# LMR_LAYERS layers (a ~4.6 GB checkpoint), 4 x 1,024, 6 steps stopped
+# after 3
+LMT_BATCH, LMT_SEQ, LMT_ACCUM, LMT_STEPS = 8, 4096, 4, 2
+LMR_LAYERS, LMR_BATCH, LMR_SEQ, LMR_STEPS, LMR_STOP = 4, 4, 1024, 6, 3
 
 
 def log(*a):
@@ -540,13 +626,142 @@ def argmax_mismatch(got, want):
                 & (top2_gap(want) > LOGIT_TOL)).sum())
 
 
+class RouteLog:
+    """Wraps ``models.moe.route`` while installed: records each call's
+    expert ids (nb, tb, k) and the gap between the k-th and (k+1)-th
+    router logit (nb, tb) by MoE module, in call order; or, in replay
+    mode, routes to ids a function gives (the call's module and input ->
+    ids) with the run's own gates over them.  Recording adds one top-k
+    over each call's logits."""
+
+    def __init__(self, moe_lib):
+        self.lib, self.orig = moe_lib, moe_lib.route
+        self.calls, self.replay = {}, None
+        moe_lib.route = self.route
+
+    def uninstall(self):
+        self.lib.route = self.orig
+
+    def route(self, p, xt, k):
+        if self.replay is None:
+            logits, probs, ids, gates = self.orig(p, xt, k)
+        else:
+            logits = xt.float() @ p.router
+            probs = torch.softmax(logits, dim=-1)
+            ids = self.replay(p, xt)
+            gates = probs.gather(-1, ids)
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        top = logits.topk(k + 1, dim=-1).values
+        self.calls.setdefault(p, []).append((ids, top[..., k - 1]
+                                             - top[..., k]))
+        return logits, probs, ids, gates
+
+    def take(self, modules):
+        """The calls since the last take, as a list over ``modules``
+        (the layers' MoE modules in order) of call lists; replay off."""
+        out = [self.calls.get(m, []) for m in modules]
+        self.calls, self.replay = {}, None
+        return out
+
+    def replay_calls(self, rec, modules):
+        """Replay the recorded calls ``rec`` (as :meth:`take` returns
+        them) one for one."""
+        its = {m: iter(c) for m, c in zip(modules, rec)}
+        self.replay = lambda p, xt: next(its[p])[0]
+
+    def replay_prefill_in_decode(self, rec, modules, B, S):
+        """Replay one prefill call of B x S tokens a layer as that
+        layer's decode steps: step n routes position n of each row."""
+        ids = {m: c[0][0].reshape(B, S, -1) for m, c in zip(modules, rec)}
+        step = {m: 0 for m in modules}
+
+        def nxt(p, xt):
+            n = step[p]
+            step[p] += 1
+            return ids[p][:, n].reshape(1, B, -1)
+        self.replay = nxt
+
+
+def routing_diff(a, b, moe_lib, cfg, B, S):
+    """Two runs' routings of the same B x S tokens (one call a layer,
+    lists as ``RouteLog.take`` returns them; ``b`` the yardstick) ->
+    (flips (L, B, S): the expert sets differ; bad_route: flips where
+    ``b``'s k-th/(k+1)-th logit gap exceeds ROUTE_GAP at a position no
+    flip at an earlier layer and an earlier or equal position reached
+    through attention; bad_slot: tokens whose (expert, slot) pairs
+    differ before their block's first flip or reached position; held
+    (L,): the (token, layer) routings that bad_route holds a layer,
+    those past the gap that no earlier flip reached)."""
+    k, E = cfg.moe_top_k, cfg.moe_experts
+    ids_a = torch.stack([c[0][0].reshape(B, S, k) for c in a])
+    ids_b = torch.stack([c[0][0].reshape(B, S, k) for c in b])
+    gap = torch.stack([c[0][1].reshape(B, S) for c in b])
+    flip = (ids_a.sort(-1).values != ids_b.sort(-1).values).any(-1)
+    earlier = torch.zeros_like(flip)
+    earlier[1:] = flip[:-1].int().cummax(0).values.bool()
+    reached = earlier.int().cummax(-1).values.bool()
+    held = ~reached & (gap > ROUTE_GAP)
+    bad_route = int((flip & held).sum())
+    nb, tb = a[0][0][0].shape[:2]
+    cap = moe_lib.capacity(tb, k, E, cfg.capacity_factor)
+    bad_slot = 0
+    for layer, (ca, cb) in enumerate(zip(a, b)):
+        slots = []
+        for ids in (ca[0][0], cb[0][0]):
+            slot = moe_lib.dispatch(ids, E, cap)[2]
+            order = ids.argsort(-1)
+            slots.append(torch.stack([ids.gather(-1, order),
+                                      slot.gather(-1, order)], -1))
+        stop = (flip[layer] | reached[layer]).reshape(nb, tb)
+        first = torch.where(stop.any(-1), stop.int().argmax(-1), tb)
+        before = torch.arange(tb, device=stop.device) < first[:, None]
+        bad_slot += int(((slots[0] != slots[1]).flatten(-2).any(-1)
+                         & before).sum())
+    return flip, bad_route, bad_slot, held.flatten(1).sum(1)
+
+
+def profile_log(tag, fn, per, top):
+    """``fn()`` once under ``torch.profiler`` (CPU and CUDA activity),
+    ``per`` units of work in it (steps, tokens): logs the wall ms a
+    unit, the device's busy ms a unit and idle share, kernel launches a
+    unit and the ``top`` operators by self device time.  A measurement,
+    not a gate."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / per
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    gpu = torch.autograd.DeviceType.CUDA
+    busy = sum(dev_us(e) for e in events if e.device_type == gpu) / 1e3 / per
+    ops = sorted((e for e in events if e.device_type != gpu
+                  and dev_us(e) > 0), key=dev_us, reverse=True)
+    log(f"{tag} (torch.profiler): wall {wall:.2f} ms a unit, device busy "
+        f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}; "
+        f"{sum(e.count for e in events if e.device_type == gpu) / per:.0f} "
+        f"kernel launches a unit")
+    for e in ops[:top]:
+        log(f"{tag}   {e.key}: {dev_us(e) / 1e3 / per:.2f} ms a unit "
+            f"({dev_us(e) / 1e3 / per / max(busy, 1e-9):.1%} of device "
+            f"time), {e.count / per:.0f} calls")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.configs import (bert4rec, colbert_base, dcn_v2,
-                                     dlrm_rm2, minitron_4b, wide_deep)
+    from repro_torch.configs import (base as configs_base, bert4rec,
+                                     colbert_base, dcn_v2, dlrm_rm2,
+                                     granite_moe_3b_a800m, minitron_4b,
+                                     mixtral_8x7b, wide_deep)
     from repro_torch.core import pruning_pipeline, voronoi
     from repro_torch.kernels import build
     from repro_torch.kernels.colbert_maxsim import ops as cm_ops
@@ -565,6 +780,7 @@ def main() -> int:
                                           serve_bert4rec,
                                           serve_bert4rec_bulk, serve_ctr,
                                           serve_lm, serve_retrieval)
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import recsys
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.retrieval import (RetrievalServer, TokenIndex,
@@ -2332,34 +2548,14 @@ def main() -> int:
                  for k, v in make_batch(TRAIN_STEPS).items()}
         state, _ = step_fn(state, batch)
         torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t = time.perf_counter()
-            for _ in range(2):
-                state, metrics = step_fn(state, batch)
-            float(metrics["loss"])
-            torch.cuda.synchronize()
-            prof_s = (time.perf_counter() - t) / 2
-        events = prof.key_averages()
 
-        def dev_us(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0))
-        gpu = torch.autograd.DeviceType.CUDA
-        busy = sum(dev_us(e) for e in events if e.device_type == gpu) / 2e3
-        ops = sorted((e for e in events if e.device_type != gpu
-                      and dev_us(e) > 0), key=dev_us, reverse=True)
-        log(f"[train] profiled step (torch.profiler, 2 steps): wall "
-            f"{prof_s * 1e3:.2f} ms a step, device busy {busy:.2f} ms, idle "
-            f"share {max(0.0, 1 - busy / (prof_s * 1e3)):.3f}; "
-            f"{sum(e.count for e in events if e.device_type == gpu) // 2} "
-            f"kernel launches a step")
-        for e in ops[:14]:
-            log(f"[train]   {e.key}: {dev_us(e) / 2e3:.2f} ms a step "
-                f"({dev_us(e) / 2e3 / max(busy, 1e-9):.1%} of device time), "
-                f"{e.count // 2} calls")
-        del resumed, full, state, batch, prof, events, ops
+        def two_steps():
+            st = state
+            for _ in range(2):
+                st, metrics = step_fn(st, batch)
+            float(metrics["loss"])
+        profile_log("[train] profiled step", two_steps, 2, 14)
+        del resumed, full, state, batch
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2409,11 +2605,9 @@ def main() -> int:
         table/figure drivers (``repro_torch.paper``) at the full
         ``colbert`` width, through B1, B2 and fp32 B3, held to the
         ``reference`` backend and to the CPU."""
-        import copy
-
         from repro_torch.core import baselines, lp, voronoi
-        from repro_torch.models.common import rms_norm
         from repro_torch.models.attention import attention_weights_received
+        from repro_torch.models.common import rms_norm
         from repro_torch.paper import (common as pc, fig1_geometry,
                                        fig3_aggressive, fig45_positions,
                                        fig6_me_ndcg, kernels as pk,
@@ -2819,10 +3013,12 @@ def main() -> int:
         del model, logits, fused, ref, got, want, last
         torch.cuda.empty_cache()
 
-        # 10. B7 against its plain version at four shapes (bf16): the
-        # prefill's, stablelm-3b's (MHA, head_dim 80), a sliding window
-        # and qwen2.5-32b's (40 heads / 8 KV); the row is the prefill's,
-        # the others are held and logged.  A bf16 output may differ from
+        # 10. B7 against its plain version at six shapes (bf16): the
+        # prefill's, stablelm-3b's (MHA, head_dim 80), a sliding window,
+        # qwen2.5-32b's (40 heads / 8 KV) and the MoE archs' prefills
+        # (granite's, mixtral's past its window); the row is the
+        # prefill's, the others are held and logged (the MoE ones also
+        # under the row's granite and mixtral keys).  A bf16 output may differ from
         # the plain one by one rounding of the same fp32 value:
         # |err| <= 2^-7 |plain| + 1e-5.
         fa_lib = build.library("flash_attention")
@@ -2833,12 +3029,19 @@ def main() -> int:
             f"{fa_lib.flash_attention_fp32_smem(cfg.hd)}")
         gen = torch.Generator(device="cuda").manual_seed(1)
         held = []
-        for tag, H, KV, d, window in (
-                ("prefill", cfg.n_heads, cfg.n_kv_heads, cfg.hd, None),
-                ("stablelm-3b", 32, 32, 80, None),
-                ("window 512", cfg.n_heads, cfg.n_kv_heads, cfg.hd, 512),
-                ("qwen2.5-32b", 40, 8, 128, None)):
-            q, k, v = (torch.randn((LM_BATCH, h, LM_SEQ, d), generator=gen,
+        gc_, mc_ = granite_moe_3b_a800m.CONFIG, mixtral_8x7b.CONFIG
+        for tag, Bq, H, KV, S, d, window in (
+                ("prefill", LM_BATCH, cfg.n_heads, cfg.n_kv_heads, LM_SEQ,
+                 cfg.hd, None),
+                ("stablelm-3b", LM_BATCH, 32, 32, LM_SEQ, 80, None),
+                ("window 512", LM_BATCH, cfg.n_heads, cfg.n_kv_heads, LM_SEQ,
+                 cfg.hd, 512),
+                ("qwen2.5-32b", LM_BATCH, 40, 8, LM_SEQ, 128, None),
+                ("granite", MOE_BATCH, gc_.n_heads, gc_.n_kv_heads, MOE_SEQ,
+                 gc_.hd, None),
+                ("mixtral", 1, mc_.n_heads, mc_.n_kv_heads, MIX_SEQ, mc_.hd,
+                 mc_.window)):
+            q, k, v = (torch.randn((Bq, h, S, d), generator=gen,
                                    device="cuda").to(torch.bfloat16)
                        for h in (H, KV, KV))
             kw = dict(causal=True, window=window)
@@ -2855,7 +3058,7 @@ def main() -> int:
                 return F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, enable_gqa=rep > 1)
 
-            mask = fa_ref.visible(LM_SEQ, LM_SEQ, causal=True, window=window,
+            mask = fa_ref.visible(S, S, causal=True, window=window,
                                   device="cuda")
             o = fa_ops.flash_attention_op(q, k, v, **kw).float()
             r = plain().float()
@@ -2881,19 +3084,19 @@ def main() -> int:
             # 4·d flops with P·V at the fp32 rate (the earlier bound), and
             # a single bf16 P·V as SDPA computes it.
             pairs = int(mask.sum())
-            flops = 6.0 * d * pairs * LM_BATCH * H
+            flops = 6.0 * d * pairs * Bq * H
             nb = nbytes(q, k, v) + nbytes(q)
             b_ms, b_by = bound(flops, nb, tc_flops=flops)
             f4 = flops * 4 / 6
             # fp32: 24·d flops a pair, the route's 12 split products
             b32_ms = bound(4 * flops, 2 * nb, tc_flops=4 * flops)[0]
-            log(f"[kernel] flash_attention {tag}: B={LM_BATCH} H={H} KV={KV} "
-                f"S={LM_SEQ} d={d} causal window={window} fp32 inputs: "
+            log(f"[kernel] flash_attention {tag}: B={Bq} H={H} KV={KV} "
+                f"S={S} d={d} causal window={window} fp32 inputs: "
                 f"max_abs_err {err32:.3e} kernel {ms32:.3f} ms bound "
                 f"{b32_ms:.3f} ms ({100 * b32_ms / ms32:.1f} % of it; 24·d "
                 f"flops a pair on bf16 tensor cores)")
-            log(f"[kernel] flash_attention {tag}: B={LM_BATCH} H={H} KV={KV} "
-                f"S={LM_SEQ} d={d} causal window={window} bf16: max_abs_err "
+            log(f"[kernel] flash_attention {tag}: B={Bq} H={H} KV={KV} "
+                f"S={S} d={d} causal window={window} bf16: max_abs_err "
                 f"{err:.3e} (fp32 inputs {err32:.3e}; SDPA vs plain "
                 f"{lib_err:.3e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
                 f"library (SDPA) {lib_ms:.3f} ms bound {b_ms:.3f} ms "
@@ -2904,6 +3107,13 @@ def main() -> int:
             expect(ok and err32 <= 2e-4,
                    f"flash_attention {tag} disagrees with plain")
             held.append((err, ms, plain_ms, flops, nb, lib_ms))
+            if tag in b7_moe:
+                b7_moe[tag].update(
+                    shape=[Bq, H, KV, S, d], window=window, max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=b_ms, bound_by=b_by, fp32_max_abs_err=err32,
+                    fp32_ms=ms32)
+            del q, k, v, mask
         err = max(h[0] for h in held)
         _, ms, plain_ms, flops, nb, lib_ms = held[0]
         row("flash_attention",
@@ -2962,6 +3172,418 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by,
             "bound_ms_fp32_rate": b32_ms, "library_ms": lib_ms}
         del q, k, v
+
+    def no_drops(model):
+        """A context in which every MoE layer of ``model`` routes with
+        capacity factor E / k: capacity = the block's token count, so no
+        entry is dropped (decode and prefill then compute the same
+        function of a token)."""
+        @contextlib.contextmanager
+        def ctx():
+            saved = [layer.cfg for layer in model.layers]
+            c = model.cfg
+            for layer in model.layers:
+                layer.cfg = dataclasses.replace(
+                    c, capacity_factor=c.moe_experts / c.moe_top_k)
+            try:
+                yield
+            finally:
+                for layer, old in zip(model.layers, saved):
+                    layer.cfg = old
+        return ctx()
+
+    def moe_prefills(tag, model, prompts, rt, mods):
+        """``prefill_lm`` on ``fused`` then ``reference``, B7's launches
+        zeroed just before each run and read just after, every layer's
+        routing recorded; then the fused run again (bit-equal) and the
+        routing, replay and logit gates.  Returns the fused last
+        logits."""
+        cfg = model.cfg
+        B, S = prompts.shape
+        for backend in ("fused", "reference"):                # warm-up
+            prefill_lm(model, prompts[:1, :128], backend=backend)
+        rt.take(mods)
+        logits, n_fa, rec = {}, {}, {}
+        for backend in ("fused", "reference"):
+            fa_ops.flash_attention_op.launches = 0
+            timer.start()
+            logits[backend], tm = prefill_lm(model, prompts, backend=backend)
+            n_fa[backend] = fa_ops.flash_attention_op.launches
+            k_ms = timer.stop().get("flash_attention", 0.0)
+            rec[backend] = rt.take(mods)
+            if backend == "fused":
+                b7_moe[tag]["launches"] += n_fa[backend]
+                b7_moe[tag]["path_ms"] += k_ms
+            log(f"[moe] {cfg.name} prefill {backend} B={B} S={S}: "
+                f"{tm['prefill_s']:.4f} s, {B * S / tm['prefill_s']:.0f} "
+                f"tokens/s, flash_attention launches {n_fa[backend]} "
+                f"({k_ms:.3f} ms)")
+        expect(n_fa["fused"] == cfg.n_layers and n_fa["reference"] == 0,
+               f"{cfg.name} prefill flash_attention launches {n_fa}, "
+               f"expected {cfg.n_layers} on fused and 0 on reference")
+        again, tm = prefill_lm(model, prompts, backend="fused")
+        rt.take(mods)
+        log(f"[moe] {cfg.name} prefill fused again: {tm['prefill_s']:.4f} "
+            f"s; logits bit-equal to the first run "
+            f"{torch.equal(again, logits['fused'])}")
+        expect(torch.equal(again, logits["fused"]),
+               f"{cfg.name}: two fused prefills differ")
+        fused, ref = logits["fused"].float(), logits["reference"].float()
+        expect(fused.shape == (B, cfg.vocab)
+               and bool(torch.isfinite(fused).all()
+                        & torch.isfinite(ref).all()),
+               f"{cfg.name} prefill logits malformed")
+
+        # free-running routing: fused against reference
+        flip, bad_route, bad_slot, held = routing_diff(
+            rec["fused"], rec["reference"], moe_lib, cfg, B, S)
+        per_layer = flip.float().mean((1, 2))
+        gaps = torch.stack([c[0][1] for c in rec["reference"]])
+        log(f"[moe] {cfg.name} routing fused vs reference: flipped "
+            f"(token, layer) share {flip.float().mean().item():.5f} "
+            f"({int(flip.sum())} of {flip.numel()}); layer 0 "
+            f"{per_layer[0].item():.5f}, layers 1+ max "
+            f"{per_layer[1:].max().item():.5f}; tokens with a k-th/(k+1)-th "
+            f"logit gap <= {ROUTE_GAP} {(gaps <= ROUTE_GAP).float().mean().item():.5f}; "
+            f"flips past the gap where no earlier flip reached {bad_route}; "
+            f"(token, layer) routings that gate held {int(held.sum())} of "
+            f"{flip.numel()} ({held.sum().item() / flip.numel():.5f}; "
+            f"layer 0 {int(held[0])}, layers 1+ {int(held[1:].sum())}, "
+            f"so the replayed-routing logit gate below is what covers "
+            f"every layer); "
+            f"slots differing before their block's first flip {bad_slot}; "
+            f"last-position logits max abs diff "
+            f"{(fused - ref).abs().max().item():.4f}")
+        expect(bad_route == 0 and bad_slot == 0,
+               f"{cfg.name}: routing differs between the backends past "
+               f"the gap")
+
+        # the fused run's routing replayed in the reference run: the
+        # logits of every position within LOGIT_TOL
+        with torch.no_grad():
+            h = model.hidden_states(prompts, backend="fused")
+            lf = model.logits(h)
+            del h
+            rt.take(mods)
+            rt.replay_calls(rec["fused"], mods)
+            h = model.hidden_states(prompts, backend="reference")
+            lr = model.logits(h)
+            del h
+            rt.take(mods)
+        err = bad = 0.0
+        for b in range(B):                  # a row at a time (fp32)
+            x, y = lf[b].float(), lr[b].float()
+            err = max(err, (x - y).abs().max().item())
+            bad += argmax_mismatch(x, y)
+        log(f"[moe] {cfg.name} fused routing replayed in the reference "
+            f"run: logits of all {B * S} positions max abs err {err:.4f} "
+            f"(std {lr[0].float().std().item():.4f}), argmax mismatches "
+            f"past the tolerance {int(bad)}")
+        expect(err <= LOGIT_TOL and bad == 0,
+               f"{cfg.name}: fused prefill disagrees with the reference "
+               f"backend under the same routing")
+        del lf, lr, rec
+        return fused
+
+    def moe_decode(model, prompt, rt, mods):
+        """``decode_step`` over ``prompt`` token by token against the
+        reference prefill, both at capacity factor E / k (no drops, so
+        the two compute the same function): free-running (changed
+        routings counted) and with the prefill's routing replayed
+        (gated within LOGIT_TOL).  Returns the decode's seconds."""
+        cfg = model.cfg
+        B, S = prompt.shape
+        with no_drops(model):
+            rt.take(mods)
+            want, _ = prefill_lm(model, prompt, backend="reference")
+            pre = rt.take(mods)
+            out = {}
+            for mode in ("free", "replayed"):
+                if mode == "replayed":
+                    rt.replay_prefill_in_decode(pre, mods, B, S)
+                cache = model.init_cache(B, S)
+                t = time.perf_counter()
+                with torch.no_grad():
+                    for pos in range(S):
+                        got, cache = model.decode_step(
+                            cache, prompt[:, pos:pos + 1], pos)
+                torch.cuda.synchronize()
+                out[mode] = (got[:, 0].float(), time.perf_counter() - t,
+                             rt.take(mods))
+                del cache
+        want = want.float()
+        dec = out["free"][2]
+        k = cfg.moe_top_k
+        ids_d = torch.stack([torch.cat([c[0] for c in calls], 1).reshape(
+            S, B, k).transpose(0, 1) for calls in dec])
+        ids_p = torch.stack([c[0][0].reshape(B, S, k) for c in pre])
+        changed = (ids_d.sort(-1).values
+                   != ids_p.sort(-1).values).any(-1).float().mean().item()
+        got, dec_s, _ = out["replayed"]
+        err = (got - want).abs().max().item()
+        bad = argmax_mismatch(got, want)
+        free_err = (out["free"][0] - want).abs().max().item()
+        log(f"[moe] {cfg.name} decode {S} prompt tokens x {B} one at a time "
+            f"at capacity factor {cfg.moe_experts / cfg.moe_top_k:g} (no "
+            f"drops; {dec_s:.3f} s, {dec_s / S * 1e3:.2f} ms/token) vs the "
+            f"reference prefill: (token, layer) routings that differ "
+            f"{changed:.5f}, last logits max abs err {free_err:.4f}; with "
+            f"the prefill's routing replayed {err:.4f}, argmax mismatches "
+            f"past the tolerance {bad}")
+        expect(err <= LOGIT_TOL and bad == 0,
+               f"{cfg.name}: token-by-token decode disagrees with prefill")
+        return dec_s
+
+    def moe_layer_on_cpu(model, x, rt, mods):
+        """One MoE layer (layer 0) on the card against its copy on the
+        CPU, from the same bf16 input x (1, T, D)."""
+        cfg = model.cfg
+        layer = model.layers[0].moe
+        kw = dict(top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor)
+        rt.take(mods)
+        with torch.no_grad():
+            y_c, aux_c = moe_lib.moe_ffn(layer, x, **kw)
+            cpu = copy.deepcopy(layer).cpu()
+            t = time.perf_counter()
+            y_p, aux_p = moe_lib.moe_ffn(cpu, x.cpu(), **kw)
+            cpu_s = time.perf_counter() - t
+        calls = rt.calls.get(layer, []) + rt.calls.get(cpu, [])
+        rt.take(mods)
+        (ids_c, gap_c), (ids_p, _) = calls
+        T = x.shape[1]
+        nb, tb = ids_c.shape[:2]
+        cap = moe_lib.capacity(tb, cfg.moe_top_k, cfg.moe_experts,
+                               cfg.capacity_factor)
+        ids_p = ids_p.to(ids_c.device)
+        flip = (ids_c.sort(-1).values != ids_p.sort(-1).values).any(-1)
+        bad_route = int((flip & (gap_c > CPU_ROUTE_GAP)).sum())
+        first = int(flip.reshape(-1).int().argmax()) if flip.any() else T
+        sc = moe_lib.dispatch(ids_c, cfg.moe_experts, cap)[2]
+        sp = moe_lib.dispatch(ids_p, cfg.moe_experts, cap)[2]
+        d = (y_c.float().cpu() - y_p.float()).abs()[0, :first]
+        top = y_p.float().abs().max().item()
+        err = d.max().item() if first else 0.0
+        drops = int((sc >= cap).sum())
+        log(f"[moe] {cfg.name} layer 0 MoE on the card vs the CPU (T={T}, "
+            f"{nb} block(s), capacity {cap}, {drops} entries dropped; CPU "
+            f"{cpu_s:.2f} s): routings that differ {int(flip.sum())} (past "
+            f"a {CPU_ROUTE_GAP} logit gap {bad_route}), slots equal before "
+            f"the first {bool(torch.equal(sc[:, :first], sp[:, :first]))}, "
+            f"output max abs err {err:.3e} over the first {first} tokens "
+            f"(|y| <= {top:.4f}; tol {MOE_LAYER_TOL * top:.3e}); aux "
+            f"load_balance {aux_c['load_balance'].item():.6f} / "
+            f"{aux_p['load_balance'].item():.6f}, router_z "
+            f"{aux_c['router_z'].item():.6f} / "
+            f"{aux_p['router_z'].item():.6f}")
+        expect(bad_route == 0 and torch.equal(sc[:, :first], sp[:, :first])
+               and err <= MOE_LAYER_TOL * top and first > 0,
+               f"{cfg.name}: the MoE layer on the card disagrees with the "
+               f"CPU")
+
+    def moe_phase():
+        """Phase 9b, ``[moe]``: granite-moe-3b-a800m at its full config
+        and mixtral-8x7b at full width and MIX_LAYERS layers on the card:
+        prefill on both backends with routing and logit gates, decode
+        against prefill, granite's greedy ``serve_lm`` and one MoE layer
+        against the CPU."""
+        phase_t = time.perf_counter()
+        rt = RouteLog(moe_lib)
+        try:
+            # granite-moe-3b-a800m, full config
+            cfg = granite_moe_3b_a800m.CONFIG
+            t = time.perf_counter()
+            model = tfm.init_params(
+                torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+            torch.cuda.synchronize()
+            mods = [layer.moe for layer in model.layers]
+            n_params = sum(p.numel() for p in model.parameters())
+            w_bytes = sum(p.numel() * p.element_size()
+                          for p in model.parameters())
+            log(f"[moe] {cfg.name}: {cfg.n_layers} layers, d_model "
+                f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, "
+                f"head_dim {cfg.hd}, {cfg.moe_experts} experts top-"
+                f"{cfg.moe_top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied, "
+                f"capacity factor {cfg.capacity_factor}: {n_params} params "
+                f"({cfg.active_param_count()} active a token), "
+                f"{w_bytes / 1e9:.3f} GB {cfg.param_dtype} (router fp32), "
+                f"initialised on the card in {time.perf_counter() - t:.2f} s")
+            expect(n_params == cfg.param_count(), "granite parameter count")
+            prompts = torch.as_tensor(
+                lm_batch(0, 0, MOE_BATCH, MOE_SEQ, cfg.vocab)["tokens"],
+                device="cuda")
+            moe_prefills("granite", model, prompts, rt, mods)
+            rt.take(mods)
+            profile_log("[moe] granite prefill fused, profiled",
+                        lambda: prefill_lm(model, prompts, backend="fused"),
+                        1, 12)
+            rt.take(mods)
+
+            # one MoE layer on the card against the CPU: layer 0's input
+            # of the first prompt row
+            seen = []
+            hook = mods[0].register_forward_pre_hook(
+                lambda m_, args: seen.append(args[0]))
+            with torch.no_grad():
+                model.hidden_states(prompts[:1], backend="fused")
+            hook.remove()
+            moe_layer_on_cpu(model, seen[0], rt, mods)
+            del seen
+
+            moe_decode(model, prompts[:2, :DEC_PROMPT], rt, mods)
+
+            cache = model.init_cache(2, 8)
+
+            def decode4():
+                with torch.no_grad():
+                    for pos in range(4):
+                        model.decode_step(cache, prompts[:2, pos:pos + 1],
+                                          pos)
+            profile_log("[moe] granite decode step (batch 2), profiled",
+                        decode4, 4, 10)
+            rt.take(mods)
+            del cache
+
+            # greedy serve_lm at the config's capacity (decode routes 2
+            # tokens a step at capacity 1: a second token sent to an
+            # expert is dropped, the reference's behaviour)
+            rt.take(mods)
+            ids, tm = serve_lm(cfg, n_tokens=32, batch=2, model=model)
+            dec = rt.take(mods)
+            cap = moe_lib.capacity(2, cfg.moe_top_k, cfg.moe_experts,
+                                   cfg.capacity_factor)
+            dropped = sum(int((moe_lib.dispatch(c[0], cfg.moe_experts,
+                                                cap)[2] >= cap).sum())
+                          for calls in dec for c in calls)
+            n_entries = 2 * 32 * cfg.moe_top_k * cfg.n_layers
+            log(f"[moe] {cfg.name} serve_lm batch 2 x 32 tokens: "
+                f"{tm['decode_s']:.3f} s, {tm['ms_per_token']:.3f} ms/token; "
+                f"weight-read bound {w_bytes / PEAK_BYTES * 1e3:.3f} "
+                f"ms/token ({w_bytes / 1e9:.2f} GB / 3.35 TB/s); decode "
+                f"capacity {cap}: {dropped} of {n_entries} (token, expert) "
+                f"entries dropped; ids {ids[:, :8].tolist()}...")
+            expect(ids.shape == (2, 32) and bool(((ids >= 0)
+                                                  & (ids < cfg.vocab)).all()),
+                   "granite serve_lm ids malformed")
+            del model, prompts, ids, mods
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # mixtral-8x7b, full width, MIX_LAYERS layers
+            full = mixtral_8x7b.CONFIG
+            cfg = dataclasses.replace(full, n_layers=MIX_LAYERS)
+            t = time.perf_counter()
+            model = tfm.init_params(
+                torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+            torch.cuda.synchronize()
+            mods = [layer.moe for layer in model.layers]
+            n_params = sum(p.numel() for p in model.parameters())
+            w_bytes = sum(p.numel() * p.element_size()
+                          for p in model.parameters())
+            log(f"[moe] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers "
+                f"(cut: {full.param_count() * 2 / 1e9:.1f} GB of bf16 "
+                f"weights at full depth), d_model {cfg.d_model}, "
+                f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV, head_dim "
+                f"{cfg.hd}, {cfg.moe_experts} experts top-{cfg.moe_top_k}, "
+                f"d_ff {cfg.d_ff}, window {cfg.window}, rope_theta "
+                f"{cfg.rope_theta:g}: {n_params} params, "
+                f"{w_bytes / 1e9:.3f} GB, initialised on the card in "
+                f"{time.perf_counter() - t:.2f} s")
+            expect(n_params == cfg.param_count(), "mixtral parameter count")
+            prompts = torch.as_tensor(
+                lm_batch(0, 0, 1, MIX_SEQ, cfg.vocab)["tokens"],
+                device="cuda")
+            torch.cuda.reset_peak_memory_stats()
+            moe_prefills("mixtral", model, prompts, rt, mods)
+            log(f"[moe] {cfg.name} peak allocated "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+            moe_decode(model, prompts[:, :MIX_DEC], rt, mods)
+            del model, prompts, mods
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            rt.uninstall()
+        log(f"[moe] phase {time.perf_counter() - phase_t:.2f} s")
+
+    def lm_train_phase():
+        """Phase 9c, ``[lm-train]``: granite-moe-3b-a800m trained at its
+        full config (aux losses, remat, microbatches) and stopped and
+        resumed through ``launch.train`` at LMR_LAYERS layers."""
+        phase_t = time.perf_counter()
+        cfg = granite_moe_3b_a800m.CONFIG
+        ops = (maxsim_top2_op, maxsim_topk_op, cm_ops.colbert_maxsim_multi_op,
+               cm_ops.colbert_maxsim_rerank_op,
+               cm_ops.colbert_maxsim_residual_multi_op,
+               cm_ops.colbert_maxsim_residual_rerank_op,
+               fa_ops.flash_attention_op, embedding_bag_op)
+        n0 = sum(fn.launches for fn in ops)
+        model = tfm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                cfg, "cuda")
+        state = train_step.make_train_state(model)
+        opt = optimizer.AdamWConfig(lr=1e-4, warmup_steps=0,
+                                    total_steps=LMT_STEPS)
+        step = train_step.lm_train_step(cfg, opt, aux_weight=0.01,
+                                        accum=LMT_ACCUM)
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, step_ms = [], [], []
+        for s in range(LMT_STEPS):
+            b = {"tokens": torch.as_tensor(lm_batch(
+                0, s, LMT_BATCH, LMT_SEQ, cfg.vocab)["tokens"],
+                device="cuda")}
+            t = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            norms.append(float(m["grad_norm"]))
+        peak = torch.cuda.max_memory_allocated()
+        with torch.no_grad():
+            _, aux = model.forward_aux(b["tokens"][:1, :1024],
+                                       backend="reference")
+        mb = b["tokens"][:LMT_BATCH // LMT_ACCUM]
+
+        def microbatch():
+            total, _, _ = train_step.lm_loss_fn(model, mb)
+            train_step.param_grads(model, total)
+        profile_log("[lm-train] granite microbatch forward and backward, "
+                    "profiled", microbatch, 1, 14)
+        tokens = LMT_BATCH * LMT_SEQ
+        log(f"[lm-train] {cfg.name} full config ({cfg.n_layers} layers, "
+            f"remat {cfg.remat}), batch {LMT_BATCH} x {LMT_SEQ} as "
+            f"{LMT_ACCUM} microbatches, aux weight 0.01: losses "
+            f"{json.dumps(losses)}, grad norms {json.dumps(norms)}; aux "
+            f"after the steps load_balance {aux['load_balance'].item():.4f} "
+            f"router_z {aux['router_z'].item():.4f}; step ms (host clock to "
+            f"the loss on the host) {json.dumps([round(x, 1) for x in step_ms])}"
+            f", {tokens / step_ms[-1] * 1e3:.0f} tokens/s at the last; peak "
+            f"allocated {peak / 1e9:.3f} GB ({base / 1e9:.3f} GB of "
+            f"parameters and moments before)")
+        expect(all(np.isfinite(x) for x in losses + norms),
+               "granite training: a loss or gradient norm is not finite")
+        expect(sum(fn.launches for fn in ops) == n0,
+               "granite training launched a kernel")
+        del model, state, step, b, mb
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # stop and resume through launch.train at LMR_LAYERS layers (the
+        # registry's entry swapped for the run: launch.train reads it)
+        arch = cfg.name
+        entry = configs_base._REGISTRY[arch]
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lm."))
+        configs_base._REGISTRY[arch] = dataclasses.replace(
+            entry, config=dataclasses.replace(entry.config,
+                                              n_layers=LMR_LAYERS))
+        try:
+            stop_resume(arch, LMR_BATCH, tmp / "granite", steps=LMR_STEPS,
+                        stop=LMR_STOP, seq=LMR_SEQ, tag="lm-train")
+        finally:
+            configs_base._REGISTRY[arch] = entry
+            shutil.rmtree(tmp, ignore_errors=True)
+        expect(sum(fn.launches for fn in ops) == n0,
+               "granite training launched a kernel")
+        log(f"[lm-train] phase {time.perf_counter() - phase_t:.2f} s")
 
     table_counts = {}
 
@@ -3330,15 +3952,18 @@ def main() -> int:
         rows[-1]["path_ms"] = bulk_b8_ms
 
     b7_bert4rec = {"launches": 0, "path_ms": 0.0}
+    b7_moe = {"granite": {"launches": 0, "path_ms": 0.0},
+              "mixtral": {"launches": 0, "path_ms": 0.0}}
     b8_ctr_train = {"launches": 0, "path_ms": 0.0}
 
     def digest(t):
-        """An exact integer digest of a 4-byte tensor's bits: the int64
-        sum of its 32-bit words weighted by position mod 65,521 (plus 1),
-        in chunks on the tensor's device, wrapping.  Equal digests stand
-        for bit-equal table-sized leaves without a second copy of
-        either."""
-        w = t.detach().reshape(-1).view(torch.int32)
+        """An exact integer digest of a 4- or 2-byte tensor's bits: the
+        int64 sum of its 32- or 16-bit words weighted by position mod
+        65,521 (plus 1), in chunks on the tensor's device, wrapping.
+        Equal digests stand for bit-equal table-sized leaves without a
+        second copy of either."""
+        w = t.detach().reshape(-1)
+        w = w.view(torch.int16 if w.element_size() == 2 else torch.int32)
         total = torch.zeros((), dtype=torch.int64, device=w.device)
         for c in range(0, w.numel(), 1 << 26):
             x = w[c:c + (1 << 26)].long()
@@ -3379,14 +4004,15 @@ def main() -> int:
                f"embedding_bag {n} times, expected {want_launches}")
         expect(equal and ok, f"{tag} ctr_serve_step disagrees or malformed")
 
-    def stop_resume(arch, batch, ckpt, after=None):
-        """``launch.train.run`` at preset ``full``: RT_STEPS steps
-        uninterrupted, then RT_STOP steps stopped with a checkpoint and a
-        resumed run to RT_STEPS; losses and train-state leaves held bit
-        for bit.  ``after(model)`` runs on the uninterrupted run's model
-        before it is freed."""
-        kw = dict(preset="full", steps=RT_STEPS, batch=batch, log_every=0,
-                  ckpt_every=0)
+    def stop_resume(arch, batch, ckpt, after=None, *, steps=RT_STEPS,
+                    stop=RT_STOP, seq=32, tag="recsys-train"):
+        """``launch.train.run`` at preset ``full``: ``steps`` steps
+        uninterrupted, then ``stop`` steps stopped with a checkpoint and
+        a resumed run to ``steps``; losses and train-state leaves held
+        bit for bit.  ``after(model)`` runs on the uninterrupted run's
+        model before it is freed; ``seq`` is an LM's sequence length."""
+        kw = dict(preset="full", steps=steps, batch=batch, seq=seq,
+                  log_every=0, ckpt_every=0)
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -3405,14 +4031,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        part = train_lib.run(arch, ckpt_dir=str(ckpt), stop_after=RT_STOP,
+        part = train_lib.run(arch, ckpt_dir=str(ckpt), stop_after=stop,
                              **kw)
         part_s, part_losses = time.perf_counter() - t, part["losses"]
         del part
         gc.collect()
         torch.cuda.empty_cache()
         ck_bytes = sum(f.stat().st_size for f in
-                       (ckpt / f"step_{RT_STOP:09d}").iterdir())
+                       (ckpt / f"step_{stop:09d}").iterdir())
         t = time.perf_counter()
         resumed = train_lib.run(arch, ckpt_dir=str(ckpt), **kw)
         resumed_s = time.perf_counter() - t
@@ -3423,23 +4049,23 @@ def main() -> int:
         torch.cuda.empty_cache()
         shutil.rmtree(ckpt, ignore_errors=True)
         med = statistics.median(step_ms)
-        log(f"[recsys-train] {arch} batch {batch}: {n_params} params; "
+        log(f"[{tag}] {arch} batch {batch}: {n_params} params; "
             f"losses (uninterrupted) {json.dumps(losses)}")
-        log(f"[recsys-train] {arch} step ms (uninterrupted, host clock to "
+        log(f"[{tag}] {arch} step ms (uninterrupted, host clock to "
             f"the loss on the host): median {med:.2f}, first "
             f"{step_ms[0]:.2f}, max {max(step_ms):.2f}; "
             f"{batch / med * 1e3:.0f} samples/s; peak allocated "
             f"{peak / 1e9:.3f} GB ({base / 1e9:.3f} GB before the run); "
             f"calls: uninterrupted {full_s:.2f} s, "
-            f"stopped at {RT_STOP} with its checkpoint {part_s:.2f} s, "
-            f"resumed (restore, {RT_STEPS - RT_STOP} steps, checkpoint) "
+            f"stopped at {stop} with its checkpoint {part_s:.2f} s, "
+            f"resumed (restore, {steps - stop} steps, checkpoint) "
             f"{resumed_s:.2f} s; checkpoint {ck_bytes} bytes")
         same = part_losses + rest == losses
         diff = [n for (n, a), (_, b) in zip(got, want) if a != b]
-        log(f"[recsys-train] {arch} resumed from step {start}: losses "
+        log(f"[{tag}] {arch} resumed from step {start}: losses "
             f"bit-equal {same}; leaves whose digests differ {diff} (of "
             f"{len(want)})")
-        expect(start == RT_STOP and same and not diff
+        expect(start == stop and same and not diff
                and len(got) == len(want),
                f"{arch}: the resumed run differs from the uninterrupted one")
         expect(all(np.isfinite(x) for x in losses), f"{arch}: a loss is "
@@ -3639,6 +4265,12 @@ def main() -> int:
     lm_phase()
     gc.collect()
     torch.cuda.empty_cache()
+    moe_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_train_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
     recsys_phase()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3656,6 +4288,8 @@ def main() -> int:
                                        {"launches": 0, "path_ms": 0.0})
         if r_["name"] == "flash_attention":
             r_["bert4rec"] = b7_bert4rec
+            r_["granite"] = b7_moe["granite"]
+            r_["mixtral"] = b7_moe["mixtral"]
         if r_["name"] == "embedding_bag":
             r_["ctr_train"] = b8_ctr_train
     log(json.dumps({"kernels": rows}))

@@ -1,10 +1,10 @@
 """Architecture registry: full configs, reduced smoke configs, shapes.
 
 Counterpart of ``repro.configs.base``.  Ported families: ``retrieval``
-(colbert), ``lm`` (minitron-4b, stablelm-3b, qwen2.5-32b) and
-``recsys`` (dlrm-rm2, dcn-v2, wide-deep, bert4rec); the MoE and GNN
-families are not ported yet.  Every architecture module
-of the port exports
+(colbert), ``lm`` (minitron-4b, stablelm-3b, qwen2.5-32b and the MoE
+archs granite-moe-3b-a800m and mixtral-8x7b) and ``recsys``
+(dlrm-rm2, dcn-v2, wide-deep, bert4rec); the GNN family is not ported
+yet.  Every architecture module of the port exports
   CONFIG  — the exact public-literature configuration;
   SMOKE   — a reduced same-family config for CPU tests;
   SHAPES  — {shape_id: ShapeSpec} (the arch's own input-shape set);

@@ -3,18 +3,20 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch colbert \\
       --preset smoke --steps 50 --ckpt-dir /tmp/ckpt --ckpt-every 20
 
-Counterpart of ``repro.launch.train`` for the retrieval family (the
-ColBERT encoder) and the recsys family: dlrm-rm2, dcn-v2 and wide-deep
-train through ``ctr_train_step`` on ``ctr_batch``, bert4rec through the
+Counterpart of ``repro.launch.train`` for the LM family (dense and
+MoE: ``lm_train_step`` with MoE aux losses on ``lm_batch`` of ``seq``
+tokens), the retrieval family (the ColBERT encoder) and the recsys
+family: dlrm-rm2, dcn-v2 and wide-deep train through
+``ctr_train_step`` on ``ctr_batch``, bert4rec through the
 sampled-softmax step on ``bert4rec_sampled_batch`` (4 masked positions
 and 32 negatives a batch, as the reference's ``launch.train`` draws
 them; at ``preset="full"`` the ``train_batch`` shape's 30 and 1,024).
-The LM and GNN families, and every arch the port does not have, raise
+The GNN family, and every arch the port does not have, raise
 ``NotImplementedError`` until their train steps are ported (ROADMAP § A
 item 8).  It trains on ``cuda`` unless the caller passes
 ``device="cpu"`` (``--device cpu``), and raises without a GPU
-otherwise.  A recsys model is drawn from a generator on the training
-device, so a full config's tables are drawn on the card.
+otherwise.  An LM or recsys model is drawn from a generator on the
+training device, so a full config is drawn on the card.
 
 Restart semantics: the driver always restores the newest valid
 checkpoint and resumes the step-indexed data pipeline at the restored
@@ -36,6 +38,7 @@ from repro_torch.core import backend as backend_lib
 from repro_torch.data import pipeline, synthetic
 from repro_torch.models import colbert as colbert_lib
 from repro_torch.models import recsys
+from repro_torch.models import transformer as tfm
 from repro_torch.train import checkpoint, elastic, optimizer, train_step
 
 
@@ -54,6 +57,13 @@ def build_trainable(arch: str, preset: str, batch: int, seq: int,
     if entry.family == "recsys":
         return _recsys_trainable(arch, entry, cfg, preset, batch, opt_cfg,
                                  device)
+    if entry.family == "lm":
+        def init_lm(seed):
+            gen = torch.Generator(device=device).manual_seed(seed)
+            return tfm.init_params(gen, cfg, device)
+
+        return (init_lm, train_step.lm_train_step(cfg, opt_cfg),
+                lambda s: synthetic.lm_batch(0, s, batch, seq, cfg.vocab))
     if entry.family != "retrieval":
         raise NotImplementedError(
             f"{arch}: training the {entry.family} family is not ported yet "
@@ -84,7 +94,7 @@ def build_trainable(arch: str, preset: str, batch: int, seq: int,
 
 def _trainable() -> list[str]:
     return [a for a in configs.all_archs()
-            if configs.get(a).family in ("retrieval", "recsys")]
+            if configs.get(a).family in ("lm", "retrieval", "recsys")]
 
 
 def _recsys_trainable(arch, entry, cfg, preset, batch, opt_cfg, device):

@@ -10,7 +10,7 @@ The full-sequence branch has two backends (``core.backend.SERVING``):
 
 * ``reference`` — the reference's arithmetic, rounding at the same
   places: the score einsum rounded to the compute dtype (accumulated in
-  fp32, :func:`_einsum`), the division by √hd,
+  fp32, ``common.rounded_einsum``), the division by √hd,
   the masks, softmax in fp32, the cast back, the P·V einsum.  With
   ``chunk`` shorter than the sequence it runs the reference's blocked
   branch, one query chunk at a time, so the live score buffer is
@@ -44,7 +44,7 @@ from torch import nn
 from repro_torch.core import backend as backend_lib
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.kernels.flash_attention.ref import visible
-from repro_torch.models.common import rope
+from repro_torch.models.common import rope, rounded_einsum
 
 NEG = -1e30
 
@@ -122,30 +122,19 @@ def _scaled(s, hd):
     return s / torch.tensor(math.sqrt(hd), dtype=s.dtype, device=s.device)
 
 
-def _einsum(eq, a, b):
-    """``torch.einsum`` of two operands of one dtype, computed in fp32
-    and rounded once to that dtype — where the reference's HLO rounds a
-    bf16 dot (fp32 accumulation, one rounding of the result).  torch's
-    own bf16 batched product takes another path by host (on the CPU, by
-    instruction set) and can land an element one bf16 step away."""
-    if a.dtype == torch.float32:
-        return torch.einsum(eq, a, b)
-    return torch.einsum(eq, a.float(), b.float()).to(a.dtype)
-
-
 def _attend(qg, k, v, row0, causal, window, attn_mask):
     """The reference's score -> mask -> fp32 softmax -> P·V for query
     rows ``row0 + i`` of qg (B, c, KV, G, hd) against every key; one
     query chunk of the blocked branch, or all of them."""
     c, S, hd = qg.shape[1], k.shape[1], qg.shape[-1]
-    s = _scaled(_einsum("bikgh,bjkh->bkgij", qg, k), hd)
+    s = _scaled(rounded_einsum("bikgh,bjkh->bkgij", qg, k), hd)
     if causal or window is not None:     # else every key is visible
         s = torch.where(visible(c, S, causal=causal, window=window,
                                 row0=row0, device=qg.device), s, NEG)
     if attn_mask is not None:
         s = torch.where(attn_mask[:, None, None, None, :], s, NEG)
     w = torch.softmax(s.float(), dim=-1).to(qg.dtype)
-    return _einsum("bkgij,bjkh->bikgh", w, v)
+    return rounded_einsum("bkgij,bjkh->bikgh", w, v)
 
 
 def attention_weights_received(attn: Attention, x, *, attn_mask=None,
@@ -161,7 +150,7 @@ def attention_weights_received(attn: Attention, x, *, attn_mask=None,
         pos = torch.arange(S, device=x.device)[None, :]
         q, k = rope(q, pos, rope_theta), rope(k, pos, rope_theta)
     qg = q.view(B, S, KV, H // KV, hd)
-    s = _scaled(_einsum("bikgh,bjkh->bkgij", qg, k), hd)
+    s = _scaled(rounded_einsum("bikgh,bjkh->bkgij", qg, k), hd)
     if attn_mask is not None:
         s = torch.where(attn_mask[:, None, None, None, :], s, NEG)
     return torch.softmax(s.float(), dim=-1).mean(dim=(1, 2, 3))
@@ -204,7 +193,7 @@ def decode_attention(attn: Attention, x, cache: KVCache, pos: int, *,
     cache.v[:, :, slot] = v[:, 0].to(cache.v.dtype)
 
     qg = q.view(B, KV, H // KV, hd)
-    s = _scaled(_einsum("bkgh,bkjh->bkgj", qg, cache.k), hd)
+    s = _scaled(rounded_einsum("bkgh,bkjh->bkgj", qg, cache.k), hd)
     j = torch.arange(C, device=x.device)
     if window is None:
         valid = j <= pos
@@ -215,5 +204,6 @@ def decode_attention(attn: Attention, x, cache: KVCache, pos: int, *,
         valid = (pos - (slot - j) % C) >= 0
     s = torch.where(valid, s, NEG)
     w = torch.softmax(s.float(), dim=-1).to(x.dtype)
-    ctx = _einsum("bkgj,bkjh->bkgh", w, cache.v).reshape(B, 1, H * hd)
+    ctx = rounded_einsum("bkgj,bkjh->bkgh", w, cache.v).reshape(B, 1,
+                                                           H * hd)
     return F.linear(ctx, attn.wo.weight), cache

@@ -57,6 +57,17 @@ def rope(x, positions, theta: float = 1e4):
     return out.to(x.dtype)
 
 
+def rounded_einsum(eq, a, b):
+    """``torch.einsum`` of two operands of one dtype, computed in fp32
+    and rounded once to that dtype — where the reference's HLO rounds a
+    bf16 dot (fp32 accumulation, one rounding of the result).  torch's
+    own bf16 batched product takes another path by host (on the CPU, by
+    instruction set) and can land an element one bf16 step away."""
+    if a.dtype == torch.float32:
+        return torch.einsum(eq, a, b)
+    return torch.einsum(eq, a.float(), b.float()).to(a.dtype)
+
+
 def gelu(x):
     """``jax.nn.gelu``'s default: the tanh approximation."""
     return F.gelu(x, approximate="tanh")

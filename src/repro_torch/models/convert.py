@@ -22,6 +22,9 @@ to numpy by the caller — and each returns a ``state_dict`` for
 * ``lm_head`` is absent when the embeddings are tied: the head is then
   ``embed.T`` in both packages.
 * ``ln1``/``ln2`` (d_model,) per layer and ``ln_f`` stay vectors.
+* An MoE layer's ``moe.{router,w_gate,w_up,w_down}`` (router (d_model,
+  E) fp32, experts (E, in, out)) -> ``layers.{i}.moe.{...}``, in the
+  reference's layout, not transposed; such a layer has no ``ffn``.
 
 ``params_to_jax(sd, family)`` is the inverse of ``params_from_jax(tree,
 family)``: it takes a state_dict of the family's model, or any dict of
@@ -32,9 +35,10 @@ leaf names and layouts.  ``jax_ranks(sd, family)`` gives each entry's
 rank in that tree (the optimizer's decay rule reads it: the reference
 decays every leaf of rank >= 2), and ``jax_place(name, family)`` where
 it lives there.  The families (``family_of(model)``): ``"colbert"``
-(``ColBERT``, the default), ``"lm"`` (``Transformer``: the dense LM
-family and BERT4Rec, whose tree is the LM tree with tied embeddings and
-no ``lm_head``), and ``"dlrm-rm2"``, ``"dcn-v2"``, ``"wide-deep"``
+(``ColBERT``, the default), ``"lm"`` (``Transformer``: the LM family,
+dense and MoE — an MoE layer's router is rank 3 there and its experts
+rank 4, so both decay — and BERT4Rec, whose tree is the LM tree with
+tied embeddings and no ``lm_head``), and ``"dlrm-rm2"``, ``"dcn-v2"``, ``"wide-deep"``
 (``DLRM``, ``DCN``, ``WideDeep``).
 
 ``recsys_params_from_jax(tree, arch_id)`` takes the tree of
@@ -75,7 +79,7 @@ def _layer(a, i) -> torch.Tensor:
 
 def lm_params_from_jax(tree) -> dict[str, torch.Tensor]:
     layers = tree["layers"]
-    attn, ffn = layers["attn"], layers["ffn"]
+    attn, ffn, moe = layers["attn"], layers.get("ffn"), layers.get("moe")
     sd = {"embed.weight": _tensor(tree["embed"]),
           "ln_f": _tensor(tree["ln_f"])}
     if tree.get("lm_head") is not None:
@@ -92,7 +96,12 @@ def lm_params_from_jax(tree) -> dict[str, torch.Tensor]:
             if attn.get(b) is not None:
                 sd[p + f"attn.{w}.bias"] = _layer(attn[b], i)
         for name in ("w_gate", "w_up", "w_down"):
-            sd[p + f"{name}.weight"] = _layer(ffn[name], i).T.contiguous()
+            if ffn is not None:
+                sd[p + f"{name}.weight"] = _layer(ffn[name], i).T.contiguous()
+            else:
+                sd[p + f"moe.{name}"] = _layer(moe[name], i)
+        if moe is not None:
+            sd[p + "moe.router"] = _layer(moe["router"], i)
     return sd
 
 
@@ -121,7 +130,11 @@ _LAYER_PATHS = {"ln1": ("ln1",), "ln2": ("ln2",),
                 "attn.wv.bias": ("attn", "bv"),
                 "w_gate.weight": ("ffn", "w_gate"),
                 "w_up.weight": ("ffn", "w_up"),
-                "w_down.weight": ("ffn", "w_down")}
+                "w_down.weight": ("ffn", "w_down"),
+                "moe.router": ("moe", "router"),
+                "moe.w_gate": ("moe", "w_gate"),
+                "moe.w_up": ("moe", "w_up"),
+                "moe.w_down": ("moe", "w_down")}
 _LM_TOP = {"embed.weight": ("embed",), "ln_f": ("ln_f",),
            "lm_head.weight": ("lm_head",)}
 _RECSYS_MLPS = {"dlrm-rm2": ("bot", "top"), "dcn-v2": ("mlp",),

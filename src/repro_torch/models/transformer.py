@@ -1,20 +1,26 @@
-"""Transformer LM: dense blocks, GQA, optional sliding window, RoPE.
+"""Transformer LM: dense and MoE blocks, GQA, optional sliding window, RoPE.
 
-Counterpart of ``repro.models.transformer``: causal LM (prefill and
-KV-cache decode) and bidirectional encoder (the ColBERT backbone).  The
-reference stacks layers on a leading axis for ``lax.scan``; here they
-are an ``nn.ModuleList``.  The LM head is ``lm_head`` or, with
-``tie_embeddings``, the embedding table transposed.
+Counterpart of ``repro.models.transformer``: causal LM (prefill, KV-cache
+decode and training) and bidirectional encoder (the ColBERT and
+BERT4Rec backbones).  The reference stacks layers on a leading axis for
+``lax.scan``; here they are an ``nn.ModuleList``.  The LM head is
+``lm_head`` or, with ``tie_embeddings``, the embedding table
+transposed.  A block's FFN is the dense SwiGLU, or with ``moe_experts``
+the mixture of experts of ``models.moe`` (top-k routing with capacity
+``capacity_factor``), which also returns the block's aux losses; a
+dense block returns none, and :meth:`Transformer.forward_aux` gives a
+dense model constant zeros.
 
 The full-sequence attention of every layer takes a ``backend``
 (``models.attention``): ``fused`` runs the flash-attention kernel (B7),
-``reference`` the reference's arithmetic.  Decode is plain torch and
-updates the stacked KV cache in place.
-
-Not ported yet: MoE blocks (``moe_experts > 0`` raises; ROADMAP § A item
-8) and training, so ``remat``, ``remat_attn_chunk`` and
-``capacity_factor`` are carried for parity with the reference's config
-and read by nothing here.
+``reference`` the reference's arithmetic; training runs ``reference``
+(neither package has a B7 backward).  Decode is plain torch and updates
+the stacked KV cache in place.  With ``remat`` each block runs under
+``torch.utils.checkpoint`` while autograd records (the reference's
+``jax.checkpoint``), so a training step keeps one block's activations
+at a time.  ``remat_attn_chunk``
+is carried for parity with the reference's config and read by nothing
+here.
 """
 
 from __future__ import annotations
@@ -24,9 +30,11 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import Attention, KVCache, decode_attention
 from repro_torch.models.common import dense_init, embed_init, rms_norm, swiglu
+from repro_torch.models.moe import MoE, init_moe_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,7 +89,8 @@ class LMConfig:
 
 
 class Block(nn.Module):
-    """Pre-norm block: GQA attention, then the dense SwiGLU FFN."""
+    """Pre-norm block: GQA attention, then the dense SwiGLU FFN or, with
+    ``cfg.moe_experts``, the MoE FFN (``moe``)."""
 
     def __init__(self, cfg: LMConfig):
         super().__init__()
@@ -92,36 +101,46 @@ class Block(nn.Module):
         self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.hd,
                               n_kv_heads=cfg.n_kv_heads,
                               qkv_bias=cfg.qkv_bias, dtype=dt)
-        self.w_gate = nn.Linear(cfg.d_model, cfg.d_ff, bias=False, dtype=dt)
-        self.w_up = nn.Linear(cfg.d_model, cfg.d_ff, bias=False, dtype=dt)
-        self.w_down = nn.Linear(cfg.d_ff, cfg.d_model, bias=False, dtype=dt)
+        if cfg.moe_experts:
+            self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.moe_experts, dt)
+        else:
+            self.w_gate = nn.Linear(cfg.d_model, cfg.d_ff, bias=False,
+                                    dtype=dt)
+            self.w_up = nn.Linear(cfg.d_model, cfg.d_ff, bias=False, dtype=dt)
+            self.w_down = nn.Linear(cfg.d_ff, cfg.d_model, bias=False,
+                                    dtype=dt)
 
-    def _ffn(self, x):
-        return x + swiglu(rms_norm(x, self.ln2), self.w_gate, self.w_up,
-                          self.w_down)
+    def _ffn(self, x, aux: bool):
+        """(x + FFN(ln2(x)), the MoE block's aux losses when ``aux``,
+        else None; a dense block has none)."""
+        cfg = self.cfg
+        h = rms_norm(x, self.ln2)
+        if not cfg.moe_experts:
+            return x + swiglu(h, self.w_gate, self.w_up, self.w_down), None
+        h, losses = self.moe(h, top_k=cfg.moe_top_k,
+                             capacity_factor=cfg.capacity_factor, aux=aux)
+        return x + h, losses
 
     def forward(self, x, attn_mask=None, window=None, backend=None):
+        """(x after the block, its aux losses {"load_balance",
+        "router_z"} or, dense, None)."""
         cfg = self.cfg
         h = self.attn(rms_norm(x, self.ln1), causal=cfg.causal,
                       window=window, rope_theta=cfg.rope_theta,
                       attn_mask=attn_mask, chunk=cfg.attn_chunk,
                       backend=backend)
-        return self._ffn(x + h)
+        return self._ffn(x + h, aux=True)
 
     def decode(self, x, cache: KVCache, pos: int, window=None):
         h, _ = decode_attention(self.attn, rms_norm(x, self.ln1), cache, pos,
                                 window=window,
                                 rope_theta=self.cfg.rope_theta)
-        return self._ffn(x + h)
+        return self._ffn(x + h, aux=False)[0]
 
 
 class Transformer(nn.Module):
     def __init__(self, cfg: LMConfig):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE blocks (models/moe.py) are not ported yet "
-                f"(ROADMAP § A item 8)")
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab, cfg.d_model,
                                   dtype=cfg.param_dtype)
@@ -142,20 +161,46 @@ class Transformer(nn.Module):
         return F.linear(x, head.weight.to(self.cfg.compute_dtype))
 
     def _final(self, tokens, attn_mask, window, backend):
+        """(final hidden states (B, S, D), the MoE blocks' aux losses, a
+        list with one dict a layer, empty when dense)."""
         x = self._embed(tokens)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        auxs = []
         for layer in self.layers:
-            x = layer(x, attn_mask, window, backend)
-        return rms_norm(x, self.ln_f)
+            if remat:
+                x, aux = checkpoint(layer, x, attn_mask, window, backend,
+                                    use_reentrant=False)
+            else:
+                x, aux = layer(x, attn_mask, window, backend)
+            if aux is not None:
+                auxs.append(aux)
+        return rms_norm(x, self.ln_f), auxs
 
     def hidden_states(self, tokens, attn_mask=None, *, backend=None):
         """Final-layer hidden states (B, S, D) of token ids (B, S)."""
-        return self._final(tokens, attn_mask, self.cfg.window, backend)
+        return self._final(tokens, attn_mask, self.cfg.window, backend)[0]
+
+    def forward_aux(self, tokens, attn_mask=None, *, window="cfg",
+                    backend=None):
+        """The reference's ``forward``: (logits (B, S, vocab), aux
+        {"load_balance", "router_z"} 0-d fp32, each the mean over
+        layers, zeros from a dense block)."""
+        if window == "cfg":
+            window = self.cfg.window
+        x, auxs = self._final(tokens, attn_mask, window, backend)
+        if auxs:
+            aux = {k: torch.stack([a[k] for a in auxs]).mean()
+                   for k in auxs[0]}
+        else:
+            zero = torch.zeros((), device=x.device)
+            aux = {"load_balance": zero, "router_z": zero}
+        return self.logits(x), aux
 
     def forward(self, tokens, attn_mask=None, *, window="cfg", backend=None):
         """Full-sequence forward -> logits (B, S, vocab)."""
         if window == "cfg":
             window = self.cfg.window
-        return self.logits(self._final(tokens, attn_mask, window, backend))
+        return self.logits(self._final(tokens, attn_mask, window, backend)[0])
 
     def init_cache(self, batch: int, max_len: int, *, window=None):
         """Stacked per-layer KV cache {"k", "v"}: (n_layers, batch,
@@ -186,7 +231,8 @@ def init_params(generator: torch.Generator, cfg: LMConfig,
                 device=None) -> Transformer:
     """A randomly initialised LM drawn from ``generator`` on its device,
     with the reference's distributions: embeddings N(0, 0.02), matrices
-    N(0, 1/in_dim), an untied head N(0, 0.02), biases 0, norm gains 1.
+    N(0, 1/in_dim), an untied head N(0, 0.02), biases 0, norm gains 1,
+    MoE leaves as ``models.moe.init_moe`` draws them.
     The module is built without storage and filled in place, so a
     CUDA generator initialises the full-size model on the card."""
     device = torch.device(device or generator.device)
@@ -199,8 +245,12 @@ def init_params(generator: torch.Generator, cfg: LMConfig,
     for layer in model.layers:
         layer.ln1.fill_(1.0)
         layer.ln2.fill_(1.0)
-        for lin in (layer.attn.wq, layer.attn.wk, layer.attn.wv,
-                    layer.attn.wo, layer.w_gate, layer.w_up, layer.w_down):
+        lins = [layer.attn.wq, layer.attn.wk, layer.attn.wv, layer.attn.wo]
+        if cfg.moe_experts:
+            init_moe_(layer.moe, generator)
+        else:
+            lins += [layer.w_gate, layer.w_up, layer.w_down]
+        for lin in lins:
             lin.weight.copy_(dense_init(generator, lin.in_features,
                                         lin.out_features, dt).T)
             if lin.bias is not None:

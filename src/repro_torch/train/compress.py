@@ -1,10 +1,15 @@
-"""Index quantization codecs: int8 blocks and the b-bit residual codec.
+"""Quantization codecs: int8 blocks, gradient error feedback and the
+b-bit residual codec.
 
-Counterpart of the index half of ``repro.train.compress`` (the gradient
-error-feedback functions belong to training and are not ported yet).
+Counterpart of ``repro.train.compress``.
 
 * int8: per-block (:data:`BLOCK` values) symmetric quantization with one
-  fp32 scale per block — ``PackedIndex.pack(compression="int8")``.
+  fp32 scale per block — ``PackedIndex.pack(compression="int8")``, and
+  the gradient compression with **error feedback** (EF-SGD):
+  :func:`compress_tree` quantizes ``g + residual`` and carries the
+  quantization error into the next step, :func:`decompress_tree`
+  decodes, :func:`init_residuals` starts the residuals at zero.  A tree
+  is a tensor or a dict / list / tuple of trees.
 * residual (ColBERTv2-style): each kept token is a centroid id plus a
   ``bits``-bit symmetric quantization of ``token - centroid`` under a
   per-token scale, bit-packed into uint8 bytes (:func:`pack_bits`).
@@ -23,10 +28,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["BLOCK", "RESIDUAL_BITS", "dequantize_int8",
-           "dequantize_residual", "pack_bits", "quantize_int8",
-           "quantize_residual", "residual_values", "symmetric_scale",
-           "unpack_bits"]
+__all__ = ["BLOCK", "RESIDUAL_BITS", "compress_tree", "decompress_tree",
+           "dequantize_int8", "dequantize_residual", "init_residuals",
+           "pack_bits", "quantize_int8", "quantize_residual",
+           "residual_values", "symmetric_scale", "unpack_bits"]
 
 BLOCK = 256
 
@@ -59,6 +64,45 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, shape,
                     n: int) -> torch.Tensor:
     blocks = q.float() * scale[:, None]
     return blocks.reshape(-1)[:n].reshape(shape)
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of the first tree and the entries at the
+    same places of the others (dicts by key, lists and tuples by
+    position): the others' entries there may be anything."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def compress_tree(grads, residuals):
+    """EF step 1: g' = g + residual; quantize; residual' = g' - deq(q).
+    Returns (a tree of (q, scales) pairs, the new fp32 residuals)."""
+    pairs = _tree_map(_compress_one, grads, residuals)
+    return (_tree_map(lambda g, pr: pr[0], grads, pairs),
+            _tree_map(lambda g, pr: pr[1], grads, pairs))
+
+
+def _compress_one(g, r):
+    g32 = g.float() + r
+    q, s = quantize_int8(g32)
+    return (q, s), g32 - dequantize_int8(q, s, g.shape, g.numel())
+
+
+def decompress_tree(qtree, like):
+    """The tree of (q, scales) pairs decoded to the shapes and dtypes of
+    ``like``'s tensors."""
+    return _tree_map(lambda t, qs: dequantize_int8(
+        qs[0], qs[1], t.shape, t.numel()).to(t.dtype), like, qtree)
+
+
+def init_residuals(params):
+    """fp32 zeros shaped like ``params``' tensors."""
+    return _tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device), params)
 
 
 def _check_bits(bits: int) -> int:

@@ -1,16 +1,18 @@
 """Train/serve steps and the train state.
 
-Counterpart of ``repro.train.train_step`` for the ColBERT, CTR (DLRM,
-DCN-v2, Wide & Deep) and BERT4Rec steps: ``make_train_state``,
-``_apply_opt``, ``colbert_train_step``, ``ctr_train_step``,
-``ctr_serve_step``, ``bert4rec_train_step`` (full logits), and
+Counterpart of ``repro.train.train_step`` for the LM (dense and MoE),
+ColBERT, CTR (DLRM, DCN-v2, Wide & Deep) and BERT4Rec steps:
+``make_train_state``, ``_apply_opt``, ``lm_train_step`` (MoE aux
+losses folded in, optional microbatch accumulation), ``lm_serve_step``,
+``colbert_train_step``, ``ctr_train_step``, ``ctr_serve_step``,
+``bert4rec_train_step`` (full logits), and
 :func:`bert4rec_sampled_train_step`, the sampled-softmax step that
 ``repro.launch.train`` defines inline.  The
 steps are plain torch differentiated by ``torch.autograd`` on the
 ``reference`` path, and they launch no kernel of the port: neither
 package has a backward kernel, and the kernel wrappers refuse an input
-that requires grad.  The LM and GNN steps are not ported yet (ROADMAP
-§ A item 8).
+that requires grad.  The GNN step is not ported yet (ROADMAP § A item
+8d).
 
 The train state is a dict ``{"params": model, "opt": AdamWState,
 "step": int}``; a step updates the module's parameters and the moments
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.models import convert, recsys
 from repro_torch.models.colbert import ColBERTConfig
+from repro_torch.models.transformer import LMConfig
 from repro_torch.train import losses, optimizer
 
 PLAIN = "reference"     # the differentiable backend every step runs
@@ -73,6 +76,66 @@ def _loss_step(loss_fn, opt_cfg):
         loss = loss_fn(model, batch)
         return _apply_opt(opt_cfg, state, param_grads(model, loss), loss,
                           ranks=_ranks(model))
+    return step
+
+
+# ------------------------------ LM family ---------------------------------
+
+def lm_loss_fn(model, tokens, aux_weight: float = 0.01):
+    """The reference's ``loss_fn`` of ``lm_train_step`` on the plain
+    path: (loss + aux_weight * (load_balance + router_z), the next-token
+    loss alone, the aux losses averaged over layers)."""
+    logits, aux = model.forward_aux(tokens, backend=PLAIN)
+    loss = losses.lm_loss(logits, tokens)
+    total = loss + aux_weight * (aux["load_balance"] + aux["router_z"])
+    return total, loss, aux
+
+
+def lm_train_step(cfg: LMConfig, opt_cfg: optimizer.AdamWConfig, *,
+                  aux_weight: float = 0.01, accum: int = 1):
+    """Causal-LM step; ``batch`` holds ``tokens`` (B, S) on the model's
+    device.  accum 1: the gradients of the total loss (MoE aux losses
+    folded in), the metric ``loss`` the next-token loss alone.  accum >
+    1: B splits into ``accum`` microbatches taken in order, their
+    gradients summed into fp32 zeros and divided by ``accum``, the loss
+    the mean of their next-token losses — the reference's ``acc_body``.
+    Metrics: ``loss``, ``grad_norm``, ``lr`` (0-d tensors)."""
+    del cfg                     # the model carries it; kept for parity
+
+    def step(state, batch):
+        model = state["params"]
+        tokens = batch["tokens"]
+        if accum == 1:
+            total, loss, _ = lm_loss_fn(model, tokens, aux_weight)
+            grads = param_grads(model, total)
+        else:
+            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for n, p in model.named_parameters()}
+            loss = torch.zeros((), device=tokens.device)
+            for mb in tokens.reshape(accum, tokens.shape[0] // accum,
+                                     tokens.shape[1]):
+                total, l_mb, _ = lm_loss_fn(model, mb, aux_weight)
+                for n, g in param_grads(model, total).items():
+                    grads[n].add_(g)
+                loss = loss + l_mb.detach()
+                del total, l_mb
+            grads = {n: g / accum for n, g in grads.items()}
+            loss = loss / accum
+        return _apply_opt(opt_cfg, state, grads, loss, ranks=_ranks(model))
+
+    return step
+
+
+def lm_serve_step(cfg: LMConfig, *, window="cfg"):
+    """One-token decode with a KV cache: ``step(model, cache, tokens (B,
+    1), pos) -> (logits, cache)``."""
+    del cfg
+
+    @torch.no_grad()
+    def step(model, cache, tokens, pos):
+        return model.decode_step(cache, tokens, pos, window=window)
+
     return step
 
 

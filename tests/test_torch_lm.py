@@ -1,9 +1,13 @@
-"""The dense LM serving slice of the PyTorch port against the JAX
-reference: GQA attention (both backends, the chunked branch, decode with
-its ring buffer), the transformer LM at the smoke configs of
-minitron-4b, stablelm-3b and qwen2.5-32b, ``serve_lm`` and
-``prefill_lm``.  Weights are the reference's, carried across by
-``lm_params_from_jax``; token ids are numpy arrays fed to both.
+"""The LM serving slice of the PyTorch port against the JAX reference:
+GQA attention (both backends, the chunked branch, decode with its ring
+buffer), the transformer LM at the smoke configs of minitron-4b,
+stablelm-3b, qwen2.5-32b and the MoE archs granite-moe-3b-a800m and
+mixtral-8x7b (logits and aux losses), ``serve_lm`` and ``prefill_lm``.
+Weights are the reference's, carried across by ``lm_params_from_jax``;
+token ids are numpy arrays fed to both.  An MoE layer's routing may flip
+at a near-tie of its k-th and (k+1)-th router logit: every MoE case
+asserts each such gap it met exceeds ``GAP_TOL`` (no fixture was
+re-seeded to pass it).
 
 Tolerances: fp32 within 1e-5 abs (the two frameworks sum the products
 and softmax in different orders).  bf16 attention: the ``reference``
@@ -29,13 +33,17 @@ from repro_torch import configs
 from repro_torch.data.synthetic import lm_batch
 from repro_torch.launch.serve import prefill_lm, serve_lm
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models.convert import lm_params_from_jax
 from repro_torch.models.transformer import Transformer, init_params
 
 ATOL = 1e-5
 BF16_ATOL = 1e-3
 BF16_FUSED_ATOL = 2e-2
-ARCHS = ["minitron-4b", "stablelm-3b", "qwen2.5-32b"]
+GAP_TOL = 1e-5
+ARCHS = ["minitron-4b", "stablelm-3b", "qwen2.5-32b", "granite-moe-3b-a800m",
+         "mixtral-8x7b"]
+MOE_ARCHS = ["granite-moe-3b-a800m", "mixtral-8x7b"]
 
 
 def _np_tree(tree):
@@ -187,12 +195,38 @@ class TestAttention:
         np.testing.assert_allclose(tc.v.numpy(), np.asarray(jc.v), atol=ATOL)
 
 
+def _record_gap(gaps):
+    """A pre-hook on an MoE layer: the least gap between the k-th and
+    (k+1)-th router logit of the tokens it is about to route."""
+    def hook(module, args, kwargs):
+        x, k = args[0], kwargs["top_k"]
+        B, S, D = x.shape
+        nb = moe.n_blocks(B * S, kwargs.get("block_tokens", 2048))
+        with torch.no_grad():
+            logits = moe.route(module, x.reshape(nb, -1, D), k)[0]
+        top = torch.sort(logits, dim=-1, descending=True).values
+        gaps.append(float((top[..., k - 1] - top[..., k]).min()))
+    return hook
+
+
+def _check_routing(model):
+    """Every routing the model made since ``_lm_pair`` was clear of a
+    near-tie (dense models route nothing)."""
+    assert bool(model.gaps) == bool(model.cfg.moe_experts)
+    assert not model.gaps or min(model.gaps) > GAP_TOL, min(model.gaps)
+
+
 def _lm_pair(arch, **changes):
     jcfg = dataclasses.replace(j_configs.get(arch).smoke, **changes)
     tcfg = dataclasses.replace(configs.get(arch).smoke, **changes)
     params = j_tfm.init_params(jax.random.PRNGKey(0), jcfg)
     model = Transformer(tcfg)
     model.load_state_dict(lm_params_from_jax(_np_tree(params)))
+    model.gaps = []
+    for layer in model.layers:
+        if tcfg.moe_experts:
+            layer.moe.register_forward_pre_hook(_record_gap(model.gaps),
+                                                with_kwargs=True)
     return jcfg, params, model.eval()
 
 
@@ -208,6 +242,7 @@ def _j_prefill(params, tokens, jcfg):
 LM_CASES = [(a, {}) for a in ARCHS] + [
     ("minitron-4b", {"attn_chunk": 8}),
     ("minitron-4b", {"window": 4}),
+    ("granite-moe-3b-a800m", {"capacity_factor": 4.0}),     # E / k: no drops
 ]
 
 
@@ -221,7 +256,7 @@ class TestLM:
         arch, changes = case
         jcfg, params, model = _lm_pair(arch, **changes)
         tok = lm_batch(1, 0, 2, 20, jcfg.vocab)["tokens"]
-        want_logits, _ = j_tfm.forward(params, jnp.asarray(tok), jcfg)
+        want_logits, want_aux = j_tfm.forward(params, jnp.asarray(tok), jcfg)
         want_h = j_tfm.hidden_states(params, jnp.asarray(tok), jcfg)
         with torch.no_grad():
             for backend in ("reference", "fused"):
@@ -229,10 +264,20 @@ class TestLM:
                 np.testing.assert_allclose(got.numpy(),
                                            np.asarray(want_logits),
                                            atol=ATOL, rtol=0)
+                got, aux = model.forward_aux(torch.from_numpy(tok),
+                                             backend=backend)
+                np.testing.assert_allclose(got.numpy(),
+                                           np.asarray(want_logits),
+                                           atol=ATOL, rtol=0)
+                for name, v in want_aux.items():    # zeros when dense
+                    np.testing.assert_allclose(float(aux[name]), float(v),
+                                               atol=1e-6, rtol=1e-6,
+                                               err_msg=name)
                 h = model.hidden_states(torch.from_numpy(tok),
                                         backend=backend)
                 np.testing.assert_allclose(h.numpy(), np.asarray(want_h),
                                            atol=ATOL, rtol=0)
+        _check_routing(model)
 
     @pytest.mark.parametrize("case", LM_CASES, ids=_case_id)
     def test_decode_step(self, case):
@@ -251,11 +296,17 @@ class TestLM:
                     tc, torch.from_numpy(tok[:, pos:pos + 1]), pos)
             np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                        atol=ATOL, rtol=0)
+        _check_routing(model)
 
     @pytest.mark.parametrize("case", LM_CASES, ids=_case_id)
     def test_prefill_matches_jax_and_decode(self, case):
         """``prefill_lm`` equals the reference's prefill step, and
-        decoding the prompt token by token ends at the same logits."""
+        decoding the prompt token by token ends at the same logits.  An
+        MoE layer routes each decode step's 2 tokens with capacity
+        ceil(cf * 2 * k / E) (1 at the smoke configs) and the prefill's
+        34 with its own, so the two drop different entries unless
+        capacity_factor >= E / k drops none: there the decode is held to
+        the reference's decode of the prompt instead."""
         arch, changes = case
         jcfg, params, model = _lm_pair(arch, **changes)
         tok = lm_batch(3, 0, 2, 17, jcfg.vocab)["tokens"]
@@ -270,10 +321,25 @@ class TestLM:
             for pos in range(tok.shape[1]):
                 logits, cache = model.decode_step(
                     cache, torch.from_numpy(tok[:, pos:pos + 1]), pos)
-        np.testing.assert_allclose(logits[:, 0].numpy(), got.numpy(),
-                                   atol=ATOL, rtol=0)
+        drops = jcfg.moe_experts and (
+            jcfg.capacity_factor < jcfg.moe_experts / jcfg.moe_top_k)
+        if drops:
+            jc = j_tfm.init_cache(jcfg, 2, tok.shape[1])
+            j_dec = jax.jit(j_tfm.decode_step, static_argnums=4)
+            for pos in range(tok.shape[1]):
+                j_last, jc = j_dec(params, jc,
+                                   jnp.asarray(tok[:, pos:pos + 1]),
+                                   jnp.int32(pos), jcfg)
+            want = np.asarray(j_last[:, 0])
+            assert np.abs(want - got.numpy()).max() > ATOL   # drops differ
+        else:
+            want = got.numpy()
+        np.testing.assert_allclose(logits[:, 0].numpy(), want, atol=ATOL,
+                                   rtol=0)
+        _check_routing(model)
 
-    @pytest.mark.parametrize("arch", ["minitron-4b", "qwen2.5-32b"])
+    @pytest.mark.parametrize("arch", ["minitron-4b", "qwen2.5-32b"]
+                             + MOE_ARCHS)
     def test_serve_lm_matches_jax(self, arch):
         """Greedy ids equal the reference's ``serve_lm`` (its weights from
         PRNGKey(0)) up to the first step whose top-2 logit gap is within
@@ -300,6 +366,7 @@ class TestLM:
             assert upto >= 4, gaps[b]
             np.testing.assert_array_equal(got[b, :upto].numpy(),
                                           want[b, :upto])
+        _check_routing(model)
 
     def test_serve_lm_raises_without_cuda(self):
         if torch.cuda.is_available():
@@ -348,11 +415,43 @@ class TestConfigs:
         assert cfg.hd == 128 and cfg.n_heads % cfg.n_kv_heads == 0
 
     def test_moe_raises(self):
+        """An MoE config builds a ``Transformer`` of the config's size
+        whose blocks hold an MoE FFN (fp32 router) instead of the dense
+        one, and it runs forward (finite logits, positive aux losses)
+        and a decode step."""
         cfg = dataclasses.replace(configs.get("minitron-4b").smoke,
                                   moe_experts=4, moe_top_k=2)
         assert cfg.active_param_count() < cfg.param_count()
-        with pytest.raises(NotImplementedError, match=r"§ A item 8\)"):
-            Transformer(cfg)
+        model = init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        assert sum(p.numel() for p in model.parameters()) == \
+            cfg.param_count()
+        layer = model.layers[0]
+        assert not hasattr(layer, "w_gate") and isinstance(layer.moe,
+                                                           moe.MoE)
+        assert layer.moe.router.dtype == torch.float32
+        tok = torch.from_numpy(lm_batch(0, 0, 2, 8, cfg.vocab)["tokens"])
+        with torch.no_grad():
+            logits, aux = model.forward_aux(tok)
+            step, _ = model.decode_step(model.init_cache(2, 8), tok[:, :1],
+                                        0)
+        assert logits.shape == (2, 8, cfg.vocab)
+        assert bool(torch.isfinite(logits).all() & torch.isfinite(step).all())
+        assert float(aux["load_balance"]) > 0 and float(aux["router_z"]) > 0
+
+    def test_moe_sizes(self):
+        """The full MoE configs' parameter budgets (the ranges of
+        tests/test_arch_smoke.py) and each smoke model's count."""
+        for arch, (lo, hi), (alo, ahi) in (
+                ("granite-moe-3b-a800m", (3.0e9, 3.6e9), (0.6e9, 1.1e9)),
+                ("mixtral-8x7b", (45e9, 48e9), (11e9, 15e9))):
+            cfg = configs.get(arch).config
+            assert lo <= cfg.param_count() <= hi, arch
+            assert alo <= cfg.active_param_count() <= ahi, arch
+            _, _, model = _lm_pair(arch)
+            assert sum(p.numel() for p in model.parameters()) == \
+                configs.get(arch).smoke.param_count()
+        assert configs.get("granite-moe-3b-a800m").config.param_count() \
+            == 3_298_793_472          # 6.6 GB in bf16
 
     def test_tied_and_untied_heads(self):
         for arch, tied in (("minitron-4b", True), ("stablelm-3b", False)):

@@ -226,15 +226,17 @@ def test_ckpt_dir_moot_under_a_loaded_artifact(tmp_path, capsys):
     assert "WARNING: --ckpt-dir ignored" in capsys.readouterr().out
 
 
-def test_lm_arch_decodes_its_smoke_config(capsys):
-    ids, timings = serve.main(["--arch", "minitron-4b", "--tokens", "4",
+@pytest.mark.parametrize("arch", ["minitron-4b", "granite-moe-3b-a800m",
+                                  "mixtral-8x7b"])
+def test_lm_arch_decodes_its_smoke_config(arch, capsys):
+    ids, timings = serve.main(["--arch", arch, "--tokens", "4",
                                "--device", "cpu"])
     assert ids.shape == (2, 4) and ids.dtype == torch.int32
     assert "[serve] decoded 4 tokens x 2 seqs" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "bert4rec", "dlrm-rm2",
-                                  "gin-tu", "no-such-arch"])
+@pytest.mark.parametrize("arch", ["bert4rec", "dlrm-rm2", "gin-tu",
+                                  "no-such-arch"])
 def test_missing_archs_raise_naming_item_8(arch):
     # bert4rec and dlrm-rm2 are ported, but the serve CLI has no recsys
     # path (the reference's has none either): it names the functions
