@@ -361,6 +361,33 @@ passed — any failure exits non-zero):
    ``serve_bulk`` at 32,768 of 262,144 (cut: each (B, 200, 256) FFN
    hidden is 53.7 GB at 262,144) on ``fused``.  Each run's ms and the
    phase's seconds are printed.
+11d. GNN training (``[gnn]``), the last phase: gin-tu (5 layers,
+   d_hidden 64, sum aggregation, learnable eps) at full width, random
+   weights from seed 0 drawn on the card, each regime's (d_feat,
+   n_classes, task) as the reference's cells take them
+   (``GNN_SHAPE_META``), trained by ``gin_train_step`` with each
+   batch's ``GatherPlan`` built once.  ``full_graph_sm`` (2,708 nodes,
+   10,556 edges): ``segment_gather_sum`` and its gradient at every node
+   against float64 sums (within ``GNN_SUM_TOL`` of the terms'
+   magnitudes), then 20 steps, the loss falling.  ``molecule`` (128
+   graphs of 30 nodes and 64 edges, the graph task): 5 steps, losses
+   finite.  ``minibatch_lg`` (232,965 nodes, 114,615,892 edges, no
+   cut): the graph's and the sampler's CSR host seconds, then 3 fresh
+   blocks of 1,024 seeds at fanout (15, 10), each with its host
+   sampling ms and real node and edge counts, padded to 169,984 x
+   168,960, each keeping at least 95 % of ``max_edges``, one step each.
+   ``ogb_products`` (2,449,029 nodes, 61,859,140 edges, no cut, full
+   batch): generation s, plan build s and bytes, the aggregation and
+   its gradient timed and held to float64 at 4,096 random nodes and the
+   top in- and out-degree nodes (the backward's longest segment,
+   tens of millions of edges); two steps from one state bit-equal in
+   loss and every train-state leaf (no atomic adds on the path); a
+   warm-up and 3 timed steps: ms, nodes/s, edges/s, peak allocated
+   (within the card's 80 GB); one step under ``torch.profiler``
+   (device ms by op, idle share).  Then ``launch.train.run("gin-tu",
+   preset="full")`` stopped and resumed against an uninterrupted run,
+   bit-equal.  No kernel of the port launches in the phase (counted);
+   the phase's seconds and the script's so far are printed.
 13. The ``kernels`` JSON line; ``path_ms`` is each kernel's summed
    event time over the launches ``launches`` counts: the main path (B2,
    bf16 B3/B4), the fused pruning leg (B1), the compressed and routed
@@ -496,6 +523,22 @@ CPU_ROUTE_GAP = 1e-4
 # after 3
 LMT_BATCH, LMT_SEQ, LMT_ACCUM, LMT_STEPS = 8, 4096, 4, 2
 LMR_LAYERS, LMR_BATCH, LMR_SEQ, LMR_STEPS, LMR_STOP = 4, 4, 1024, 6, 3
+# [gnn]: gin-tu's four regimes, each shape's (d_feat, n_classes, task) as
+# the reference's cells take them (repro/launch/steps.py, _GNN_SHAPE_META)
+GNN_SHAPE_META = {
+    "full_graph_sm": (1433, 7, "node"),
+    "minibatch_lg": (602, 41, "node"),
+    "ogb_products": (100, 47, "node"),
+    "molecule": (16, 2, "graph"),
+}
+# steps: full_graph_sm, minibatch_lg (a fresh block each), ogb_products
+# timed after one warm-up, molecule
+GNN_SM_STEPS, GNN_MB_STEPS, GNN_OGB_STEPS, GNN_MOL_STEPS = 20, 3, 3, 5
+# nodes checked against float64 at ogb_products (the top-degree nodes
+# added); segment sums within 1e-5 of the sum of their terms' magnitudes
+GNN_CHECK_NODES, GNN_SUM_TOL = 4096, 1e-5
+# a minibatch_lg block must keep this share of max_edges
+GNN_BLOCK_FILL = 0.95
 
 
 def log(*a):
@@ -754,12 +797,13 @@ def profile_log(tag, fn, per, top):
 
 
 def main() -> int:
+    script_t = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import (base as configs_base, bert4rec,
-                                     colbert_base, dcn_v2, dlrm_rm2,
+                                     colbert_base, dcn_v2, dlrm_rm2, gin_tu,
                                      granite_moe_3b_a800m, minitron_4b,
                                      mixtral_8x7b, wide_deep)
     from repro_torch.core import pruning_pipeline, voronoi
@@ -4252,6 +4296,283 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    def gnn_phase():
+        """Phase 11d, ``[gnn]``: gin-tu (5 layers, d_hidden 64, sum
+        aggregation, learnable eps) trained on the card in the four
+        regimes of its config, random weights from seed 0 drawn on the
+        card; the aggregation is ``core.segment.segment_gather_sum``
+        (plain PyTorch, no kernel of the port)."""
+        from repro_torch.core.segment import gather_plan, segment_gather_sum
+        from repro_torch.data.graph_sampler import (NeighborSampler,
+                                                    synthetic_graph)
+        from repro_torch.models import gnn
+        phase_t = time.perf_counter()
+        dev = torch.device("cuda")
+        ops = (maxsim_top2_op, maxsim_topk_op, cm_ops.colbert_maxsim_multi_op,
+               cm_ops.colbert_maxsim_rerank_op,
+               cm_ops.colbert_maxsim_residual_multi_op,
+               cm_ops.colbert_maxsim_residual_rerank_op,
+               fa_ops.flash_attention_op, embedding_bag_op)
+        launches0 = sum(op.launches for op in ops)
+
+        def regime(shape):
+            d_feat, n_classes, task = GNN_SHAPE_META[shape]
+            return (dataclasses.replace(gin_tu.CONFIG, d_feat=d_feat,
+                                        n_classes=n_classes), task,
+                    gin_tu.SHAPES[shape].dims)
+
+        def fresh_state(cfg):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            return train_step.make_train_state(gnn.init_params(gen, cfg,
+                                                               dev))
+
+        def opt(steps):
+            return optimizer.AdamWConfig(lr=1e-3, warmup_steps=0,
+                                         total_steps=steps)
+
+        def on_card(b):
+            return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+        def with_plan(b, n_nodes):
+            """Adds the batch's gather plan; returns its build seconds."""
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            b["plan"] = gather_plan(b["edge_index"][0], b["edge_index"][1],
+                                    n_nodes, b.get("edge_mask"))
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        def run_steps(step_fn, state, batches):
+            """One step a batch; each step's ms ends with its loss read on
+            the host."""
+            losses, ms = [], []
+            for b in batches:
+                t = time.perf_counter()
+                state, m = step_fn(state, b)
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t) * 1e3)
+            return state, losses, ms
+
+        def sum_err(got, rows, src, dst, vals, n_out):
+            """``got`` (len(rows), d): rows ``rows`` of out[i] = sum of
+            vals[src[e]] over dst[e] == i, against float64 sums (index_add_,
+            a yardstick, off the GNN path) -> (max |err| / the sum of the
+            terms' magnitudes, max |err| / max |sum|)."""
+            loc = torch.full((n_out,), -1, dtype=torch.long, device=dev)
+            loc[rows] = torch.arange(rows.numel(), device=dev)
+            sel = (loc[dst.long()] >= 0).nonzero().flatten()
+            ref = torch.zeros(got.shape, dtype=torch.float64, device=dev)
+            mag = torch.zeros_like(ref)
+            for c in range(0, sel.numel(), 1 << 22):
+                e = sel[c:c + (1 << 22)]
+                v = vals[src[e].long()].double()
+                at = loc[dst[e].long()]
+                ref.index_add_(0, at, v)
+                mag.index_add_(0, at, v.abs())
+            err = (got.double() - ref).abs()
+            rel = (err / mag.clamp_min(1e-300)).max().item()
+            return rel, err.max().item() / max(ref.abs().max().item(), 1e-300)
+
+        def sum_checks(tag, b, n_nodes, rows, d):
+            """Gates 1 and 2: the aggregation and its gradient at ``rows``
+            against float64; both timed on their second call."""
+            src, dst = b["edge_index"][0], b["edge_index"][1]
+            x = b["x"].detach().requires_grad_()
+            g = torch.randn((n_nodes, d), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = segment_gather_sum(x, b["plan"])
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                gx, = torch.autograd.grad(out, x, g)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            fwd = sum_err(out.detach()[rows], rows, src, dst, x.detach(),
+                          n_nodes)
+            del out
+            bwd = sum_err(gx[rows], rows, dst, src, g, n_nodes)
+            log(f"[gnn] {tag} aggregation at d {d} over {src.numel()} "
+                f"edges: forward {(t1 - t0) * 1e3:.2f} ms, backward "
+                f"{(t2 - t1) * 1e3:.2f} ms; against float64 at "
+                f"{rows.numel()} nodes: forward {fwd[0]:.3e} of the terms' "
+                f"magnitudes ({fwd[1]:.3e} of the largest sum), backward "
+                f"{bwd[0]:.3e} ({bwd[1]:.3e}); tolerance {GNN_SUM_TOL}")
+            expect(fwd[0] <= GNN_SUM_TOL and bwd[0] <= GNN_SUM_TOL,
+                   f"gnn {tag}: segment_gather_sum off float64 ({fwd[0]:.3e}, "
+                   f"{bwd[0]:.3e})")
+            del gx, g, x
+
+        # full_graph_sm: ~20 steps on one graph, the loss must fall
+        cfg, task, dims = regime("full_graph_sm")
+        n = dims["n_nodes"]
+        gr = synthetic_graph(0, n, dims["n_edges"], cfg.d_feat,
+                             cfg.n_classes)
+        b = on_card({"x": gr.x, "edge_index": gr.edge_index,
+                     "labels": gr.labels,
+                     "edge_mask": np.ones((gr.n_edges,), bool),
+                     "label_mask": np.ones((n,), np.float32)})
+        plan_s = with_plan(b, n)
+        sum_checks("full_graph_sm", b, n, torch.arange(n, device=dev),
+                   cfg.d_feat)
+        fn = train_step.gin_train_step(cfg, opt(GNN_SM_STEPS))
+        _, losses, ms = run_steps(fn, fresh_state(cfg), [b] * GNN_SM_STEPS)
+        log(f"[gnn] full_graph_sm: {n} nodes, {gr.n_edges} edges, d_feat "
+            f"{cfg.d_feat}, {cfg.n_classes} classes, {task} task; plan "
+            f"{plan_s * 1e3:.2f} ms; {GNN_SM_STEPS} steps, losses "
+            f"{json.dumps([round(x, 5) for x in losses])}; step ms median "
+            f"{statistics.median(ms):.2f} (first {ms[0]:.2f})")
+        expect(all(np.isfinite(losses)) and losses[-1] < losses[0],
+               "gnn full_graph_sm: the loss did not fall")
+        del b, gr
+
+        # molecule: 128 graphs of 30 nodes, the graph task
+        cfg, task, dims = regime("molecule")
+        B, n, e = dims["batch"], dims["n_nodes"], dims["n_edges"]
+        rng = np.random.default_rng(0)
+        x = rng.normal(size=(B * n, cfg.d_feat)).astype(np.float32)
+        ei = np.concatenate([rng.integers(0, n, size=(2, e)) + i * n
+                             for i in range(B)], axis=1).astype(np.int32)
+        b = on_card({"x": x, "edge_index": ei,
+                     "graph_ids": np.repeat(np.arange(B), n).astype(np.int32),
+                     "labels": rng.integers(0, cfg.n_classes,
+                                            B).astype(np.int32),
+                     "edge_mask": np.ones((B * e,), bool),
+                     "label_mask": np.ones((B,), np.float32)})
+        with_plan(b, B * n)
+        fn = train_step.gin_train_step(cfg, opt(GNN_MOL_STEPS), task=task)
+        _, losses, ms = run_steps(fn, fresh_state(cfg), [b] * GNN_MOL_STEPS)
+        log(f"[gnn] molecule: {B} graphs x {n} nodes, {e} edges each, "
+            f"d_feat {cfg.d_feat}, {cfg.n_classes} classes, {task} task; "
+            f"losses {json.dumps([round(x, 5) for x in losses])}; step ms "
+            f"median {statistics.median(ms):.2f}")
+        expect(all(np.isfinite(losses)), "gnn molecule: a loss is not finite")
+        del b
+
+        # minibatch_lg: the fanout sampler, a fresh block each step
+        cfg, task, dims = regime("minibatch_lg")
+        n, n_edges = dims["n_nodes"], dims["n_edges"]
+        t = time.perf_counter()
+        gr = synthetic_graph(1, n, n_edges, cfg.d_feat, cfg.n_classes)
+        gen_s = time.perf_counter() - t
+        t = time.perf_counter()
+        sampler = NeighborSampler(gr, dims["fanout"], seed=0)
+        csr_s = time.perf_counter() - t
+        log(f"[gnn] minibatch_lg: graph of {n} nodes, {n_edges} edges (no "
+            f"cut), d_feat {cfg.d_feat}, {cfg.n_classes} classes: generated "
+            f"in {gen_s:.2f} s, the sampler's CSR in {csr_s:.2f} s (host)")
+        sizes = []
+        sample_block = sampler.sample_block
+
+        def recorded(batch_nodes):
+            blk = sample_block(batch_nodes)
+            sizes.append((len(blk["nodes"]), blk["edge_index"].shape[1]))
+            return blk
+        sampler.sample_block = recorded
+        rng = np.random.default_rng(0)
+        mn, me = dims["max_nodes"], dims["max_edges"]
+        state = fresh_state(cfg)
+        fn = train_step.gin_train_step(cfg, opt(GNN_MB_STEPS))
+        fills, losses = [], []
+        for step in range(GNN_MB_STEPS):
+            seeds = rng.choice(n, dims["batch_nodes"], replace=False)
+            t = time.perf_counter()
+            blk = sampler.padded_batch(seeds, mn, me)
+            host_ms = (time.perf_counter() - t) * 1e3
+            b = on_card(blk)
+            plan_s = with_plan(b, mn)
+            state, loss, ms = run_steps(fn, state, [b])
+            kept = int(blk["edge_mask"].sum())
+            fills.append(kept / me)
+            losses += loss
+            log(f"[gnn] minibatch_lg block {step}: {dims['batch_nodes']} "
+                f"seeds, fanout {dims['fanout']}: sampler {host_ms:.1f} ms "
+                f"(host); real {sizes[-1][0]} nodes, {sizes[-1][1]} edges; "
+                f"padded to {mn} x {me}, {kept} edges kept "
+                f"({kept / me:.4f}); plan {plan_s * 1e3:.2f} ms; step "
+                f"{ms[0]:.2f} ms, loss {loss[0]:.5f}")
+        expect(min(fills) >= GNN_BLOCK_FILL, f"gnn minibatch_lg: a block "
+               f"kept {min(fills):.4f} of max_edges, under {GNN_BLOCK_FILL}")
+        expect(all(np.isfinite(losses)), "gnn minibatch_lg: a loss is not "
+               "finite")
+        del gr, sampler, blk, b, state
+
+        # ogb_products: full batch at 2,449,029 nodes, 61,859,140 edges
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, task, dims = regime("ogb_products")
+        n, n_edges = dims["n_nodes"], dims["n_edges"]
+        t = time.perf_counter()
+        gr = synthetic_graph(2, n, n_edges, cfg.d_feat, cfg.n_classes)
+        gen_s = time.perf_counter() - t
+        b = on_card({"x": gr.x, "edge_index": gr.edge_index,
+                     "labels": gr.labels})
+        plan_s = with_plan(b, n)
+        plan_gb = sum(nbytes(*w.tensors())
+                      for w in (b["plan"].fwd, b["plan"].bwd)) / 1e9
+        in_deg = torch.bincount(b["edge_index"][1], minlength=n)
+        out_deg = torch.bincount(b["edge_index"][0], minlength=n)
+        log(f"[gnn] ogb_products: {n} nodes, {n_edges} edges (no cut), "
+            f"d_feat {cfg.d_feat}, {cfg.n_classes} classes: generated in "
+            f"{gen_s:.2f} s (host); plan built in {plan_s:.3f} s "
+            f"({plan_gb:.3f} GB); largest in-degree {int(in_deg.max())}, "
+            f"out-degree {int(out_deg.max())}")
+        rows = torch.randperm(n, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(2))[:GNN_CHECK_NODES]
+        rows = torch.unique(torch.cat([rows, in_deg.argmax()[None],
+                                       out_deg.argmax()[None]]))
+        sum_checks("ogb_products", b, n, rows, cfg.d_feat)
+        del in_deg, out_deg, rows
+        fn = train_step.gin_train_step(cfg, opt(1 + GNN_OGB_STEPS))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state = fresh_state(cfg)
+        twin = copy.deepcopy(state)
+        state, warm, warm_ms = run_steps(fn, state, [b])
+        twin, again, _ = run_steps(fn, twin, [b])
+        diff = [nm for (nm, x), (_, y) in
+                zip(checkpoint.tree_flatten(train_step.state_tree(state)),
+                    checkpoint.tree_flatten(train_step.state_tree(twin)))
+                if not torch.equal(x, y)]
+        log(f"[gnn] ogb_products: two steps from one state: losses "
+            f"{warm[0]!r} and {again[0]!r}; train-state leaves that differ "
+            f"{diff}")
+        expect(warm == again and not diff, "gnn ogb_products: two steps "
+               "from the same state differ")
+        del twin
+        state, losses, ms = run_steps(fn, state, [b] * GNN_OGB_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        med = statistics.median(ms)
+        log(f"[gnn] ogb_products: warm-up step {warm_ms[0]:.2f} ms, then "
+            f"{GNN_OGB_STEPS} steps {[round(x, 2) for x in ms]} ms (median "
+            f"{med:.2f}; host clock to the loss on the host): "
+            f"{n / med * 1e3:.4g} nodes/s, {n_edges / med * 1e3:.4g} "
+            f"edges/s; losses {json.dumps(warm + losses)}; peak allocated "
+            f"{peak / 1e9:.3f} GB over the steps ({base / 1e9:.3f} GB before "
+            f"them: the graph on the card and its plan)")
+        expect(peak <= 80e9 and all(np.isfinite(warm + losses)),
+               f"gnn ogb_products: peak {peak / 1e9:.3f} GB or a loss not "
+               f"finite")
+        profile_log("[gnn] ogb_products step", lambda: fn(state, b), 1, 12)
+        del state, b, gr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the launcher at the full config, stopped and resumed
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gnn."))
+        try:
+            stop_resume("gin-tu", 200, tmp / "gin", tag="gnn")
+        finally:
+            checkpoint.wait_pending()
+            shutil.rmtree(tmp, ignore_errors=True)
+        launched = sum(op.launches for op in ops) - launches0
+        expect(launched == 0, f"the GNN path launched {launched} kernels")
+        log(f"[gnn] kernel launches in the phase: {launched}; the phase took "
+            f"{time.perf_counter() - phase_t:.2f} s, the script so far "
+            f"{time.perf_counter() - script_t:.2f} s ({smi})")
+
     retrieval_phases()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4275,6 +4596,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     recsys_train_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gnn_phase()
 
     # 13. kernels line
     for r_ in rows:

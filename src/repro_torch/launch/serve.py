@@ -74,8 +74,10 @@ dotted with one given target item).  The encoder has no key mask there,
 so its attention runs the flash-attention kernel (B7) on ``fused``.
 
 The CLI serves colbert and the LM family.  The reference's CLI has no
-recsys path (for a non-LM arch it decodes an LM smoke config), so the
-port's raises for a recsys arch and names the functions above.
+recsys or GNN path (for a non-LM arch it decodes an LM smoke config),
+so the port's raises for a recsys arch and names the functions above,
+and for gin-tu says that there is no GNN serving path (the family
+trains through ``launch.train``).
 """
 
 from __future__ import annotations
@@ -1030,11 +1032,16 @@ def main(argv=None):
             f"reference's has none either); serve the recsys family through "
             f"launch.serve's serve_ctr, retrieve_cand, serve_bert4rec and "
             f"serve_bert4rec_bulk")
+    if args.arch in configs.all_archs() and \
+            configs.get(args.arch).family == "gnn":
+        raise NotImplementedError(
+            f"--arch {args.arch}: there is no GNN serving path (the "
+            f"reference's CLI has none either); train the GNN family through "
+            f"launch.train")
     if args.arch not in lms:
         raise NotImplementedError(
-            f"--arch {args.arch}: the port's serve CLI runs colbert and the "
-            f"LM family ({', '.join(lms)}); the rest of the arch zoo is not "
-            f"ported yet (ROADMAP § A item 8)")
+            f"--arch {args.arch}: no such arch; the port's serve CLI runs "
+            f"colbert and the LM family ({', '.join(lms)})")
     return serve_lm(configs.get(args.arch).smoke, n_tokens=args.tokens,
                     device=args.device)
 

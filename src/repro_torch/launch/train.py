@@ -10,13 +10,16 @@ family: dlrm-rm2, dcn-v2 and wide-deep train through
 ``ctr_train_step`` on ``ctr_batch``, bert4rec through the
 sampled-softmax step on ``bert4rec_sampled_batch`` (4 masked positions
 and 32 negatives a batch, as the reference's ``launch.train`` draws
-them; at ``preset="full"`` the ``train_batch`` shape's 30 and 1,024).
-The GNN family, and every arch the port does not have, raise
-``NotImplementedError`` until their train steps are ported (ROADMAP § A
-item 8).  It trains on ``cuda`` unless the caller passes
-``device="cpu"`` (``--device cpu``), and raises without a GPU
-otherwise.  An LM or recsys model is drawn from a generator on the
-training device, so a full config is drawn on the card.
+them; at ``preset="full"`` the ``train_batch`` shape's 30 and 1,024),
+and the GNN family: gin-tu through ``gin_train_step`` on one fixed
+200-node, 1,000-edge ``synthetic_graph`` at the config's ``d_feat`` and
+``n_classes``, every step the same batch with its gather plan built
+once (``batch`` and ``seq`` unused), as the reference's launcher does.
+An unknown arch raises ``NotImplementedError`` listing the archs.  It
+trains on ``cuda`` unless the caller passes ``device="cpu"``
+(``--device cpu``), and raises without a GPU otherwise.  An LM, recsys
+or GNN model is drawn from a generator on the training device, so a
+full config is drawn on the card.
 
 Restart semantics: the driver always restores the newest valid
 checkpoint and resumes the step-indexed data pipeline at the restored
@@ -35,9 +38,10 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core import backend as backend_lib
-from repro_torch.data import pipeline, synthetic
+from repro_torch.core.segment import GatherPlan, gather_plan
+from repro_torch.data import graph_sampler, pipeline, synthetic
 from repro_torch.models import colbert as colbert_lib
-from repro_torch.models import recsys
+from repro_torch.models import gnn, recsys
 from repro_torch.models import transformer as tfm
 from repro_torch.train import checkpoint, elastic, optimizer, train_step
 
@@ -45,13 +49,14 @@ from repro_torch.train import checkpoint, elastic, optimizer, train_step
 def build_trainable(arch: str, preset: str, batch: int, seq: int,
                     opt_cfg: optimizer.AdamWConfig, device):
     """Returns (init_fn(seed) -> model on ``device``, step_fn,
-    make_batch(step) -> dict of arrays or CPU tensors).  ``seq`` is the
+    make_batch(step) -> dict of arrays or CPU tensors; the GNN's holds
+    tensors on ``device`` and their ``GatherPlan``).  ``seq`` is the
     LM family's sequence length; the other families' lengths are their
     configs'."""
     if arch not in configs.all_archs():
         raise NotImplementedError(
-            f"{arch}: the port has no such arch yet; it trains "
-            f"{', '.join(_trainable())} (ROADMAP § A item 8)")
+            f"{arch}: no such arch; the port trains "
+            f"{', '.join(configs.all_archs())}")
     entry = configs.get(arch)
     cfg = entry.smoke if preset == "smoke" else entry.config
     if entry.family == "recsys":
@@ -64,10 +69,8 @@ def build_trainable(arch: str, preset: str, batch: int, seq: int,
 
         return (init_lm, train_step.lm_train_step(cfg, opt_cfg),
                 lambda s: synthetic.lm_batch(0, s, batch, seq, cfg.vocab))
-    if entry.family != "retrieval":
-        raise NotImplementedError(
-            f"{arch}: training the {entry.family} family is not ported yet "
-            f"(ROADMAP § A item 8)")
+    if entry.family == "gnn":
+        return _gnn_trainable(cfg, opt_cfg, device)
     corpus = synthetic.token_corpus(0, n_docs=max(batch * 4, 64),
                                     n_q=max(batch * 4, 64), vocab=cfg.vocab,
                                     m=cfg.doc_len, l=cfg.query_len)
@@ -92,9 +95,28 @@ def build_trainable(arch: str, preset: str, batch: int, seq: int,
             make_batch)
 
 
-def _trainable() -> list[str]:
-    return [a for a in configs.all_archs()
-            if configs.get(a).family in ("lm", "retrieval", "recsys")]
+def _gnn_trainable(cfg, opt_cfg, device):
+    """The GNN branch of the reference's ``launch.train``: one graph,
+    the same batch (on ``device``, its plan with it) every step."""
+    g = graph_sampler.synthetic_graph(0, n_nodes=200, n_edges=1000,
+                                      d_feat=cfg.d_feat,
+                                      n_classes=cfg.n_classes)
+    batch_d = {"x": torch.as_tensor(g.x, device=device),
+               "edge_index": torch.as_tensor(g.edge_index, device=device),
+               "labels": torch.as_tensor(g.labels, device=device),
+               "edge_mask": torch.ones((g.n_edges,), dtype=torch.bool,
+                                       device=device),
+               "label_mask": torch.ones((g.n_nodes,), device=device)}
+    batch_d["plan"] = gather_plan(batch_d["edge_index"][0],
+                                  batch_d["edge_index"][1], g.n_nodes,
+                                  batch_d["edge_mask"])
+
+    def init_fn(seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return gnn.init_params(gen, cfg, device)
+
+    return init_fn, train_step.gin_train_step(cfg, opt_cfg), \
+        lambda s: batch_d
 
 
 def _recsys_trainable(arch, entry, cfg, preset, batch, opt_cfg, device):
@@ -160,7 +182,8 @@ def run(arch: str, *, preset: str = "smoke", steps: int = 50, batch: int = 8,
             if s >= stop:
                 break
             t0 = time.perf_counter()
-            batch_d = {k: torch.as_tensor(v, device=device)
+            batch_d = {k: v if isinstance(v, GatherPlan)
+                       else torch.as_tensor(v, device=device)
                        for k, v in batch_np.items()}
             state, metrics = step_fn(state, batch_d)
             loss = float(metrics["loss"])
@@ -190,8 +213,8 @@ def run(arch: str, *, preset: str = "smoke", steps: int = 50, batch: int = 8,
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
-                    help="a ported arch; another raises naming what is "
-                         "still to port")
+                    help="an arch of the registry; another raises listing "
+                         "them")
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)

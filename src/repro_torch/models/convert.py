@@ -39,7 +39,16 @@ it lives there.  The families (``family_of(model)``): ``"colbert"``
 dense and MoE — an MoE layer's router is rank 3 there and its experts
 rank 4, so both decay — and BERT4Rec, whose tree is the LM tree with
 tied embeddings and no ``lm_head``), and ``"dlrm-rm2"``, ``"dcn-v2"``, ``"wide-deep"``
-(``DLRM``, ``DCN``, ``WideDeep``).
+(``DLRM``, ``DCN``, ``WideDeep``), ``"gnn"`` (``GIN``).
+
+``gnn_params_from_jax(tree)`` takes the tree of
+``repro.models.gnn.init_params``, ``{"layers": (dict, ...), "head":
+{"w", "b"}}``, and returns a ``state_dict`` for
+``repro_torch.models.gnn.GIN``: layer i's ``w1``, ``b1``, ``w2``,
+``b2``, ``eps`` -> ``layers.{i}.*``, the head's -> ``head.*``, all in
+the reference's layout (matrices (in, out), not transposed).  The
+family is ``"gnn"``: its layers are a tuple, not stacked, so each
+entry's rank is its own (``eps`` 0 and the biases 1 take no decay).
 
 ``recsys_params_from_jax(tree, arch_id)`` takes the tree of
 ``repro.models.recsys.dlrm_init``, ``dcn_init`` or ``widedeep_init``
@@ -105,9 +114,21 @@ def lm_params_from_jax(tree) -> dict[str, torch.Tensor]:
     return sd
 
 
+def gnn_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    sd = {}
+    for i, layer in enumerate(tree["layers"]):
+        for name in _GNN_LAYER:
+            sd[f"layers.{i}.{name}"] = _tensor(layer[name])
+    for name in ("w", "b"):
+        sd[f"head.{name}"] = _tensor(tree["head"][name])
+    return sd
+
+
 def params_from_jax(tree, family: str = "colbert") -> dict[str, torch.Tensor]:
     """The reference's tree of ``family`` (module docstring) -> a
     state_dict of the port's model."""
+    if family == "gnn":
+        return gnn_params_from_jax(tree)
     if family in _RECSYS_MLPS:
         return recsys_params_from_jax(tree, family)
     if family == "lm":
@@ -139,7 +160,9 @@ _LM_TOP = {"embed.weight": ("embed",), "ln_f": ("ln_f",),
            "lm_head.weight": ("lm_head",)}
 _RECSYS_MLPS = {"dlrm-rm2": ("bot", "top"), "dcn-v2": ("mlp",),
                 "wide-deep": ("mlp",)}
-FAMILIES = ("colbert", "lm") + tuple(_RECSYS_MLPS)
+FAMILIES = ("colbert", "lm", "gnn") + tuple(_RECSYS_MLPS)
+_GNN_LAYER = ("w1", "b1", "w2", "b2", "eps")
+_GNN_LEAF = re.compile(r"(?:layers\.(\d+)|head)\.(\w+)")
 _RECSYS_LEAF = re.compile(r"(bot|top|mlp|cross)\.(\d+)\.(weight|bias)")
 _RECSYS_TOP = {"tables": ("tables",), "wide": ("wide",), "bias": ("bias",)}
 
@@ -152,8 +175,8 @@ def _check_family(family: str) -> None:
 
 def family_of(model) -> str:
     """The layout family of a port model (module docstring)."""
-    from repro_torch.models import colbert, recsys, transformer
-    for cls, family in ((colbert.ColBERT, "colbert"),
+    from repro_torch.models import colbert, gnn, recsys, transformer
+    for cls, family in ((colbert.ColBERT, "colbert"), (gnn.GIN, "gnn"),
                         (transformer.Transformer, "lm"),
                         (recsys.DLRM, "dlrm-rm2"), (recsys.DCN, "dcn-v2"),
                         (recsys.WideDeep, "wide-deep")):
@@ -177,10 +200,18 @@ def jax_place(name: str, family: str = "colbert"
     reference's tree: (key path, layer index on the stacked axis or
     None, whether the reference holds it transposed: every matrix but
     the embeddings and tables).  A recsys path holds an int where the
-    reference has a tuple (an MLP's ``ws``/``bs``, DCN's ``cross``)."""
+    reference has a tuple (an MLP's ``ws``/``bs``, DCN's ``cross``, the
+GNN's ``layers``)."""
     _check_family(family)
     if family == "lm":
         return _lm_place(name)
+    if family == "gnn":
+        m = _GNN_LEAF.fullmatch(name)
+        if not m:
+            raise KeyError(name)
+        if m.group(1) is None:
+            return ("head", m.group(2)), None, False
+        return ("layers", int(m.group(1)), m.group(2)), None, False
     if family == "colbert":
         if name == "proj.weight":
             return ("proj",), None, True

@@ -5,14 +5,14 @@ ColBERT, CTR (DLRM, DCN-v2, Wide & Deep) and BERT4Rec steps:
 ``make_train_state``, ``_apply_opt``, ``lm_train_step`` (MoE aux
 losses folded in, optional microbatch accumulation), ``lm_serve_step``,
 ``colbert_train_step``, ``ctr_train_step``, ``ctr_serve_step``,
-``bert4rec_train_step`` (full logits), and
+``bert4rec_train_step`` (full logits),
 :func:`bert4rec_sampled_train_step`, the sampled-softmax step that
-``repro.launch.train`` defines inline.  The
+``repro.launch.train`` defines inline, and ``gin_train_step`` (the GNN
+family, node or graph task).  The
 steps are plain torch differentiated by ``torch.autograd`` on the
 ``reference`` path, and they launch no kernel of the port: neither
 package has a backward kernel, and the kernel wrappers refuse an input
-that requires grad.  The GNN step is not ported yet (ROADMAP § A item
-8d).
+that requires grad.
 
 The train state is a dict ``{"params": model, "opt": AdamWState,
 "step": int}``; a step updates the module's parameters and the moments
@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.models import convert, recsys
 from repro_torch.models.colbert import ColBERTConfig
+from repro_torch.models.gnn import GINConfig
 from repro_torch.models.transformer import LMConfig
 from repro_torch.train import losses, optimizer
 
@@ -159,6 +160,33 @@ def colbert_train_step(cfg: ColBERTConfig, opt_cfg: optimizer.AdamWConfig,
                           {"in_batch_acc": acc}, _ranks(model))
 
     return step
+
+
+# ------------------------------ GNN ---------------------------------------
+
+def gin_loss(model, batch, task: str = "node"):
+    """Softmax cross entropy of the GIN's node (or, ``task="graph"``,
+    graph) logits over ``label_mask``.  ``batch`` holds ``x``,
+    ``edge_index``, ``labels``, optionally ``edge_mask`` and
+    ``label_mask``, ``graph_ids`` for the graph task, and ``plan``: the
+    ``core.segment.gather_plan`` of its edge index and mask, built each
+    call when absent."""
+    kw = dict(edge_mask=batch.get("edge_mask"), plan=batch.get("plan"))
+    if task == "graph":
+        kw.update(graph_ids=batch["graph_ids"],
+                  n_graphs=batch["labels"].shape[0])
+    logits = model(batch["x"], batch["edge_index"], **kw)
+    return losses.softmax_xent(logits, batch["labels"],
+                               batch.get("label_mask"))
+
+
+def gin_train_step(cfg: GINConfig, opt_cfg: optimizer.AdamWConfig, *,
+                   task: str = "node"):
+    """``step(state, batch) -> (state, metrics)`` of :func:`gin_loss`;
+    metrics ``loss``, ``grad_norm``, ``lr``."""
+    del cfg                     # the model carries it; kept for parity
+    return _loss_step(lambda model, batch: gin_loss(model, batch, task),
+                      opt_cfg)
 
 
 # ------------------------------ RecSys ------------------------------------

@@ -347,15 +347,15 @@ class TestLauncher:
         for (n, x), (_, y) in zip(a, b):
             assert torch.equal(x, y), n
 
-    def test_gnn_still_raises(self, monkeypatch):
-        # gin-tu alone: the LM family trains since its port
-        # (tests/test_torch_lm_train.py)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            t_train.run("gin-tu", steps=1, device="cpu")
+    def test_gnn_still_raises(self, monkeypatch, capsys):
+        # gin-tu trains since the GNN's port (tests/test_torch_gnn.py),
+        # through run and the CLI
+        out = t_train.run("gin-tu", steps=3, log_every=0, device="cpu")
+        assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
         monkeypatch.setattr(sys, "argv", ["train", "--arch", "gin-tu",
-                                          "--device", "cpu"])
-        with pytest.raises(NotImplementedError, match="§ A item 8"):
-            t_train.main()
+                                          "--steps", "2", "--device", "cpu"])
+        t_train.main()
+        assert "[train] done: final loss" in capsys.readouterr().out
         # every arch the port has trains (the message lists them)
         with pytest.raises(NotImplementedError,
                            match=", ".join(configs.all_archs())):

@@ -239,10 +239,13 @@ def test_lm_arch_decodes_its_smoke_config(arch, capsys):
                                   "no-such-arch"])
 def test_missing_archs_raise_naming_item_8(arch):
     # bert4rec and dlrm-rm2 are ported, but the serve CLI has no recsys
-    # path (the reference's has none either): it names the functions
-    want = ("no recsys path.*serve_bert4rec" if arch in ("bert4rec",
-                                                         "dlrm-rm2")
-            else "§ A item 8")
+    # path (the reference's has none either): it names the functions;
+    # gin-tu trains, and there is no GNN serving path in either CLI;
+    # every arch is ported, so an unknown one is no such arch
+    want = {"bert4rec": "no recsys path.*serve_bert4rec",
+            "dlrm-rm2": "no recsys path.*serve_bert4rec",
+            "gin-tu": "no GNN serving path.*launch.train"}.get(
+                arch, "no such arch.*colbert and the LM family")
     with pytest.raises(NotImplementedError, match=want):
         serve.main(["--arch", arch, "--device", "cpu"])
 

@@ -453,10 +453,13 @@ class TestDriver:
         assert out["start"] in steps[:-1]
 
     def test_other_families_raise(self):
-        # the recsys family trains since its port (tests/
-        # test_torch_recsys_train.py); the GNN family does not yet
-        with pytest.raises(NotImplementedError, match="item 8"):
-            t_train.run("gin-tu", steps=1, device="cpu")
+        # every family trains since the GNN's port (tests/
+        # test_torch_gnn.py): gin-tu through run, and an unknown arch
+        # raises
+        out = t_train.run("gin-tu", steps=2, log_every=0, device="cpu")
+        assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
+        with pytest.raises(NotImplementedError, match="no such arch"):
+            t_train.run("gin-tu-xl", steps=1, device="cpu")
 
 
 class TestPipelineAndElastic:
