@@ -361,7 +361,7 @@ passed — any failure exits non-zero):
    ``serve_bulk`` at 32,768 of 262,144 (cut: each (B, 200, 256) FFN
    hidden is 53.7 GB at 262,144) on ``fused``.  Each run's ms and the
    phase's seconds are printed.
-11d. GNN training (``[gnn]``), the last phase: gin-tu (5 layers,
+11d. GNN training (``[gnn]``): gin-tu (5 layers,
    d_hidden 64, sum aggregation, learnable eps) at full width, random
    weights from seed 0 drawn on the card, each regime's (d_feat,
    n_classes, task) as the reference's cells take them
@@ -388,6 +388,39 @@ passed — any failure exits non-zero):
    preset="full")`` stopped and resumed against an uninterrupted run,
    bit-equal.  No kernel of the port launches in the phase (counted);
    the phase's seconds and the script's so far are printed.
+11e. Launch cells (``[cells]``, ``launch.steps``, ``launch.roofline``),
+   the last phase: each cell built by ``build_cell`` on the card's 1 x 1
+   host mesh (its default backend: the kernels) and materialized there
+   from seed 0 (``steps.materialize``), then run through its step once
+   to warm up and three times: colbert ``encode_corpus`` (4,096 x 180),
+   ``prune_index`` with ``shortlist_topk`` (1,024 docs x 180, 10,000
+   samples; B2), ``rerank`` (128 queries x 1,024 candidates x 180 fp32,
+   12.1 GB of docs), ``train_contrastive`` (batch 128 of 2,048: cut,
+   ``maxsim_matrix``'s 4-D tensor); minitron-4b ``prefill_32k`` (1 x
+   32,768 of 32: cut, memory; B7) and ``decode_32k`` (4 of 128
+   sequences, cut: the KV cache; a run is ``CELL_DEC_STEPS`` steps from
+   position ``CELL_DEC_POS``); dlrm-rm2 ``serve_p99``, ``serve_bulk``
+   and ``retrieval_cand`` (no cut; B8); gin-tu ``full_graph_sm`` and
+   ``molecule`` (no cut).  Each cut is logged where it is made.  Launch
+   counts are zeroed just before a cell's runs and read just after.
+   Gates: every output finite (``prune_index``: the removed tokens'
+   errors); the cell's kernel launched (B2 on
+   ``prune_index``, B7 once a layer on the prefill, B8 once a forward
+   on dlrm-rm2) and no other;
+   ``prune_index``'s ranks >= 99 % equal to the ``reference`` backend's
+   on the block's first ``CELL_PRUNE_DOCS`` docs; the prefill's last
+   logits within ``LOGIT_TOL`` of ``reference``; dlrm-rm2's outputs bit
+   for bit ``reference``'s; ``count_costs`` of ``encode_corpus`` and
+   ``serve_p99`` on the card's ``reference`` path equal to the same
+   cell's count on ``meta`` (FLOPs by dtype, bytes, ops).  Printed a
+   cell: step s (median), model TFLOP, the plain path's counted TFLOP
+   and GB (on meta; gin-tu's, data-dependent there, on the card's real
+   arguments before the runs), ``mfu`` (model FLOPs / (step s x the peak of the
+   cell's compute dtype: 989 TFLOP/s bf16, 67 fp32)), ``model_bound_s``
+   (the larger of the model FLOPs at that peak and one read of the
+   arguments at 3.35 TB/s) and the step's share of it, peak GB, and the
+   kernels' launches over the four runs.  The phase's seconds and the
+   script's so far are printed.
 13. The ``kernels`` JSON line; ``path_ms`` is each kernel's summed
    event time over the launches ``launches`` counts: the main path (B2,
    bf16 B3/B4), the fused pruning leg (B1), the compressed and routed
@@ -405,7 +438,8 @@ passed — any failure exits non-zero):
    bound there) and a
    ``bert4rec_shape`` key (phase 10b: ms, plain, SDPA, both bounds) and B8 a
    ``ctr_train`` key (the same over phase 11c's ``ctr_serve_step``
-   checks).
+   checks); B2, B7 and B8 carry a ``cells`` key: their launches and
+   summed kernel ms over phase 11e's runs.
 
 Tolerances: retrieval values within 1e-5 abs (unit-norm fp32 inputs,
 dim 128; on norm-11 docs, of a float64 MaxSim); token/doc ids equal
@@ -539,6 +573,10 @@ GNN_SM_STEPS, GNN_MB_STEPS, GNN_OGB_STEPS, GNN_MOL_STEPS = 20, 3, 3, 5
 GNN_CHECK_NODES, GNN_SUM_TOL = 4096, 1e-5
 # a minibatch_lg block must keep this share of max_edges
 GNN_BLOCK_FILL = 0.95
+# [cells]: prune_index's ranks held to the reference backend on the
+# block's first CELL_PRUNE_DOCS docs; decode_32k runs CELL_DEC_STEPS steps
+# from position CELL_DEC_POS of its 32,768-slot cache
+CELL_PRUNE_DOCS, CELL_DEC_POS, CELL_DEC_STEPS = 128, 32_000, 8
 
 
 def log(*a):
@@ -4573,6 +4611,261 @@ def main() -> int:
             f"{time.perf_counter() - phase_t:.2f} s, the script so far "
             f"{time.perf_counter() - script_t:.2f} s ({smi})")
 
+    cells_counts = {}
+
+    def cells_phase():
+        """Phase 11e, ``[cells]``: the launch cells of every family built
+        by ``launch.steps.build_cell`` on the card's 1 x 1 host mesh and
+        materialized there (seed 0), each run through its step once to
+        warm up and then three times; gates and figures in the module
+        docstring."""
+        from repro_torch.launch import dryrun, roofline, steps
+        from repro_torch.launch.mesh import make_host_mesh
+        phase_t = time.perf_counter()
+        dev = torch.device("cuda")
+        host = make_host_mesh([dev])
+        ops = {"maxsim_topk": maxsim_topk_op,
+               "flash_attention": fa_ops.flash_attention_op,
+               "embedding_bag": embedding_bag_op}
+        every = (maxsim_top2_op, maxsim_topk_op,
+                 cm_ops.colbert_maxsim_multi_op,
+                 cm_ops.colbert_maxsim_rerank_op,
+                 cm_ops.colbert_maxsim_residual_multi_op,
+                 cm_ops.colbert_maxsim_residual_rerank_op,
+                 fa_ops.flash_attention_op, embedding_bag_op)
+
+        @contextlib.contextmanager
+        def cut(arch, shape_id, why, **dims):
+            """The registry's shape with ``dims`` in place of its own while
+            the cell is built; the cut is logged with its reason."""
+            entry = configs_base._REGISTRY[arch]
+            shape = entry.shapes[shape_id]
+            if dims:
+                log(f"[cells] {arch} {shape_id}: cut {dims} of "
+                    f"{shape.dims} ({why})")
+                configs_base._REGISTRY[arch] = dataclasses.replace(
+                    entry, shapes={**entry.shapes, shape_id:
+                                   dataclasses.replace(
+                                       shape, dims={**shape.dims, **dims})})
+            try:
+                yield
+            finally:
+                configs_base._REGISTRY[arch] = entry
+
+        def floats(out):
+            if isinstance(out, torch.Tensor):
+                return [out] if out.is_floating_point() else []
+            if isinstance(out, dict):
+                return [t for v in out.values() for t in floats(v)]
+            if isinstance(out, (tuple, list)):
+                return [t for v in out for t in floats(v)]
+            return []
+
+        def counted(cell):
+            """(the cell on the plain path, the FLOPs and bytes of its step
+            on its meta arguments); None for a cell the dry run lists as
+            data-dependent, stopped at its listed op."""
+            plain = steps.build_cell(cell.arch_id, cell.shape_id, host,
+                                     variant=cell.variant,
+                                     backend="reference")
+            try:
+                _, c = roofline.count_costs(plain.fn, *plain.args)
+            except NotImplementedError as e:
+                op = dryrun.DATA_DEPENDENT.get((cell.arch_id, cell.shape_id))
+                if op is None or e.costs.failed_op != op[0]:
+                    raise
+                return plain, None
+            return plain, c
+
+        def run(tag, arch, shape_id, *, variant="baseline", dims=None,
+                why="", calls=None, check=None, kernel=None, per_run=None,
+                finite=floats):
+            """Build, materialize, warm up and time one cell; ``calls``
+            maps the real cell to the list of argument tuples one run
+            takes (default: its arguments once).  ``kernel`` must launch
+            (``per_run`` times a run where given); no other may.
+            ``finite`` picks the output tensors that must be finite."""
+            with cut(arch, shape_id, why, **(dims or {})):
+                cell = steps.build_cell(arch, shape_id, host, variant=variant)
+                plain, costs = counted(cell)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            real = steps.materialize(cell, dev, gen)
+            where = "meta"
+            if costs is None:       # data-dependent: count the real step
+                _, costs = roofline.count_costs(plain.fn, *real.args)
+                where = "the card's real arguments (data-dependent on meta)"
+            calls = calls(real) if calls else [real.args]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for op in every:
+                op.launches = 0
+            timer.start()
+            times, out = [], None
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for a in calls:
+                    out = real.fn(*a)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) / len(calls))
+            ms = timer.stop()
+            launches = {n: op.launches for n, op in ops.items()}
+            other = sum(op.launches for op in every) - sum(launches.values())
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            step_s = statistics.median(times[1:])
+            expect(all(bool(torch.isfinite(t).all()) for t in finite(out)),
+                   f"[cells] {tag}: an output is not finite")
+            own = launches.get(kernel, 0)
+            expect(other == 0 and all(v == 0 for n, v in launches.items()
+                                      if n != kernel),
+                   f"[cells] {tag}: another kernel launched ({launches}, "
+                   f"{other} of B1, B3-B6)")
+            if kernel is not None:
+                expect(own > 0 and (per_run is None or own == 4 * per_run),
+                       f"[cells] {tag}: {kernel} launched {own} times over "
+                       f"4 runs" + (f", not {4 * per_run}" if per_run else ""))
+            for n in ops:
+                if launches[n]:
+                    c = cells_counts.setdefault(n, {"launches": 0,
+                                                    "path_ms": 0.0})
+                    c["launches"] += launches[n]
+                    c["path_ms"] += ms.get(n, 0.0)
+            mf = cell.model_flops_per_step
+            peak_rate = roofline.peak_for(cell.compute_dtype)
+            bound = roofline.model_bound_s(cell)
+            log(f"[cells] {tag}: step {step_s:.6f} s (median of 3 after a "
+                f"warm-up; {[round(x, 6) for x in times]}); model "
+                f"{mf / 1e12:.4f} TFLOP; counted on the plain path on "
+                f"{where} {sum(costs.flops.values()) / 1e12:.4f} TFLOP, "
+                f"{costs.bytes / 1e9:.3f} GB; mfu "
+                f"{mf / (step_s * peak_rate):.4f} (peak "
+                f"{peak_rate / 1e12:.0f} TFLOP/s, "
+                f"{str(cell.compute_dtype)[6:]}); model bound {bound:.6f} s, "
+                f"share {bound / step_s:.4f}; peak {peak:.3f} GB; launches "
+                f"{json.dumps({n: v for n, v in launches.items() if v})} "
+                f"over 4 runs")
+            if check is not None:
+                check(real, out, plain)
+            return real, out, plain, costs
+
+        def reference_of(real, plain):
+            """The plain-path cell on the same real arguments."""
+            return dataclasses.replace(plain, args=real.args)
+
+        def same_count(tag, real, plain, costs):
+            """count_costs on the card's plain path equals the meta count."""
+            _, c = roofline.count_costs(plain.fn, *real.args)
+            log(f"[cells] {tag}: count on the card's plain path "
+                f"{sum(c.flops.values()):.6e} FLOP, {c.bytes:.6e} B; on meta "
+                f"{sum(costs.flops.values()):.6e}, {costs.bytes:.6e}")
+            expect(c.flops == costs.flops and c.bytes == costs.bytes
+                   and set(c.ops) == set(costs.ops),
+                   f"[cells] {tag}: the card's count differs from meta's")
+
+        # colbert: encode, prune (B2), rerank, train
+        real, out, plain, costs = run("colbert encode_corpus", "colbert",
+                                      "encode_corpus")
+        same_count("colbert encode_corpus", real, plain, costs)
+        del real, out, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def prune_check(real, out, plain):
+            d, m, smp = real.args
+            n = CELL_PRUNE_DOCS
+            ref = steps.build_cell("colbert", "prune_index", host,
+                                   backend="reference").fn(d[:n], m[:n], smp)
+            eq = (out[0][:n] == ref[0]).float().mean().item()
+            log(f"[cells] colbert prune_index: ranks equal to the reference "
+                f"backend's on the block's first {n} docs: {eq:.5f}")
+            expect(eq >= 0.99, f"[cells] prune_index ranks {eq:.5f} < 0.99")
+
+        def removed_errs(out):
+            """The errors of removed tokens (a doc's last survivor keeps
+            rank m and error +inf)."""
+            ranks, errs, _ = out
+            return [errs[ranks < ranks.shape[-1]]]
+
+        run("colbert prune_index (shortlist_topk)", "colbert", "prune_index",
+            variant="shortlist_topk", check=prune_check,
+            kernel="maxsim_topk", finite=removed_errs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("colbert rerank", "colbert", "rerank")
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("colbert train_contrastive", "colbert", "train_contrastive",
+            dims={"batch": TRAIN_BATCH},
+            why="maxsim_matrix's 4-D score tensor grows with batch^2, "
+                "ROADMAP § C")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # minitron-4b: prefill (B7) and decode
+        def prefill_check(real, out, plain):
+            ref = reference_of(real, plain).fn(*real.args)
+            err = (out.float() - ref.float()).abs().max().item()
+            log(f"[cells] minitron-4b prefill_32k: last logits against the "
+                f"reference backend: max |diff| {err:.4f} (tol {LOGIT_TOL})")
+            expect(err <= LOGIT_TOL, f"[cells] prefill logits off by {err}")
+
+        run("minitron-4b prefill_32k", "minitron-4b", "prefill_32k",
+            dims={"global_batch": 1}, why="memory: one sequence of 32",
+            check=prefill_check, kernel="flash_attention",
+            per_run=configs_base.get("minitron-4b").config.n_layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def decode_steps(real):
+            model, cache, tok, _ = real.args
+            return [(model, cache, tok, CELL_DEC_POS + i)
+                    for i in range(CELL_DEC_STEPS)]
+
+        run("minitron-4b decode_32k", "minitron-4b", "decode_32k",
+            dims={"global_batch": 4},
+            why="the KV cache, 4.3 GB a sequence", calls=decode_steps)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # dlrm-rm2: serve (B8) and retrieval, bit-equal to reference
+        def same(a, b):
+            if isinstance(a, torch.Tensor):
+                return torch.equal(a, b)
+            return all(same(x, y) for x, y in zip(a, b))
+
+        def bit_equal(tag):
+            def check(real, out, plain):
+                eq = same(out, reference_of(real, plain).fn(*real.args))
+                log(f"[cells] {tag}: equal to the reference backend bit "
+                    f"for bit: {eq}")
+                expect(eq, f"[cells] {tag} differs from reference")
+            return check
+
+        real, out, plain, costs = run("dlrm-rm2 serve_p99", "dlrm-rm2",
+                                      "serve_p99",
+                                      check=bit_equal("dlrm-rm2 serve_p99"),
+                                      kernel="embedding_bag", per_run=1)
+        same_count("dlrm-rm2 serve_p99", real, plain, costs)
+        del real, out, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        for shape in ("serve_bulk", "retrieval_cand"):
+            run(f"dlrm-rm2 {shape}", "dlrm-rm2", shape,
+                check=bit_equal(f"dlrm-rm2 {shape}"), kernel="embedding_bag",
+                per_run=1)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # gin-tu: two regimes
+        for shape in ("full_graph_sm", "molecule"):
+            run(f"gin-tu {shape}", "gin-tu", shape)
+        gc.collect()
+        torch.cuda.empty_cache()
+        took = time.perf_counter() - phase_t
+        log(f"[cells] kernel rows over the phase: {json.dumps(cells_counts)}; "
+            f"the phase took {took:.2f} s, the script so far "
+            f"{time.perf_counter() - script_t:.2f} s ({smi})")
+
     retrieval_phases()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4599,6 +4892,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     gnn_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cells_phase()
 
     # 13. kernels line
     for r_ in rows:
@@ -4616,6 +4912,9 @@ def main() -> int:
             r_["mixtral"] = b7_moe["mixtral"]
         if r_["name"] == "embedding_bag":
             r_["ctr_train"] = b8_ctr_train
+        if r_["name"] in ("maxsim_topk", "flash_attention", "embedding_bag"):
+            r_["cells"] = cells_counts.get(r_["name"],
+                                           {"launches": 0, "path_ms": 0.0})
     log(json.dumps({"kernels": rows}))
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

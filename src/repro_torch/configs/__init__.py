@@ -21,4 +21,11 @@ from repro_torch.configs import (  # noqa: F401  (registration side effects)
 )
 from repro_torch.configs.base import ArchEntry, ShapeSpec, all_archs, get
 
-__all__ = ["ArchEntry", "ShapeSpec", "all_archs", "get", "base"]
+# The assigned architectures, as the reference lists them (every arch but
+# the paper's own ``colbert``): the dry run's ``--all`` sweeps these.
+ASSIGNED = [
+    "granite-moe-3b-a800m", "mixtral-8x7b", "stablelm-3b", "qwen2.5-32b",
+    "minitron-4b", "gin-tu", "dlrm-rm2", "dcn-v2", "wide-deep", "bert4rec",
+]
+
+__all__ = ["ArchEntry", "ShapeSpec", "all_archs", "get", "ASSIGNED", "base"]

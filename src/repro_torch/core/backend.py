@@ -28,7 +28,8 @@ overrides, as in the reference.
 Devices: entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU device they raise
 (:func:`resolve_device`).  Kernel wrappers take the plain version for a
-CPU tensor and launch the kernel (or raise) for a CUDA tensor.
+CPU or ``meta`` tensor (``kernels.build.PLAIN_DEVICES``) and launch the
+kernel (or raise) for a CUDA tensor.
 
 Numerics: fp32 means IEEE fp32.  Importing this module turns TF32 off
 for both cuBLAS matmuls and cuDNN, so the plain large products the

@@ -238,6 +238,18 @@ def require(t: torch.Tensor, what: str, dtype, shape, device) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
+# Devices whose tensors take a kernel's plain version: the CPU, and
+# ``meta``, on which the dry run (``launch.dryrun``) counts a step's work
+# from shapes alone.  A CUDA tensor launches the kernel; any other device
+# raises.
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def plain(t: torch.Tensor) -> bool:
+    """Whether ``t``'s device takes the plain version (PLAIN_DEVICES)."""
+    return t.device.type in PLAIN_DEVICES
+
+
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
     """Raise when autograd records and an input requires grad: no kernel
     of the port has a backward (the reference's Pallas kernels have

@@ -38,7 +38,7 @@ DOC_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _device_of(t):
-    if t.device.type not in ("cpu", "cuda"):
+    if not build.plain(t) and t.device.type != "cuda":
         raise ValueError(f"colbert_maxsim runs on cpu or cuda, not "
                          f"{t.device}")
     return t.device
@@ -122,7 +122,7 @@ def _count(fn, d_embs):
 
 def colbert_maxsim_multi_op(q_embs, d_embs, d_masks, q_masks=None):
     """(n_q, l, dim) x (n_docs, m, dim) -> (n_q, n_docs)."""
-    if _device_of(d_embs).type == "cpu":
+    if _device_of(d_embs).type in build.PLAIN_DEVICES:
         return colbert_maxsim_multi_ref(q_embs, d_embs, d_masks, q_masks)
     if d_masks.dim() != 2:
         raise ValueError("d_masks must be (n_docs, m)")
@@ -141,7 +141,7 @@ def colbert_maxsim_rerank_op(q_embs, d_subs, m_subs, q_masks=None):
     d_subs (n_q, n_cand, m, dim) fp32 or bf16; m_subs (n_q, n_cand, m)
     -> (n_q, n_cand).  On the card, dim is a multiple of 8 up to 128 and
     d_subs 16-byte aligned."""
-    if _device_of(d_subs).type == "cpu":
+    if _device_of(d_subs).type in build.PLAIN_DEVICES:
         return colbert_maxsim_rerank_ref(q_embs, d_subs, m_subs, q_masks)
     if m_subs.dim() != 3 or m_subs.shape[0] != q_embs.shape[0]:
         raise ValueError("m_subs must be (n_q, n_cand, m)")
@@ -214,7 +214,7 @@ def colbert_maxsim_residual_multi_op(q_embs, codes, resq, rscale, codebook,
     f32] -> (n_q, n_docs).  Pad rows (code 0, residual 0) decode to
     garbage and must arrive all-masked.  On the card, dim is a multiple
     of 8 up to 128."""
-    if _device_of(codes).type == "cpu":
+    if _device_of(codes).type in build.PLAIN_DEVICES:
         return colbert_maxsim_residual_multi_ref(
             q_embs, codes, resq, rscale, codebook, d_masks, q_masks,
             bits=bits)
@@ -240,7 +240,7 @@ def colbert_maxsim_residual_rerank_op(q_embs, code_subs, resq_subs,
     n_cand) int32; m_subs (n_q, n_cand, m) -> (n_q, n_cand).  The
     reference gathers a (n_q, n_cand, C, dim) codebook tensor; this
     reads each row's table in the kernel instead."""
-    if _device_of(code_subs).type == "cpu":
+    if _device_of(code_subs).type in build.PLAIN_DEVICES:
         return colbert_maxsim_residual_rerank_ref(
             q_embs, code_subs, resq_subs, scale_subs, codebooks, bucket_of,
             m_subs, q_masks, bits=bits)

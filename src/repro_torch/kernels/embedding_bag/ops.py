@@ -58,7 +58,7 @@ def _launch(table, ids, mode):
 def embedding_bag_op(table, ids, *, mode: str = "sum"):
     """table: (V, D) fp32; ids: (n_bags, nnz) int32 -> (n_bags, D) f32."""
     _check(table, ids, mode)
-    if table.device.type == "cpu":
+    if build.plain(table):
         return embedding_bag_ref(table, ids, mode)
     build.refuse_grad("embedding_bag", table)
     if table.device.type != "cuda":

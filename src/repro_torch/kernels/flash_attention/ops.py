@@ -89,7 +89,7 @@ def flash_attention_op(q, k, v, *, causal: bool = False,
     """q: (..., H, Sq, d); k, v: (..., KV, Sk, d) -> (..., H, Sq, d) in
     q's dtype."""
     H, KV, sq, sk, d = _check(q, k, v, window)
-    if q.device.type == "cpu":
+    if build.plain(q):
         if H != KV:
             k = k.repeat_interleave(H // KV, dim=-3)
             v = v.repeat_interleave(H // KV, dim=-3)

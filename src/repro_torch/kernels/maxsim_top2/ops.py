@@ -63,7 +63,7 @@ def maxsim_top2_op(samples, tokens, alive):
     """samples (N, dim); tokens (m, dim) or (B, m, dim); alive (m,) or
     (B, m) bool -> (best, second, argbest, argsecond), each (N,) or
     (B, N); f32, f32, int32, int32."""
-    if tokens.device.type == "cpu":
+    if build.plain(tokens):
         return maxsim_top2_ref(samples, tokens, alive)
     if tokens.device.type != "cuda":
         raise ValueError(f"maxsim_top2 runs on cpu or cuda, not "
@@ -110,7 +110,7 @@ def maxsim_top2_rows_op(samples, table, chunk: int = 4096):
     one pre-pass block; :func:`~.ref.merge_chunk_top2` then merges the
     chunks' (C, N) results on the device.  A CPU tensor runs
     :func:`~.ref.maxsim_top2_rows_ref`.  Counts one launch."""
-    if table.device.type == "cpu":
+    if build.plain(table):
         return maxsim_top2_rows_ref(samples, table, chunk)
     if table.device.type != "cuda":
         raise ValueError(f"maxsim_top2 runs on cpu or cuda, not "

@@ -56,7 +56,7 @@ def maxsim_topk_op(samples, tokens, alive, *, k: int):
     m = tokens.shape[-2]
     if k > m:
         raise ValueError(f"k={k} exceeds token count m={m}")
-    if tokens.device.type == "cpu":
+    if build.plain(tokens):
         return maxsim_topk_ref(samples, tokens, alive, k)
     if tokens.device.type != "cuda":
         raise ValueError(f"maxsim_topk runs on cpu or cuda, not "

@@ -1,7 +1,8 @@
-"""Serving and pruning meshes over this host's devices.
+"""Meshes: the serving and pruning meshes over this host's devices, and
+the production mesh the cells are built for.
 
-Counterpart of ``repro.launch.mesh`` (``make_host_mesh``,
-``make_serve_mesh``, ``default_serve_hosts``).  A :class:`Mesh` is named
+Counterpart of ``repro.launch.mesh`` (``make_production_mesh``,
+``make_host_mesh``, ``make_serve_mesh``, ``default_serve_hosts``).  A :class:`Mesh` is named
 axes over an array of ``torch.device`` s; one process drives every
 device of it (the reference's single controller): each shard's work is
 launched on its own device, and a shard's results are copied to the
@@ -11,8 +12,9 @@ tests (four CPU positions) and by ``chip_smoke.py`` on one card.
 
 The CLI builds its meshes from :func:`local_devices` alone, which never
 repeats a device; the ``devices=`` argument of the mesh functions is for
-tests and the smoke script.  ``make_production_mesh`` is not ported
-(ROADMAP § A item 7b).
+tests and the smoke script.  :func:`make_production_mesh` is the
+reference's 16 x 16 (or 2 x 16 x 16) pod; the dry run
+(``launch.dryrun``) builds it over 256 or 512 ``meta`` positions.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 __all__ = ["Mesh", "default_serve_hosts", "local_devices", "make_host_mesh",
-           "make_serve_mesh"]
+           "make_production_mesh", "make_serve_mesh"]
 
 
 class Mesh:
@@ -83,6 +85,18 @@ def _devices(devices) -> list:
     if not devs:
         raise RuntimeError("no device to build a mesh over")
     return devs
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """The production pod: ``(16, 16)`` over ``("data", "model")``, or
+    with ``multi_pod`` ``(2, 16, 16)`` over ``("pod", "data",
+    "model")``.  ``devices`` (default: this host's) fill the 256 or 512
+    positions in turn, repeating as they must."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    devs = _devices(devices)
+    n = int(np.prod(shape))
+    return Mesh([devs[i % len(devs)] for i in range(n)], axes, shape)
 
 
 def make_host_mesh(devices=None) -> Mesh:

@@ -762,6 +762,29 @@ def _bert4rec_items(cfg, batch, seed, device):
 
 
 @torch.no_grad()
+def bert4rec_topk(model, cfg, items, *, k: int = 100,
+                  backend: str | None = None):
+    """The pooled user vectors of ``items`` (B, S) scored against every
+    row of the embedding catalog, top ``k`` (values, int32 ids;
+    descending, ties to the lowest id)."""
+    _, user = recsys.bert4rec_user_vectors(model, cfg, items,
+                                           backend=backend)
+    return topk_lowest_index(recsys.score_candidates(
+        user, model.embed.weight.to(user.dtype)), k)
+
+
+@torch.no_grad()
+def bert4rec_pair_scores(model, cfg, items, targets, *,
+                         backend: str | None = None):
+    """Each pooled user vector of ``items`` (B, S) dotted with the
+    embedding of its target item (B,) -> (B,) scores."""
+    _, user = recsys.bert4rec_user_vectors(model, cfg, items,
+                                           backend=backend)
+    it = model.embed.weight[targets.long()].to(user.dtype)
+    return (user * it).sum(-1)
+
+
+@torch.no_grad()
 def serve_bert4rec(cfg, batch: int = 512, *, k: int = 100,
                    backend: str | None = None, device=None, seed: int = 0,
                    model=None):
@@ -779,10 +802,7 @@ def serve_bert4rec(cfg, batch: int = 512, *, k: int = 100,
     model, device = _recsys_model(cfg, model, device, seed, timings)
     items = _bert4rec_items(cfg, batch, seed, device)
     t = time.perf_counter()
-    _, user = recsys.bert4rec_user_vectors(model, cfg, items,
-                                           backend=backend)
-    out = topk_lowest_index(recsys.score_candidates(
-        user, model.embed.weight.to(user.dtype)), k)
+    out = bert4rec_topk(model, cfg, items, k=k, backend=backend)
     _sync(device)
     timings["serve_s"] = time.perf_counter() - t
     return out, timings
@@ -804,10 +824,8 @@ def serve_bert4rec_bulk(cfg, batch: int = 262_144, *,
     targets = torch.as_tensor(np.random.default_rng((seed, 1)).integers(
         4, cfg.n_items, size=batch, dtype=np.int32), device=device)
     t = time.perf_counter()
-    _, user = recsys.bert4rec_user_vectors(model, cfg, items,
-                                           backend=backend)
-    it = model.embed.weight[targets.long()].to(user.dtype)
-    scores = (user * it).sum(-1)
+    scores = bert4rec_pair_scores(model, cfg, items, targets,
+                                  backend=backend)
     _sync(device)
     timings["serve_s"] = time.perf_counter() - t
     return scores, timings

@@ -3,13 +3,18 @@
 Counterpart of ``repro.models.common``: the same arithmetic, with the
 same places of fp32 upcast, on torch tensors.  Matrices are created in
 the reference's (in, out) layout; modules store them as ``nn.Linear``
-weights, (out, in).
+weights, (out, in).  :func:`count_params` and :func:`cast_tree` take a
+module or a tree of tensors (nested dicts, tuples and named tuples, as
+``train_step.state_tree`` writes one).
 """
 
 from __future__ import annotations
 
+import copy
+
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def dense_init(generator, in_dim, out_dim, dtype=torch.float32, scale=None):
@@ -89,3 +94,44 @@ def mlp(x, ws, bs=None, act=F.relu, final_act: bool = False):
         if i < len(ws) - 1 or final_act:
             h = act(h)
     return h
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def _map(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return tree
+
+
+def count_params(params) -> int:
+    """Elements of a module's parameters (a tied table once) or of every
+    tensor leaf of a tree."""
+    if isinstance(params, nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    return sum(x.numel() for x in _leaves(params))
+
+
+def cast_tree(params, dtype):
+    """``params`` with its floating leaves cast to ``dtype``, the others
+    as they are: a new module (a copy) or a new tree; the input is left
+    unchanged."""
+    if isinstance(params, nn.Module):
+        return copy.deepcopy(params).to(dtype)
+    return _map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                params)

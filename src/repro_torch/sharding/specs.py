@@ -1,7 +1,8 @@
-"""Logical-axis sharding rules for serving and pruning, thread-local.
+"""Logical-axis sharding rules, thread-local.
 
-Counterpart of ``repro.sharding.specs``, its serving and pruning rules
-only.  A launcher activates a rule set mapping logical axis names
+Counterpart of ``repro.sharding.specs``: the serving and pruning rules,
+and the LM, GNN and recsys rule sets the cell builders read
+(``launch.steps``).  A launcher activates a rule set mapping logical axis names
 ("candidates", "batch", ...) to mesh axis names; the explicit
 multi-device consumers (the sharded streaming top-k and the grid merge
 tier of ``serve.retrieval``, the sharded pruning of ``core.voronoi``
@@ -14,8 +15,11 @@ with none, so code that fans work out to threads (the grid exchange,
 
 :func:`constrain` is the identity: eager PyTorch has no sharding hint
 for a compiler to honour, so placement is done by the consumers above,
-which copy each shard onto its device.  The reference's LM, GNN and
-recsys rule sets are not ported (ROADMAP § A item 7b).
+which copy each shard onto its device.  The LM, GNN and recsys rule sets
+(:func:`lm_train_rules` and the six after it) are plain dicts equal to
+the reference's; they feed the cells' specs and the dry run's counts
+(``launch.steps``, ``launch.roofline``), and no code places tensors by
+them: placing a model over several cards is ROADMAP item 7c.
 """
 
 from __future__ import annotations
@@ -24,8 +28,10 @@ import threading
 from contextlib import contextmanager
 
 __all__ = ["axis_rules", "constrain", "current_rules", "data_mesh_for",
-           "grid_axes_for", "logical_to_spec", "mesh_axes_for",
-           "serve_rules", "spec_for"]
+           "gnn_rules", "grid_axes_for", "lm_decode_rules",
+           "lm_prefill_rules", "lm_rules_ep_moe", "lm_train_rules",
+           "logical_to_spec", "mesh_axes_for", "recsys_rules",
+           "recsys_rules_rowsharded", "serve_rules", "spec_for"]
 
 _state = threading.local()
 
@@ -96,6 +102,98 @@ def mesh_axes_for(logical: str, rules: dict | None = None):
     if not axes or n <= 1:
         return None, (), 1
     return mesh, axes, n
+
+
+# The reference's baseline posture: training batches shard over every
+# device, parameters FSDP over `data` on the embed axis and tensor-parallel
+# over `model` on the heads / ffn / vocab / expert axes.
+
+_LM_COMMON = {
+    "fsdp": ("data",),
+    "embed": None,
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "ffn": ("model",),
+    "expert": None,            # TP-MoE baseline; the EP variant flips it
+    "vocab": ("model",),
+    "kv_len": None,
+    "table_axis": None,
+    "table_rows": None,
+    "candidates": ("model",),
+}
+
+
+def lm_train_rules(multi_pod: bool) -> dict:
+    """Single pod: the batch over (data, model).  Two pods: the global
+    batch (256) is below 512 devices, so it goes over (pod, data) and
+    the sequence over ``model``."""
+    r = dict(_LM_COMMON)
+    if multi_pod:
+        r |= {"batch": ("pod", "data"), "seq": ("model",)}
+    else:
+        r |= {"batch": ("data", "model"), "seq": None}
+    return r
+
+
+def lm_prefill_rules(multi_pod: bool) -> dict:
+    dp = ("pod", "data") if multi_pod else ("data",)
+    return dict(_LM_COMMON) | {"batch": dp, "seq": None}
+
+
+def lm_decode_rules(multi_pod: bool, *, batch: int = 0) -> dict:
+    """8 KV heads do not divide the 16-way ``model`` axis, so the KV
+    cache shards its length there; at batch 1 (``long_500k``) the
+    length goes over every axis."""
+    dp = ("pod", "data") if multi_pod else ("data",)
+    r = dict(_LM_COMMON) | {"batch": dp, "seq": None,
+                            "kv_heads": None, "kv_len": ("model",)}
+    if batch == 1:
+        r |= {"batch": None,
+              "kv_len": ("data", "model") if not multi_pod
+              else ("pod", "data", "model")}
+    return r
+
+
+def lm_rules_ep_moe(rules: dict) -> dict:
+    """The EP-MoE variant: experts over ``model`` (all-to-all MoE)."""
+    return rules | {"expert": ("model",), "ffn": None}
+
+
+def gnn_rules(multi_pod: bool) -> dict:
+    """Edges over every device; node features replicated."""
+    dp = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return {"edges": dp, "nodes": None, "feat": None, "batch": dp,
+            "hidden": None}
+
+
+def recsys_rules(multi_pod: bool) -> dict:
+    """The batch over every device, tables table-wise over ``model``."""
+    dp = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return {
+        "batch": dp,
+        "table_axis": ("model",),
+        "table_rows": None,
+        "embed": None,
+        "mlp_in": None,
+        "mlp_out": ("model",),
+        "heads": ("model",),
+        "ffn": ("model",),
+        "seq": None,
+        "candidates": ("model",),
+        "vocab": ("model",),
+        "fsdp": ("data",),
+        "expert": None,
+        "kv_heads": ("model",),
+        "kv_len": None,
+    }
+
+
+def recsys_rules_rowsharded(multi_pod: bool) -> dict:
+    """The row-sharded variant: table rows over ``model``."""
+    r = recsys_rules(multi_pod)
+    r["table_axis"] = None
+    r["table_rows"] = ("model",)
+    return r
 
 
 def serve_rules(mesh=None, placement=None) -> dict:

@@ -258,6 +258,12 @@ def _layout(model):
         sd, family, n_features=n_features))
 
 
+def param_tree(model) -> dict:
+    """The model's parameters as the reference's tree (leaf names and
+    layouts of its family, ``convert.params_to_jax``)."""
+    return _layout(model)[1](dict(model.named_parameters()))
+
+
 def state_tree(state) -> dict:
     """The train state as the reference's tree: ``{"opt": AdamWState(step,
     m, v), "params": ..., "step": int32}`` with the parameters and the
@@ -265,10 +271,9 @@ def state_tree(state) -> dict:
     family (``convert.params_to_jax``)."""
     opt = state["opt"]
     _, to_jax = _layout(state["params"])
-    params = dict(state["params"].named_parameters())
     return {"opt": optimizer.AdamWState(opt.step, to_jax(opt.m),
                                         to_jax(opt.v)),
-            "params": to_jax(params),
+            "params": param_tree(state["params"]),
             "step": torch.tensor(state["step"], dtype=torch.int32)}
 
 

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.configs import bert4rec, dlrm_rm2
 from repro_torch.data import synthetic
+from repro_torch.kernels import build
 from repro_torch.kernels.embedding_bag.ops import embedding_bag_op
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.models import recsys
@@ -24,7 +25,40 @@ def _card():
     return torch.device("cuda")
 
 
-def test_embedding_bag_refuses_an_input_that_requires_grad():
+@pytest.fixture
+def meta_off_the_plain_path(monkeypatch):
+    """``meta`` tensors take the plain versions (the dry run counts on
+    them); with only the CPU plain, a meta tensor stands for a device
+    off the CPU that is not a card."""
+    monkeypatch.setattr(build, "PLAIN_DEVICES", ("cpu",))
+
+
+def test_meta_takes_the_plain_version():
+    """Every wrapper runs its plain version on ``meta`` (shapes out, no
+    launch), as the dry run counts it."""
+    from repro_torch.kernels.colbert_maxsim.ops import (
+        colbert_maxsim_multi_op, colbert_maxsim_rerank_op)
+    from repro_torch.kernels.maxsim_top2.ops import maxsim_top2_op
+    from repro_torch.kernels.maxsim_topk.ops import maxsim_topk_op
+    table = torch.zeros((8, 4), device="meta", requires_grad=True)
+    ids = torch.zeros((2, 1), dtype=torch.int32, device="meta")
+    assert embedding_bag_op(table, ids).shape == (2, 4)
+    q = torch.zeros((1, 2, 8, 8), device="meta", requires_grad=True)
+    assert flash_attention_op(q, q, q).device.type == "meta"
+    s = torch.zeros((16, 8), device="meta")
+    d = torch.zeros((3, 5, 8), device="meta")
+    alive = torch.ones((3, 5), dtype=torch.bool, device="meta")
+    assert maxsim_top2_op(s, d, alive)[0].shape == (3, 16)
+    assert maxsim_topk_op(s, d, alive, k=2)[1].shape == (3, 16, 2)
+    qe = torch.zeros((2, 4, 8), device="meta")
+    assert colbert_maxsim_multi_op(qe, d, alive).shape == (2, 3)
+    sub = torch.zeros((2, 3, 5, 8), device="meta")
+    m = torch.ones((2, 3, 5), dtype=torch.bool, device="meta")
+    assert colbert_maxsim_rerank_op(qe, sub, m).shape == (2, 3)
+
+
+def test_embedding_bag_refuses_an_input_that_requires_grad(
+        meta_off_the_plain_path):
     """A launch would cut the graph; a tensor off the CPU that requires
     grad raises before any launch."""
     table = torch.zeros((8, 4), device="meta", requires_grad=True)
@@ -40,7 +74,8 @@ def test_embedding_bag_refuses_an_input_that_requires_grad():
     assert t.grad[1].eq(2).all() and t.grad[0].eq(0).all()
 
 
-def test_flash_attention_refuses_an_input_that_requires_grad():
+def test_flash_attention_refuses_an_input_that_requires_grad(
+        meta_off_the_plain_path):
     q = torch.zeros((1, 2, 8, 8), device="meta", requires_grad=True)
     k = torch.zeros((1, 2, 8, 8), device="meta")
     with pytest.raises(ValueError, match="backend='reference'"):
