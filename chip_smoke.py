@@ -262,7 +262,10 @@ passed — any failure exits non-zero):
    ``LMR_LAYERS`` layers (full width; the registry's entry swapped for
    the call), ``LMR_STEPS`` steps uninterrupted against ``LMR_STOP``
    steps stopped with a checkpoint and resumed: losses and every
-   train-state leaf bit-equal.  The phase's seconds are printed.
+   train-state leaf bit-equal.  Before the resume, one microbatch (2 x
+   4,096, ``attn_chunk`` 1,024) with ``remat_attn_chunk`` off and then
+   on: loss and every gradient bit-equal, both peaks and times printed.
+   The phase's seconds are printed.
 10. B7 (``flash_attention``) against its plain version at the prefill
    shape, stablelm-3b's (32 heads, head_dim 80), a 512 sliding window,
    qwen2.5-32b's (40 heads / 8 KV, head_dim 128), granite's (4 x 24 / 8
@@ -414,13 +417,22 @@ passed — any failure exits non-zero):
    ``serve_p99`` on the card's ``reference`` path equal to the same
    cell's count on ``meta`` (FLOPs by dtype, bytes, ops).  Printed a
    cell: step s (median), model TFLOP, the plain path's counted TFLOP
-   and GB (on meta; gin-tu's, data-dependent there, on the card's real
-   arguments before the runs), ``mfu`` (model FLOPs / (step s x the peak of the
+   and GB (on meta; gin-tu's at the upper bound there, and on the card's
+   real arguments before the runs too, which must not exceed it), ``mfu`` (model FLOPs / (step s x the peak of the
    cell's compute dtype: 989 TFLOP/s bf16, 67 fp32)), ``model_bound_s``
    (the larger of the model FLOPs at that peak and one read of the
    arguments at 3.35 TB/s) and the step's share of it, peak GB, and the
-   kernels' launches over the four runs.  The phase's seconds and the
-   script's so far are printed.
+   kernels' launches over the four runs.  Then the a2a legs on a
+   ``data x model`` = 2 x 4 mesh of eight card positions: dlrm-rm2
+   ``train_batch`` at 65,536 (no cut) as ``baseline``, ``a2a_lookup``
+   and ``a2a_zero``, each materialized from seed 0 and stepped once
+   (loss, the int64 sum of every train-state leaf's 32-bit words) and 3
+   times more (step ms, median), peak GB, the dropped requests and the
+   counted all-to-all and all-reduce bytes a device (meta); gates: no
+   request dropped, loss and every digest equal to the baseline's; and
+   ``serve_bulk`` under ``a2a_lookup`` on ``fused``: one B8 launch a
+   forward, no other kernel, probabilities bit-equal to the baseline
+   cell's.  The phase's seconds and the script's so far are printed.
 13. The ``kernels`` JSON line; ``path_ms`` is each kernel's summed
    event time over the launches ``launches`` counts: the main path (B2,
    bf16 B3/B4), the fused pruning leg (B1), the compressed and routed
@@ -3645,7 +3657,46 @@ def main() -> int:
                "granite training: a loss or gradient norm is not finite")
         expect(sum(fn.launches for fn in ops) == n0,
                "granite training launched a kernel")
-        del model, state, step, b, mb
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one microbatch with remat_attn_chunk off, then on: the loss and
+        # every gradient bit-equal (the off run's gradients held on the
+        # host), each run's peak beside the other's
+        def set_remat_chunk(flag):
+            for mod in model.modules():
+                if isinstance(getattr(mod, "cfg", None), tfm.LMConfig):
+                    mod.cfg = dataclasses.replace(mod.cfg,
+                                                  remat_attn_chunk=flag)
+
+        peaks, held, same = {}, None, True
+        for flag in (False, True):
+            set_remat_chunk(flag)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            total, _, _ = train_step.lm_loss_fn(model, mb)
+            grads = train_step.param_grads(model, total)
+            torch.cuda.synchronize()
+            peaks[flag] = (torch.cuda.max_memory_allocated() / 1e9,
+                           time.perf_counter() - t)
+            if held is None:
+                held = (total.item(), {n: g.cpu() for n, g in grads.items()})
+            else:
+                same = total.item() == held[0] and all(
+                    torch.equal(g.cpu(), held[1][n]) for n, g in grads.items())
+            del total, grads
+        set_remat_chunk(False)
+        log(f"[lm-train] {cfg.name} microbatch {tuple(mb.shape)}, attn_chunk "
+            f"{cfg.attn_chunk}: remat_attn_chunk off peak {peaks[False][0]:.3f}"
+            f" GB ({peaks[False][1]:.2f} s), on peak {peaks[True][0]:.3f} GB "
+            f"({peaks[True][1]:.2f} s); loss and gradients bit-equal: {same}")
+        expect(same, "granite remat_attn_chunk changed the loss or a gradient")
+        expect(sum(fn.launches for fn in ops) == n0,
+               "granite training launched a kernel")
+        del model, b, mb, held
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4619,11 +4670,14 @@ def main() -> int:
         materialized there (seed 0), each run through its step once to
         warm up and then three times; gates and figures in the module
         docstring."""
-        from repro_torch.launch import dryrun, roofline, steps
-        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch import roofline, steps
+        from repro_torch.launch.mesh import Mesh, make_host_mesh
+        from repro_torch.sharding import axis_rules
         phase_t = time.perf_counter()
         dev = torch.device("cuda")
         host = make_host_mesh([dev])
+        # the a2a legs' data x model = 2 x 4 mesh of eight card positions
+        grid = Mesh([torch.device("cuda", 0)] * 8, ("data", "model"), (2, 4))
         ops = {"maxsim_topk": maxsim_topk_op,
                "flash_attention": fa_ops.flash_attention_op,
                "embedding_bag": embedding_bag_op}
@@ -4661,39 +4715,50 @@ def main() -> int:
                 return [t for v in out for t in floats(v)]
             return []
 
+        def on_meta(mesh):
+            return Mesh([torch.device("meta")] * mesh.devices.size,
+                        mesh.axis_names, mesh.devices.shape)
+
         def counted(cell):
             """(the cell on the plain path, the FLOPs and bytes of its step
-            on its meta arguments); None for a cell the dry run lists as
-            data-dependent, stopped at its listed op."""
-            plain = steps.build_cell(cell.arch_id, cell.shape_id, host,
-                                     variant=cell.variant,
-                                     backend="reference")
-            try:
-                _, c = roofline.count_costs(plain.fn, *plain.args)
-            except NotImplementedError as e:
-                op = dryrun.DATA_DEPENDENT.get((cell.arch_id, cell.shape_id))
-                if op is None or e.costs.failed_op != op[0]:
-                    raise
-                return plain, None
-            return plain, c
+            on its meta arguments, over meta positions of its mesh: a
+            data-dependent step at the upper bound of its shapes)."""
+            meta = steps.build_cell(cell.arch_id, cell.shape_id,
+                                    on_meta(cell.mesh), variant=cell.variant,
+                                    backend="reference")
+            _, c = roofline.count_costs(meta.fn, *meta.args)
+            return steps.build_cell(cell.arch_id, cell.shape_id, cell.mesh,
+                                    variant=cell.variant,
+                                    backend="reference"), c
 
         def run(tag, arch, shape_id, *, variant="baseline", dims=None,
                 why="", calls=None, check=None, kernel=None, per_run=None,
-                finite=floats):
+                finite=floats, mesh=host):
             """Build, materialize, warm up and time one cell; ``calls``
             maps the real cell to the list of argument tuples one run
             takes (default: its arguments once).  ``kernel`` must launch
             (``per_run`` times a run where given); no other may.
-            ``finite`` picks the output tensors that must be finite."""
+            ``finite`` picks the output tensors that must be finite.  A
+            cell counted at the upper bound (a data-dependent step) is
+            counted on the card's real arguments too, before the runs,
+            and the two counts printed: the real one at most the
+            bound."""
             with cut(arch, shape_id, why, **(dims or {})):
-                cell = steps.build_cell(arch, shape_id, host, variant=variant)
+                cell = steps.build_cell(arch, shape_id, mesh, variant=variant)
                 plain, costs = counted(cell)
             gen = torch.Generator(device=dev).manual_seed(0)
             real = steps.materialize(cell, dev, gen)
-            where = "meta"
-            if costs is None:       # data-dependent: count the real step
-                _, costs = roofline.count_costs(plain.fn, *real.args)
-                where = "the card's real arguments (data-dependent on meta)"
+            where = f"meta ({roofline.counted_by(costs)})"
+            if costs.bounded:
+                _, on_card = roofline.count_costs(plain.fn, *real.args)
+                log(f"[cells] {tag}: counted on the card's real arguments "
+                    f"{sum(on_card.flops.values()) / 1e12:.6f} TFLOP, "
+                    f"{on_card.bytes / 1e9:.6f} GB; at the bound on meta "
+                    f"{sum(costs.flops.values()) / 1e12:.6f} TFLOP, "
+                    f"{costs.bytes / 1e9:.6f} GB")
+                expect(sum(on_card.flops.values()) <= sum(costs.flops.values())
+                       and on_card.bytes <= costs.bytes,
+                       f"[cells] {tag}: the real count exceeds the bound")
             calls = calls(real) if calls else [real.args]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -4861,10 +4926,94 @@ def main() -> int:
             run(f"gin-tu {shape}", "gin-tu", shape)
         gc.collect()
         torch.cuda.empty_cache()
+
+        a2a_phase(run, grid, on_meta, axis_rules)
         took = time.perf_counter() - phase_t
         log(f"[cells] kernel rows over the phase: {json.dumps(cells_counts)}; "
             f"the phase took {took:.2f} s, the script so far "
             f"{time.perf_counter() - script_t:.2f} s ({smi})")
+
+    def a2a_phase(run, grid, on_meta, axis_rules):
+        """Phase 11e's a2a legs (``[cells]``): dlrm-rm2 ``train_batch`` at
+        65,536 on the 2 x 4 ``grid`` of card positions as ``baseline``,
+        ``a2a_lookup`` and ``a2a_zero``, each from seed 0 (one step: its
+        loss and a digest of every train-state leaf; then 3 timed steps),
+        all three bit-equal where no request dropped; ``serve_bulk``
+        under ``a2a_lookup`` on ``fused`` bit-equal to the baseline cell,
+        one B8 launch a forward."""
+        from repro_torch.launch import roofline, steps
+        t0 = time.perf_counter()
+        dev = torch.device("cuda")
+
+        def digest(t):
+            """The int64 sum of a leaf's 32-bit words."""
+            words = t.detach().contiguous().reshape(-1).view(torch.int32)
+            return int(words.long().sum())
+
+        legs = {}
+        for variant in ("baseline", "a2a_lookup", "a2a_zero"):
+            cell = steps.build_cell("dlrm-rm2", "train_batch", grid,
+                                    variant=variant)
+            coll = roofline.state_collectives(steps.build_cell(
+                "dlrm-rm2", "train_batch", on_meta(grid), variant=variant))
+            real = steps.materialize(
+                cell, dev, torch.Generator(device=dev).manual_seed(0))
+            state, batch = real.args
+            with axis_rules(real.rules):
+                dropped = recsys.alltoall_dropped(
+                    batch["sparse_ids"], state["params"].cfg.table_rows)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state, m = real.fn(state, batch)
+            loss = m["loss"].clone()
+            words = {p: digest(t) for p, t, _ in steps.leaves(
+                dataclasses.replace(real, args=(state, batch)))}
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, m = real.fn(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            legs[variant] = (loss, words, dropped)
+            log(f"[cells] dlrm-rm2 train_batch {variant} on the 2 x 4 grid "
+                f"(batch {batch['sparse_ids'].shape[0]:,}, no cut): loss "
+                f"{loss.item():.9f}; step "
+                f"{statistics.median(times) * 1e3:.3f} ms (median of 3 after "
+                f"the first step; {[round(x * 1e3, 3) for x in times]}); "
+                f"peak {peak:.3f} GB; dropped requests {dropped}; counted "
+                f"collectives a device (meta): all-to-all "
+                f"{coll['all-to-all'] / 1e6:.3f} MB, all-reduce "
+                f"{coll['all-reduce'] / 1e6:.3f} MB, all-gather "
+                f"{coll['all-gather'] / 1e6:.3f} MB")
+            del cell, real, state, batch, m
+            gc.collect()
+            torch.cuda.empty_cache()
+        base_loss, base_words, _ = legs["baseline"]
+        for variant in ("a2a_lookup", "a2a_zero"):
+            loss, words, dropped = legs[variant]
+            same = torch.equal(loss, base_loss) and words == base_words
+            log(f"[cells] dlrm-rm2 train_batch {variant}: loss and every "
+                f"train-state leaf's digest equal to the baseline's: {same}")
+            expect(dropped == 0, f"[cells] {variant}: {dropped} requests "
+                                 f"dropped at cf 2 with uniform ids")
+            expect(same, f"[cells] {variant} step differs from the baseline")
+
+        def same_as_baseline(real, out, plain):
+            want = steps.build_cell("dlrm-rm2", "serve_bulk",
+                                    grid).fn(*real.args)
+            eq = torch.equal(out, want)
+            log(f"[cells] dlrm-rm2 serve_bulk a2a_lookup: equal to the "
+                f"baseline cell's probabilities bit for bit: {eq}")
+            expect(eq, "[cells] serve_bulk a2a_lookup differs from baseline")
+
+        run("dlrm-rm2 serve_bulk a2a_lookup (2 x 4 grid)", "dlrm-rm2",
+            "serve_bulk", variant="a2a_lookup", mesh=grid,
+            check=same_as_baseline, kernel="embedding_bag", per_run=1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[cells] a2a legs {time.perf_counter() - t0:.2f} s")
 
     retrieval_phases()
     gc.collect()

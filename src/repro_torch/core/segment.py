@@ -129,10 +129,12 @@ def _walk(keys, rows, n_out: int) -> _Walk:
     """Edges grouped by ``keys`` (their order kept within a key), each
     group cut into pieces of at most ``PIECE_EDGES`` edges, the pieces'
     sums into runs of at most ``PIECE_EDGES`` a level until one is left
-    a group."""
+    a group.  On ``meta`` (the dry run's counts), :func:`_walk_bound`."""
     order = torch.sort(keys, stable=True).indices
     seg_ids, counts = torch.unique_consecutive(keys[order],
                                                return_counts=True)
+    if keys.is_meta:
+        return _walk_bound(rows[order].int(), n_out)
     piece_len, runs = _runs(counts, PIECE_EDGES)
     levels = []
     while runs.numel() and int(runs.max()) > 1:
@@ -140,6 +142,30 @@ def _walk(keys, rows, n_out: int) -> _Walk:
         levels.append(lens)
     return _Walk(rows[order].int(), piece_len, torch.cumsum(piece_len, 0),
                  seg_ids.long(), tuple(levels), n_out)
+
+
+def _walk_bound(rows, n_out: int) -> _Walk:
+    """A walk of meta tensors at the sizes that bound any data's (the
+    counting rule of ``launch/roofline.py``): every one of the E edges
+    gathered, at most min(E, n_out) segments and min(E, segments +
+    ceil(E / PIECE_EDGES)) pieces, as many levels as a segment of all E
+    edges needs, each level's runs at most segments + ceil(runs /
+    PIECE_EDGES), the last one a run a segment."""
+    E = rows.numel()
+    n_seg = min(E, n_out)
+    n_pieces = min(E, n_seg + -(-E // PIECE_EDGES))
+    levels, runs, longest = [], n_pieces, -(-E // PIECE_EDGES)
+    while longest > 1:
+        longest = -(-longest // PIECE_EDGES)
+        runs = n_seg if longest <= 1 else min(
+            runs, n_seg + -(-runs // PIECE_EDGES))
+        levels.append(torch.empty(runs, dtype=torch.long, device="meta"))
+    if not levels and n_pieces > n_seg:
+        levels.append(torch.empty(n_seg, dtype=torch.long, device="meta"))
+    piece_len = torch.empty(n_pieces, dtype=torch.long, device="meta")
+    return _Walk(rows, piece_len, torch.cumsum(piece_len, 0),
+                 torch.empty(n_seg, dtype=torch.long, device="meta"),
+                 tuple(levels), n_out)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,14 +203,19 @@ def _walk_sum(walk: _Walk, vals, chunk_edges: int, msg_hook=None):
         return out.view((walk.n_out,) + tuple(vals.shape[1:]))
     # a chunk is the whole pieces that end past the previous cut and at
     # or before the next multiple of chunk_edges; a piece longer than
-    # chunk_edges makes a chunk of its own
+    # chunk_edges makes a chunk of its own (on meta, one chunk: the same
+    # rows and pieces, the cuts being values)
     dev = walk.piece_end.device
-    marks = torch.arange(chunk_edges, max(n_edges, chunk_edges), chunk_edges,
-                         device=dev)
-    cuts = torch.searchsorted(walk.piece_end, marks, right=True)
-    p_cuts = [0] + sorted(set(cuts.tolist()) - {0, n_pieces}) + [n_pieces]
-    e_cuts = [0] + walk.piece_end[torch.tensor(p_cuts[1:], device=dev)
-                                  - 1].tolist()
+    if dev.type == "meta":
+        p_cuts, e_cuts = [0, n_pieces], [0, n_edges]
+    else:
+        marks = torch.arange(chunk_edges, max(n_edges, chunk_edges),
+                             chunk_edges, device=dev)
+        cuts = torch.searchsorted(walk.piece_end, marks, right=True)
+        p_cuts = ([0] + sorted(set(cuts.tolist()) - {0, n_pieces})
+                  + [n_pieces])
+        e_cuts = [0] + walk.piece_end[torch.tensor(p_cuts[1:], device=dev)
+                                      - 1].tolist()
     sums = flat.new_empty((n_pieces, flat.shape[1]))
     for p0, p1, e0, e1 in zip(p_cuts, p_cuts[1:], e_cuts, e_cuts[1:]):
         msg = flat.index_select(0, walk.rows[e0:e1].long())

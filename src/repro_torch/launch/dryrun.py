@@ -17,12 +17,13 @@ to change it); ``--table`` prints the records as a markdown table at
 the end.  There is no ``--reanalyze``: the port has no HLO to re-read.
 
 Statuses: ``ok`` (with ``analysis``, ``roofline.analyze``'s record),
-``skipped`` (the reference's documented skips), ``data_dependent`` and
-``error``.  A ``data_dependent`` cell is one whose step needs a value
-of its data that shapes alone do not give (:data:`DATA_DEPENDENT`); its
-record names the op and keeps the model FLOPs and the per-device
-argument bytes, with no stand-in for the counted terms.  The CLI exits
-1 when any other cell fails.
+``skipped`` (the reference's documented skips) and ``error`` (with the
+op that raised).  A step that reads a value of its data (the GNN gather
+plan's kept edges and segment counts, ``take_rows``' backward grouping
+a gather's repeated rows: the CTR, BERT4Rec and MoE train steps) is
+counted at the upper bound its shapes fix, and its record says so
+(``analysis["counted_by"]``; ``launch/roofline.py``).  The CLI exits 1
+when any cell fails.
 """
 
 from __future__ import annotations
@@ -41,26 +42,6 @@ from repro_torch.launch.mesh import make_production_mesh
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "build",
                        "dryrun")
-
-# The cells whose step reads a value of its data, by the op that stops
-# them on meta: the GNN's gather plan selects the kept edges with a
-# boolean mask (``core/segment.py::gather_plan``, a ``nonzero`` inside
-# ``aten.index``; its sorts' segment counts and ``.tolist()`` cuts come
-# after), and ``take_rows``' backward groups a gather's repeated rows
-# with ``unique_consecutive`` (the CTR, BERT4Rec and MoE train steps).
-_PLAN = ("aten.index", "the GNN gather plan's boolean edge selection "
-         "(core/segment.py::gather_plan: nonzero)")
-_TAKE = ("aten.unique_consecutive", "take_rows' backward "
-         "(core/segment.py::segment_rows_sum)")
-DATA_DEPENDENT = {
-    **{("gin-tu", s): _PLAN for s in ("full_graph_sm", "minibatch_lg",
-                                      "ogb_products", "molecule")},
-    **{(a, "train_batch"): _TAKE for a in ("dlrm-rm2", "dcn-v2",
-                                           "wide-deep", "bert4rec")},
-    **{(a, "train_4k"): _TAKE for a in ("granite-moe-3b-a800m",
-                                        "mixtral-8x7b")},
-}
-
 
 def mesh_name(multi_pod: bool) -> str:
     return "pod2x16x16" if multi_pod else "pod16x16"
@@ -91,18 +72,6 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool,
         analysis = roofline.analyze(cell, costs, n_dev)
     except Exception as e:
         failed = getattr(getattr(e, "costs", None), "failed_op", None)
-        expected = DATA_DEPENDENT.get((arch, shape))
-        if expected is not None and failed == expected[0]:
-            record.update(
-                status="data_dependent", op=failed, where=expected[1],
-                reason=f"{type(e).__name__}: {str(e).splitlines()[0]}",
-                model_flops=cell.model_flops_per_step,
-                argument_bytes_per_device=(
-                    roofline.argument_bytes_per_device(cell)),
-                count_s=round(time.perf_counter() - t0, 2))
-            if verbose:
-                print(f"{tag} DATA-DEPENDENT at {failed}")
-            return record
         record.update(status="error", op=failed,
                       error=f"{type(e).__name__}: {e}",
                       traceback=traceback.format_exc()[-4000:])
@@ -163,7 +132,7 @@ def main(argv=None):
                         prev = json.load(f)
                 except (OSError, ValueError):
                     prev = {}
-                if prev.get("status") in ("ok", "skipped", "data_dependent"):
+                if prev.get("status") in ("ok", "skipped"):
                     print(f"[{arch} x {shape} x {name}] cached, skipping")
                     continue
             rec = run_cell(arch, shape, multi_pod=multi_pod,
@@ -177,22 +146,28 @@ def main(argv=None):
 
 
 def table(paths) -> str:
-    """A markdown table of dry-run records, one row an (arch, mesh) and
-    one column a shape: status (with the op that stopped a
-    data-dependent cell), argument GB a device and whether they fit
-    the card's 80 GB, the plain path's counted TFLOP, the bound's
-    seconds and its dominant term."""
+    """A markdown table of dry-run records, one row an (arch, mesh,
+    variant unless baseline) and one column a shape: status (with the op
+    that stopped a failed cell; "bound" where the upper-bound rule
+    counted it), argument GB a device and whether they fit the card's 80
+    GB, the plain path's counted TFLOP, the bound's seconds and its
+    dominant term, and the collectives' GB a device where there are
+    any."""
     by, width = {}, 0
     for path in paths:
         with open(path) as f:
             r = json.load(f)
-        row = by.setdefault((r["arch"], r["mesh"]), [])
+        key = (r["arch"], r["mesh"]) + ((r["variant"],) if r.get(
+            "variant", "baseline") != "baseline" else ())
+        row = by.setdefault(key, [])
         a = r.get("analysis", {})
         arg = a.get("argument_bytes_per_device",
                     r.get("argument_bytes_per_device"))
         cell = f"`{r['shape']}` {r['status']}"
         if r.get("op"):
             cell += f" at `{r['op']}`"
+        if a.get("counted_by", "shapes") != "shapes":
+            cell += " (bound)"
         if arg is not None:
             cell += (f", {arg / 1e9:.3g} GB "
                      f"({'fits' if arg <= 80e9 else 'over'})")
@@ -200,13 +175,16 @@ def table(paths) -> str:
             cell += (f", {a['flops'] / 1e12:.3g} TFLOP, "
                      f"{a['step_time_bound_s']:.3g} s "
                      f"{a['dominant'][:-2]}")
+            if a["collective_bytes_per_device"]:
+                cell += (f", {a['collective_bytes_per_device'] / 1e9:.3g} GB "
+                         f"of {a['collectives']} collectives a device")
         row.append(cell)
         width = max(width, len(row))
-    head = "| arch, mesh | " + " | ".join(
+    head = "| arch, mesh[, variant] | " + " | ".join(
         f"shape {i + 1}" for i in range(width)) + " |"
     rows = [head, "|" + " --- |" * (width + 1)]
-    rows += [f"| {arch}, {mesh} | " + " | ".join(cells) + " |"
-             for (arch, mesh), cells in by.items()]
+    rows += [f"| {', '.join(key)} | " + " | ".join(cells) + " |"
+             for key, cells in by.items()]
     return "\n".join(rows)
 
 

@@ -39,16 +39,40 @@ on ``meta`` each kernel wrapper takes its plain version.  The plain
 attention and the dense pruning path do more work than B7 and B2, so
 the counted terms overstate those cells.
 
+Data-dependent ops on ``meta`` take the upper bound that their shapes
+fix (``counted_by`` in the record; "shapes" where no op needed one):
+every edge kept and every id distinct.  :class:`Costs` answers a
+boolean index (``aten.index``, ``aten.nonzero``) as if every element
+were true and ``aten.unique_consecutive`` as if every value were
+distinct, so ``take_rows``' backward (the CTR, BERT4Rec and MoE train
+steps) sums one segment a row, as it does on all-distinct ids; and the
+GNN gather plan's walk (``core/segment.py::_walk``) reports its bounds
+instead of running: every edge gathered, at most ``min(E, segments +
+ceil(E/64))`` pieces, and as many levels as a segment of all E edges
+needs, each level's runs at most ``segments + ceil(runs/64)``, the last
+one a run a segment.  On real arguments the counts are the data's own.
+
 Collectives are counted from the cell's specs on the train state, by
 the reference's conventions (an all-gather moves its full output, an
 all-reduce twice its operand, a reduce-scatter and an all-to-all their
 operand): a parameter sharded over k > 1 positions is all-gathered in
 the forward and once more under remat, and its gradient is
 reduce-scattered where the cell pins gradients to the parameters'
-sharding (``rs_grads``, ``zero_tables``) and all-reduced (XLA's
-all-reduce then slice) where it does not; a replicated parameter under
-a sharded batch has its gradient all-reduced.  Activation collectives
-of tensor-parallel specs are not counted (``"collectives": "state"``).
+sharding (``rs_grads``, ``zero_tables``, ``a2a_zero``) and all-reduced
+(XLA's all-reduce then slice) where it does not; a replicated parameter
+under a sharded batch has its gradient all-reduced.
+
+Under the ``a2a_lookup`` and ``a2a_zero`` variants the CTR tables are
+read through ``models/recsys.py::alltoall_lookup``: a table is not
+all-gathered (the lookup reads owned rows only), its gradient is its
+owners' alone, all-reduced over the positions that hold the same shard
+(2 x the shard's bytes; none under ``a2a_zero``, where every position
+owns its own rows), and the exchange is counted under ``"all-to-all"``
+a device: in the forward the request buckets and the feature buckets
+(shards x cap int32 each, the reference's dtype) and the rows sent
+back (shards x cap x D), in the backward the rows' gradients (the same
+again; ``"collectives": "state+a2a"``).  Activation collectives of
+tensor-parallel specs are not counted (``"collectives": "state"``).
 """
 
 from __future__ import annotations
@@ -58,10 +82,12 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.models import recsys
+
 __all__ = ["HBM_BW", "LINK_BW", "PEAK_BF16_FLOPS", "PEAK_FP32_FLOPS",
            "Costs", "analyze", "argument_bytes_per_device", "count_costs",
-           "model_bound_s", "peak_for", "roofline_terms",
-           "state_collectives"]
+           "counted_by", "lookup_exchange_bytes", "model_bound_s", "peak_for",
+           "roofline_terms", "state_collectives"]
 
 PEAK_BF16_FLOPS = 989e12     # bf16 / fp16 products on the tensor cores
 PEAK_FP32_FLOPS = 67e12      # fp32
@@ -101,10 +127,44 @@ def _is_view(func) -> bool:
                               and not r.alias_info.is_write for r in rets)
 
 
+def _meta_long(*shape):
+    return torch.empty(shape, dtype=torch.long, device="meta")
+
+
+def _index_bound(x, indices, *rest):
+    """``x[indices]`` with every boolean index all true: k index tensors
+    of its numel for a k-dimensional mask (what ``nonzero`` gives)."""
+    full = []
+    for i in indices:
+        if i is not None and i.dtype in (torch.bool, torch.uint8):
+            full += [_meta_long(i.numel())] * i.dim()
+        else:
+            full.append(i)
+    return (x, full, *rest)
+
+
+def _unique_consecutive_bound(x, return_inverse=False, return_counts=False,
+                              dim=None):
+    """Every value distinct: (values, inverse, counts) as the CPU gives
+    them for such an input (an output not asked for is empty)."""
+    n = x.numel() if dim is None else x.shape[dim]
+    values = torch.empty((n,) if dim is None else x.shape, dtype=x.dtype,
+                         device="meta")
+    inverse = _meta_long(*(x.shape if dim is None else (n,))) \
+        if return_inverse else _meta_long(0)
+    return values, inverse, _meta_long(n) if return_counts else _meta_long(0)
+
+
+def _on_meta(args) -> bool:
+    return any(t.is_meta for t in _tensors(args))
+
+
 class Costs(TorchDispatchMode):
     """FLOPs (by operand dtype class, ``"bf16"`` or ``"fp32"``), bytes
     and per-op tallies of the aten ops dispatched while active; the op
-    that raised, if one did (``failed_op``)."""
+    that raised, if one did (``failed_op``); the data-dependent ops that
+    ``meta`` tensors took at their upper bound (``bounded``, by name:
+    calls; module docstring)."""
 
     def __init__(self):
         super().__init__()
@@ -112,17 +172,42 @@ class Costs(TorchDispatchMode):
         self.bytes = 0.0
         self.ops: dict[str, list] = {}     # name -> [calls, flops, bytes]
         self.failed_op = None
+        self.bounded: dict[str, int] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        packet = func.overloadpacket
         try:
-            out = func(*args, **kwargs)
+            if _on_meta(args) and packet in (torch.ops.aten.index,
+                                             torch.ops.aten.nonzero,
+                                             torch.ops.aten.unique_consecutive):
+                out, args = self._bound(func, args, kwargs)
+            else:
+                out = func(*args, **kwargs)
         except Exception:
             if self.failed_op is None:
                 self.failed_op = str(func.overloadpacket)
             raise
         self._count(func, args, kwargs, out)
         return out
+
+    def _bound(self, func, args, kwargs):
+        """(the op's output at the upper bound its shapes fix, the
+        arguments it is counted on) for a data-dependent op on meta."""
+        packet = func.overloadpacket
+        if packet is torch.ops.aten.index:
+            if not any(i is not None and i.dtype in (torch.bool, torch.uint8)
+                       for i in args[1]):
+                return func(*args, **kwargs), args
+            args = _index_bound(*args)
+            out = func(*args, **kwargs)
+        elif packet is torch.ops.aten.nonzero:
+            out = _meta_long(args[0].numel(), args[0].dim())
+        else:
+            out = _unique_consecutive_bound(*args, **kwargs)
+        name = str(packet)
+        self.bounded[name] = self.bounded.get(name, 0) + 1
+        return out, args
 
     def _count(self, func, args, kwargs, out):
         packet = func.overloadpacket
@@ -218,15 +303,39 @@ def argument_bytes_per_device(cell, tree=None) -> float:
                      for _, t, s in leaves(cell, tree)))
 
 
+def _a2a(cell) -> bool:
+    return cell.rules.get("__lookup__") == "a2a"
+
+
+def lookup_exchange_bytes(cell) -> float:
+    """Per-device bytes of the all-to-alls of a CTR cell's
+    ``alltoall_lookup`` (module docstring); 0 where the cell runs none
+    (no a2a variant, or ``retrieval_cand``, whose user tower does not
+    exchange)."""
+    if not _a2a(cell) or cell.kind not in ("train", "serve"):
+        return 0.0
+    model = cell.args[0]["params"] if cell.kind == "train" else cell.args[0]
+    B, n_feat = cell.args[1]["sparse_ids"].shape
+    tables = model.tables
+    plan = recsys.a2a_plan(cell.rules["__mesh__"], cell.rules, B, n_feat,
+                           tables.shape[0] // n_feat)
+    slots = plan.n_shards * plan.cap
+    rows = slots * tables.shape[1] * tables.element_size()
+    return 2 * slots * 4 + rows * (2 if cell.kind == "train" else 1)
+
+
 def state_collectives(cell, tree=None) -> dict:
-    """Per-device link bytes of a train cell's state (module docstring):
-    {"all-gather", "all-reduce", "reduce-scatter"}; zeros for a cell
-    that takes no train state."""
+    """Per-device link bytes of a cell's train state and lookup exchange
+    (module docstring): {"all-gather", "all-reduce", "reduce-scatter",
+    "all-to-all"}; zeros for a cell that takes no train state and
+    exchanges nothing."""
     from repro_torch.launch.steps import leaves
-    out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0}
+    out = {"all-gather": 0.0, "all-reduce": 0.0, "reduce-scatter": 0.0,
+           "all-to-all": lookup_exchange_bytes(cell)}
     if cell.kind != "train":
         return out
     axes = cell.mesh.shape
+    n_pos = int(cell.mesh.devices.size)
     items = list(leaves(cell, tree))
     batch_sharded = any(_ways(s, axes) > 1 for p, _, s in items
                         if p[0] == 1)
@@ -234,6 +343,11 @@ def state_collectives(cell, tree=None) -> dict:
         if p[:2] != (0, "params"):
             continue
         b = _nbytes(t)
+        if _a2a(cell) and p[2] == "tables":
+            ways = _ways(s, axes)
+            if ways < n_pos:        # shard replicas reduce their gradient
+                out["all-reduce"] += 2 * b / ways
+            continue
         if _ways(s, axes) > 1:
             out["all-gather"] += b * (2 if cell.remat else 1)
             if cell.grads_pinned:
@@ -264,7 +378,7 @@ def analyze(cell, counts, n_devices: int) -> dict:
         "bytes": counts.bytes,
         "collective_bytes_per_device": coll_total,
         "collective_breakdown": coll,
-        "collectives": "state",
+        "collectives": "state+a2a" if coll["all-to-all"] else "state",
         **terms,
         "model_flops": mf,
         "useful_compute_fraction": mf / flops if flops > 0 else 0.0,
@@ -272,8 +386,18 @@ def analyze(cell, counts, n_devices: int) -> dict:
         "model_bound_s": model_bound_s(cell, n_devices, arg_b),
         "compute_dtype": str(cell.compute_dtype).replace("torch.", ""),
         "counted_on": "reference",
+        "counted_by": counted_by(counts),
         "top_ops": counts.top_ops(),
     }
+
+
+def counted_by(counts) -> str:
+    """The record's counting rule: "shapes", or the upper-bound rule
+    with the ops it answered (module docstring)."""
+    if not counts.bounded:
+        return "shapes"
+    return ("upper bound on meta (every edge kept, every id distinct): "
+            + ", ".join(f"{k} x{v}" for k, v in sorted(counts.bounded.items())))
 
 
 def model_bound_s(cell, n_devices: int = 1, arg_bytes=None) -> float:

@@ -30,18 +30,23 @@ plain path whatever ``backend`` says (no kernel has a backward).
 Variants (``variant=``, joined by ``+``):
   baseline      the reference's posture
   ep_moe        experts over ``model`` (the rules and the MoE specs)
-  attn_remat    ``remat_attn_chunk`` set (read by nothing here)
+  attn_remat    ``remat_attn_chunk`` set: each query chunk of the plain
+                attention recomputed in the backward pass
   rs_grads      gradients pinned to the parameters' sharding: the
                 dry run counts a reduce-scatter where the baseline
                 counts an all-reduce (``grads_pinned``); the step is
                 the same
   zero_tables   recsys tables over (data, model) rows x dims, gradients
                 pinned
+  a2a_lookup    the CTR lookups by ``recsys.alltoall_lookup`` over the
+                cell's mesh (``"__lookup__": "a2a"`` and ``"__mesh__"``
+                in the rules), tables row-sharded over ``model``
+  a2a_zero      the same exchange over every axis
+                (``"__lookup_axes__"``), tables row-sharded over every
+                axis, gradients pinned
   fused_top2[_bf16], shortlist[_bf16], shortlist_topk
                 ColBERT's ``prune_index`` knobs (``fast``,
                 ``bf16_scores``, ``shortlist``, ``backend``)
-  a2a_lookup, a2a_zero
-                need ``alltoall_lookup`` (ROADMAP item 7a): they raise
 """
 
 from __future__ import annotations
@@ -90,7 +95,7 @@ class Cell:
     variant: str = "baseline"
     compute_dtype: torch.dtype = F32
     remat: bool = False          # a train step recomputes its blocks
-    grads_pinned: bool = False   # rs_grads / zero_tables
+    grads_pinned: bool = False   # rs_grads / zero_tables / a2a_zero
     draws: dict = dataclasses.field(default_factory=dict)
 
 
@@ -405,15 +410,16 @@ def _name(path) -> str:
     return "".join(f"[{k!r}]" for k in path)
 
 
-def _recsys_param_specs(params_tree):
-    """Row-sharded tables over ``model`` (26 or 40 tables do not divide
-    16, and replicated tables with their moments would not fit)."""
+def _recsys_param_specs(params_tree, rows="model"):
+    """Row-sharded tables over ``rows``: ``model`` (26 or 40 tables do
+    not divide 16, and replicated tables with their moments would not
+    fit), or every axis for ``a2a_zero``."""
     def leaf_spec(path, x):
         name = _name(path)
         if "tables" in name:
-            return (None, "model", None)
+            return (None, rows, None)
         if "wide" in name:
-            return (None, "model")
+            return (None, rows)
         return (None,) * x.dim()
     return _map_path(leaf_spec, params_tree)
 
@@ -450,16 +456,21 @@ def _recsys_cell(entry, shape, mesh, multi_pod, variant, backend):
     if entry.arch_id == "bert4rec":
         return _bert4rec_cell(entry, shape, mesh, multi_pod, variant,
                               backend)
-    if variant in ("a2a_lookup", "a2a_zero"):
-        raise NotImplementedError(
-            f"variant {variant!r} needs alltoall_lookup over row-sharded "
-            f"tables, which is not ported (ROADMAP item 7a)")
     cfg = entry.config
     rules = shlib.recsys_rules_rowsharded(multi_pod)
+    every = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if variant in ("a2a_lookup", "a2a_zero"):
+        rules = dict(rules) | {"__lookup__": "a2a", "__mesh__": mesh}
+    if variant == "a2a_zero":
+        # rows over every position: the exchange spans every axis, so a
+        # table's gradient is its owner's alone (no reduction)
+        rules["__lookup_axes__"] = every
     model = _meta(_CTR_MODEL[entry.arch_id], cfg)
     ptree = train_step.param_tree(model)
     if variant == "zero_tables":
         pspec = _recsys_param_specs_zero(ptree, multi_pod)
+    elif variant == "a2a_zero":
+        pspec = _recsys_param_specs(ptree, rows=every)
     else:
         pspec = _recsys_param_specs(ptree)
     # dense-tower flops dominate model flops for CTR models
@@ -479,7 +490,7 @@ def _recsys_cell(entry, shape, mesh, multi_pod, variant, backend):
                     _with_rules(rules, step), (train_step.make_train_state(model), batch),
                     (sspec, bspec), (sspec, None), mesh, rules,
                     6.0 * mlp_params * B,
-                    grads_pinned=variant == "zero_tables",
+                    grads_pinned=variant in ("zero_tables", "a2a_zero"),
                     draws={(1, "sparse_ids"): ids,
                            (1, "labels"): ("bernoulli",)}, **common)
 

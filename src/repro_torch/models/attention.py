@@ -14,7 +14,8 @@ The full-sequence branch has two backends (``core.backend.SERVING``):
   the masks, softmax in fp32, the cast back, the P·V einsum.  With
   ``chunk`` shorter than the sequence it runs the reference's blocked
   branch, one query chunk at a time, so the live score buffer is
-  (B, H, chunk, S).
+  (B, H, chunk, S); with ``remat_chunk`` (the reference's) a chunk's
+  scores are recomputed in the backward pass instead of kept.
 * ``fused`` — the flash-attention kernel (``kernels.flash_attention``,
   B7) when there is no key-padding mask: the same function with fp32
   scores, p and P·V, and nothing (S, S)-shaped in device memory.  The
@@ -34,12 +35,14 @@ cache; the port returns the same one).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import backend as backend_lib
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
@@ -86,9 +89,14 @@ class Attention(nn.Module):
     def forward(self, x, *, causal: bool = False, window: int | None = None,
                 rope_theta: float | None = 1e4, attn_mask=None,
                 positions=None, chunk: int | None = None,
-                backend: str | None = None):
+                remat_chunk: bool = False, backend: str | None = None):
         """Full-sequence attention (prefill / encoder). x: (B, S, D);
-        attn_mask: (B, S) key-padding mask; positions: (B or 1, S)."""
+        attn_mask: (B, S) key-padding mask; positions: (B or 1, S).
+        ``remat_chunk``: on the blocked plain branch, while autograd
+        records, each query chunk runs under ``torch.utils.checkpoint``
+        (non-reentrant, so it nests in a block's checkpoint): its scores
+        and softmax are recomputed in the backward pass instead of kept,
+        the same arithmetic, so outputs and gradients are bit-equal."""
         B, S, _ = x.shape
         H, KV, hd = self.n_heads, self.n_kv_heads, self.head_dim
         q, k, v = self._project_qkv(x)
@@ -109,8 +117,12 @@ class Attention(nn.Module):
             if chunk is None or chunk >= S:
                 ctx = _attend(qg, k, v, 0, causal, window, attn_mask)
             else:
-                ctx = torch.cat([_attend(qg[:, c:c + chunk], k, v, c, causal,
-                                         window, attn_mask)
+                attend = _attend
+                if remat_chunk and torch.is_grad_enabled():
+                    attend = functools.partial(checkpoint, _attend,
+                                               use_reentrant=False)
+                ctx = torch.cat([attend(qg[:, c:c + chunk], k, v, c, causal,
+                                        window, attn_mask)
                                  for c in range(0, S, chunk)], dim=1)
         return F.linear(ctx.reshape(B, S, H * hd), self.wo.weight)
 

@@ -3,10 +3,11 @@
 Counterpart of ``repro.models.recsys`` for DLRM (RM-2), DCN-v2 and Wide
 & Deep, their configs and ``*_init``/``*_forward`` functions, the
 model-level ``embedding_bag``, ``user_tower``, ``score_candidates`` and
-``retrieve_topk``, and BERT4Rec (``Bert4RecConfig``, ``bert4rec_init``,
-``bert4rec_forward``, ``bert4rec_user_vectors``,
+``retrieve_topk``, the all-to-all lookup over row-sharded tables
+(``alltoall_lookup``, routed to by ``_table_lookup`` under the rules'
+``"__lookup__": "a2a"``), and BERT4Rec (``Bert4RecConfig``,
+``bert4rec_init``, ``bert4rec_forward``, ``bert4rec_user_vectors``,
 ``bert4rec_sampled_logits``, ``sampled_softmax_loss``).
-``alltoall_lookup`` (row-sharded tables) is not ported yet.
 
 Tables.  The reference draws each model's F tables as one (F·V, D)
 matrix and views it as (F, V, D); here every model keeps the stacked
@@ -45,8 +46,10 @@ full-sequence attention takes the flash-attention kernel (B7) on
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -59,13 +62,14 @@ from repro_torch.kernels.embedding_bag.ref import (bag_reduce, gather_rows,
 from repro_torch.kernels.maxsim_topk.ref import topk_lowest_index
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import dense_init
+from repro_torch.sharding.specs import current_rules
 
 __all__ = [
-    "Bert4RecConfig", "DCN", "DCNConfig", "DLRM", "DLRMConfig", "WideDeep",
-    "WideDeepConfig", "bert4rec_forward", "bert4rec_init",
+    "A2APlan", "Bert4RecConfig", "DCN", "DCNConfig", "DLRM", "DLRMConfig",
+    "WideDeep", "WideDeepConfig", "a2a_plan", "alltoall_dropped",
+    "alltoall_lookup", "bert4rec_forward", "bert4rec_init",
     "bert4rec_sampled_logits", "bert4rec_user_vectors", "ctr_forward",
-    "dcn_forward",
-    "dcn_init", "dlrm_forward", "dlrm_init", "embedding_bag", "init_model",
+    "dcn_forward", "dcn_init", "dlrm_forward", "dlrm_init", "embedding_bag", "init_model",
     "retrieve_topk", "sampled_softmax_loss", "score_candidates",
     "user_tower", "widedeep_forward", "widedeep_init",
 ]
@@ -127,18 +131,224 @@ def _feature_rows(tables, ids):
     return torch.where(valid[..., None], rows, float("nan"))
 
 
-def _table_lookup(tables, ids, *, backend=None):
-    """stacked tables (F·V, D) x ids (B, F) -> (B, F, D): one B8 launch
-    (B·F bags of one id) on ``fused``, the plain gather on
-    ``reference``."""
-    B, n_feat = ids.shape
+def _rows_per_feature(tables, n_feat: int) -> int:
     if tables.shape[0] % n_feat:
         raise ValueError(f"{tables.shape[0]} table rows do not split into "
                          f"{n_feat} features")
+    return tables.shape[0] // n_feat
+
+
+def _gather_lookup(tables, ids, backend):
+    """The per-feature gather: one B8 launch (B·F bags of one id) on
+    ``fused``, ``_feature_rows`` on ``reference``."""
+    B, n_feat = ids.shape
+    V = _rows_per_feature(tables, n_feat)
     if _resolve(backend, tables) == backend_lib.FUSED:
-        flat = stacked_ids(ids, tables.shape[0] // n_feat).reshape(-1, 1)
+        flat = stacked_ids(ids, V).reshape(-1, 1)
         return embedding_bag_op(tables, flat).view(B, n_feat, -1)
     return _feature_rows(tables, ids)
+
+
+def _table_lookup(tables, ids, *, backend=None):
+    """stacked tables (F·V, D) x ids (B, F) -> (B, F, D): the all-to-all
+    exchange when the active rules carry ``"__lookup__": "a2a"`` (the
+    reference's routing), else the per-feature gather."""
+    if (current_rules() or {}).get("__lookup__") == "a2a":
+        return alltoall_lookup(tables, ids, backend=backend)
+    return _gather_lookup(tables, ids, backend)
+
+
+# ---------------------------------------------------------------------------
+# The all-to-all lookup over row-sharded tables
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class A2APlan:
+    """The exchange's geometry on a mesh: the positions as a (G, S) grid
+    of devices (G groups of S shards: the mesh axes outside the lookup
+    axes, then the lookup axes, each row-major), each position's
+    ``n_req`` requests (its b_local samples x F), each shard's ``vsh``
+    rows of every feature, and the ``cap`` requests a bucket holds."""
+    devices: Any            # numpy (G, S) array of torch.device
+    n_req: int
+    vsh: int
+    cap: int
+
+    @property
+    def n_groups(self) -> int:
+        return self.devices.shape[0]
+
+    @property
+    def n_shards(self) -> int:
+        return self.devices.shape[1]
+
+
+def a2a_plan(mesh, rules: dict, batch: int, n_feat: int, table_rows: int,
+             capacity_factor: float = 2.0) -> A2APlan:
+    """The reference's sizes: shards = the product of the lookup axes
+    (``__lookup_axes__``, ``("model",)`` by default); the batch over
+    every position; ``vsh = V // shards``; ``cap = max(1, ceil(cf ·
+    n_req / shards))``.  A batch or a V that does not split evenly
+    raises ``ValueError``, as the reference's ``shard_map`` does."""
+    shard_axes = tuple(rules.get("__lookup_axes__", ("model",)))
+    dp_axes = tuple(a for a in mesh.axis_names if a not in shard_axes)
+    n_pos = int(mesh.devices.size)
+    n_shards = math.prod(mesh.shape[a] for a in shard_axes)
+    if batch % n_pos or table_rows % n_shards:
+        raise ValueError(f"a batch of {batch} over {n_pos} mesh positions, "
+                         f"{table_rows} rows over {n_shards} shards: the "
+                         f"exchange needs both to split evenly")
+    order = [mesh.axis_names.index(a) for a in dp_axes + shard_axes]
+    grid = np.transpose(mesh.devices, order).reshape(-1, n_shards)
+    n_req = batch // n_pos * n_feat
+    return A2APlan(grid, n_req, table_rows // n_shards,
+                   max(1, math.ceil(capacity_factor * n_req / n_shards)))
+
+
+def _exchange_mesh():
+    """The active rules' mesh where it has a ``model`` axis, else None
+    (the exchange then is the per-feature gather)."""
+    mesh = (current_rules() or {}).get("__mesh__")
+    return mesh if "model" in getattr(mesh, "axis_names", ()) else None
+
+
+def _route(flat, plan: A2APlan):
+    """Each position's requests (P, n_req) int64 -> (owner, slot, keep):
+    the owner shard of each request, its slot in that owner's bucket
+    (its rank among the position's requests to the owner, in request
+    order: the reference's stable sort by owner) and whether the slot
+    is below ``cap``.  Static shapes: a sort and a search, no count."""
+    P, n = flat.shape
+    S = plan.n_shards
+    owner = torch.div(flat, plan.vsh, rounding_mode="floor")
+    sorted_owner, order = torch.sort(owner, dim=-1, stable=True)
+    first = torch.searchsorted(sorted_owner, torch.arange(
+        S, device=flat.device).expand(P, S).contiguous())
+    rank = (torch.arange(n, device=flat.device).expand(P, n)
+            - first.gather(1, sorted_owner))
+    slot = torch.empty_like(rank).scatter_(1, order, rank)
+    return owner, slot, slot < plan.cap
+
+
+def _buckets(values, cell, keep, width: int):
+    """(P, width) buckets holding ``values`` at ``cell`` for the kept
+    requests and 0 elsewhere.  Every value is >= 0, so the dropped
+    requests, scattered at cell 0 as 0 under ``amax``, change no slot
+    (the reference's ``.set`` lets one overwrite slot 0)."""
+    out = torch.zeros((values.shape[0], width), dtype=values.dtype,
+                      device=values.device)
+    return out.scatter_reduce_(1, cell, torch.where(keep, values, 0), "amax")
+
+
+def _answer(tables, gid, backend):
+    """The stacked table's rows at ``gid`` -> (*gid.shape, D): one B8
+    launch (bags of one id) on ``fused``, else ``take_rows`` (its
+    backward sums a row's requests in ``gid``'s order)."""
+    if _resolve(backend, tables) == backend_lib.FUSED:
+        rows = embedding_bag_op(tables, gid.reshape(-1, 1).to(torch.int32))
+        return rows.view(tuple(gid.shape) + (tables.shape[1],))
+    return take_rows(tables, gid)
+
+
+def _on(device, tensor) -> bool:
+    """Whether the mesh position ``device`` is where ``tensor`` lies (an
+    index-less device is its type's current one)."""
+    device = torch.device(device)
+    return device.type == tensor.device.type and (
+        device.index is None or device == tensor.device)
+
+
+def _owner_rows(tables, req, feat, plan: A2APlan, V: int, backend):
+    """Each owner's answers: ``req`` and ``feat`` (G, S_own, S_src, cap)
+    local rows and features received -> rows (G, S_own, S_src, cap, D).
+    Owners on the table's device answer together from the stacked
+    table; an owner on another device gets its shard's rows there and
+    answers on it, and its rows come back to the table's device."""
+    lo = torch.arange(plan.n_shards, device=req.device)[:, None, None]
+    gid = feat * V + lo * plan.vsh + req
+    here = np.array([[_on(d, tables) for d in row] for row in plan.devices])
+    if here.all():
+        return _answer(tables, gid, backend)
+    per_feat = tables.view(-1, V, tables.shape[1])
+    rows = []
+    for g, s in np.ndindex(*here.shape):
+        if here[g, s]:
+            rows.append(_answer(tables, gid[g, s], backend))
+            continue
+        dev = plan.devices[g, s]
+        shard = per_feat[:, s * plan.vsh:(s + 1) * plan.vsh].to(dev)
+        local = (feat[g, s] * plan.vsh + req[g, s]).to(dev)
+        rows.append(_answer(shard.reshape(-1, shard.shape[2]), local,
+                            backend).to(tables.device))
+    return torch.stack(rows).view(gid.shape + (tables.shape[1],))
+
+
+def alltoall_lookup(tables, ids, *, capacity_factor: float = 2.0,
+                    backend=None):
+    """The production-DLRM embedding exchange (the reference's
+    ``alltoall_lookup``, the ``a2a_lookup`` / ``a2a_zero`` variants):
+    stacked tables (F·V, D), shard s of feature f its rows f·V + s·vsh
+    ... f·V + (s+1)·vsh, x ids (B, F), the batch over every position of
+    the active rules' ``__mesh__`` -> (B, F, D).  Each position buckets
+    its b_local·F requests by owner shard (:func:`_route`), the buckets
+    of local rows and of feature ids go to their owners (recv[owner][src]
+    = sent[src][owner]: the all-to-all, here a transpose of (src, owner,
+    cap) buffers), each owner answers from its rows, the rows come back
+    by the inverse transpose and each position reads its requests'
+    slots.  A request past its bucket's ``cap`` is dropped: a zero row
+    and no gradient.
+
+    One controller drives every position: positions that share a device
+    run as one batch of tensors with a leading positions axis (static
+    shapes, so the step runs on ``meta``).  On ``reference`` the owners'
+    rows are ``take_rows`` of the stacked table at their requests' rows
+    laid out (group, owner, source, slot): a row's gradient adds its
+    requests in global request order (source position in batch order,
+    then request order), the order of the per-feature gather's, so where
+    nothing is dropped and the owners share the table's device the
+    gradient is bit-equal to it.  On ``fused`` (no grad) the owners'
+    buckets are one B8 launch.  Ids must lie in [0, V): the reference's
+    exchange has no wrap rule (``ValueError`` otherwise, where the
+    values are known).  With no mesh, or no ``model`` axis, it is the
+    per-feature gather."""
+    B, n_feat = ids.shape
+    V = _rows_per_feature(tables, n_feat)
+    mesh = _exchange_mesh()
+    if mesh is None:
+        return _gather_lookup(tables, ids, backend)
+    plan = a2a_plan(mesh, current_rules(), B, n_feat, V, capacity_factor)
+    bad = ((ids < 0) | (ids >= V)).any()
+    if ids.device.type != "meta" and bool(bad):
+        raise ValueError(f"alltoall_lookup: an id outside [0, {V}); the "
+                         f"exchange has no wrap rule")
+    G, S, cap, D = plan.n_groups, plan.n_shards, plan.cap, tables.shape[1]
+    flat = ids.long().reshape(G * S, plan.n_req)
+    owner, slot, keep = _route(flat, plan)
+    cell = torch.where(keep, owner * cap + slot, 0)
+    feat = torch.arange(plan.n_req, device=ids.device) % n_feat
+    req = _buckets(flat - owner * plan.vsh, cell, keep, S * cap)
+    fbuf = _buckets(feat.expand_as(flat), cell, keep, S * cap)
+    # the exchange: (G, S_src, S_own, cap) -> (G, S_own, S_src, cap)
+    req_x = req.view(G, S, S, cap).transpose(1, 2)
+    fbuf_x = fbuf.view(G, S, S, cap).transpose(1, 2)
+    rows = _owner_rows(tables, req_x, fbuf_x, plan, V, backend)
+    back = rows.transpose(1, 2).reshape(-1, D)
+    start = torch.arange(G * S, device=ids.device)[:, None] * (S * cap)
+    got = back.index_select(0, (start + cell).reshape(-1))
+    return torch.where(keep.reshape(-1, 1), got, 0).view(B, n_feat, D)
+
+
+def alltoall_dropped(ids, table_rows: int, *,
+                     capacity_factor: float = 2.0) -> int:
+    """How many of ``ids``' requests :func:`alltoall_lookup` drops under
+    the active rules (0 with no mesh)."""
+    mesh = _exchange_mesh()
+    if mesh is None:
+        return 0
+    plan = a2a_plan(mesh, current_rules(), ids.shape[0], ids.shape[1],
+                    table_rows, capacity_factor)
+    flat = ids.long().reshape(-1, plan.n_req)
+    return int((~_route(flat, plan)[2]).sum())
 
 
 def _feature_bag(tables, ids, mode: str, *, backend=None):

@@ -18,9 +18,9 @@ The full-sequence attention of every layer takes a ``backend``
 the stacked KV cache in place.  With ``remat`` each block runs under
 ``torch.utils.checkpoint`` while autograd records (the reference's
 ``jax.checkpoint``), so a training step keeps one block's activations
-at a time.  ``remat_attn_chunk``
-is carried for parity with the reference's config and read by nothing
-here.
+at a time; with ``remat_attn_chunk`` each query chunk of the blocked
+plain attention is recomputed too, inside its block's recomputation
+(``Attention.forward``'s ``remat_chunk``).
 """
 
 from __future__ import annotations
@@ -128,7 +128,7 @@ class Block(nn.Module):
         h = self.attn(rms_norm(x, self.ln1), causal=cfg.causal,
                       window=window, rope_theta=cfg.rope_theta,
                       attn_mask=attn_mask, chunk=cfg.attn_chunk,
-                      backend=backend)
+                      remat_chunk=cfg.remat_attn_chunk, backend=backend)
         return self._ffn(x + h, aux=True)
 
     def decode(self, x, cache: KVCache, pos: int, window=None):

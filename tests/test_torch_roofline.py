@@ -3,18 +3,25 @@
 rules of ``count_costs`` (a product's 2mnk by operand dtype, the
 gather, scatter and view byte rules), equal counts on ``meta`` and on
 the CPU for the smoke prefill cell, the state collectives of a train
-cell, and ``run_cell`` on meta for a full-size cell of each status.
+cell and the a2a cells' exchange, ``run_cell`` on meta for a full-size
+cell of each status, the upper-bound rule of the data-dependent steps
+(exact on all-distinct ids, a bound on a real graph), and the counted
+recomputation of ``attn_remat``.
 No JAX: the counts have no reference counterpart (the reference parses
 compiled HLO).
 """
 
+import dataclasses
 import json
 
 import pytest
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, sharding
+from repro_torch.configs import base
 from repro_torch.launch import dryrun, mesh, roofline, steps
+from repro_torch.models import recsys
+from repro_torch.train import train_step
 from test_torch_steps import smoke_registry
 
 
@@ -124,10 +131,123 @@ def test_run_cell_prefill_on_meta():
     ("gin-tu", "ogb_products", "aten.index"),
 ])
 def test_run_cell_data_dependent(arch, shape, op):
+    """A step that reads a value of its data (``take_rows``' backward,
+    the GNN gather plan) is counted at the upper bound of its shapes,
+    and its record names the ops that took the bound."""
     rec = dryrun.run_cell(arch, shape, multi_pod=False, verbose=False)
-    assert rec["status"] == "data_dependent" and rec["op"] == op
-    assert rec["model_flops"] > 0 and rec["argument_bytes_per_device"] > 0
-    assert "analysis" not in rec
+    assert rec["status"] == "ok"
+    a = rec["analysis"]
+    assert a["counted_by"].startswith("upper bound on meta") and op in \
+        a["counted_by"]
+    assert a["model_flops"] > 0 and a["argument_bytes_per_device"] > 0
+    assert a["flops"] > 0 and a["bytes"] > 0
+
+
+def _grad_costs(cell, loss):
+    """The costs of the cell's loss and gradients on its arguments
+    (the optimizer, which takes CPU square roots in fp64, left out)."""
+    state, batch = cell.args
+    model = state["params"]
+    with sharding.axis_rules(cell.rules):
+        return roofline.count_costs(
+            lambda: train_step.param_grads(model, loss(model, batch)))[1]
+
+
+@pytest.mark.parametrize("variant", ["baseline", "a2a_lookup"])
+def test_ctr_train_count_on_meta_equals_cpu_on_distinct_ids(variant):
+    """With every id distinct, the upper-bound rule is exact: the meta
+    count of dlrm-rm2's SMOKE train step equals the CPU count on real
+    arguments (FLOPs, bytes, every op's tally).  Under ``a2a_lookup``
+    the gradient also runs over the owners' unfilled bucket slots, which
+    all read one row an owner: there the bound holds (the same FLOPs, no
+    fewer bytes) and is not exact."""
+    def loss(model, batch):
+        return train_step.ctr_loss(recsys.ctr_forward, model, batch)
+    with smoke_registry():
+        entry = base._REGISTRY["dlrm-rm2"]
+        base._REGISTRY["dlrm-rm2"] = dataclasses.replace(
+            entry, config=dataclasses.replace(entry.config, table_rows=128))
+        on = {}
+        for dev in ("meta", "cpu"):
+            m = mesh.Mesh([torch.device(dev)] * 8, ("data", "model"), (2, 4))
+            cell = steps.build_cell("dlrm-rm2", "train_batch", m,
+                                    variant=variant)
+            if dev == "cpu":
+                cell = steps.materialize(cell, "cpu",
+                                         torch.Generator().manual_seed(0))
+                ids = torch.stack([torch.randperm(128)[:64]
+                                   for _ in range(26)], 1).int()
+                cell.args[1]["sparse_ids"] = ids
+            on[dev] = _grad_costs(cell, loss)
+    meta, cpu = on["meta"], on["cpu"]
+    assert meta.bounded == {"aten.unique_consecutive": 1} and not cpu.bounded
+    assert meta.flops == cpu.flops
+    if variant == "baseline":
+        assert meta.bytes == cpu.bytes and meta.ops == cpu.ops
+    else:
+        assert cpu.bytes < meta.bytes and meta.ops.keys() == cpu.ops.keys()
+
+
+def test_gnn_count_on_meta_bounds_the_cpu_count():
+    """gin-tu's SMOKE ``molecule`` step: the CPU count on a real graph
+    is at most the meta count, and the meta count at most 3 times it
+    (FLOPs and bytes; every edge kept and 4 levels of runs bounded)."""
+    with smoke_registry():
+        cell = steps.build_cell("gin-tu", "molecule", _meta_mesh())
+        real = steps.materialize(cell, "cpu", torch.Generator().manual_seed(0))
+
+        def loss(model, batch):
+            return train_step.gin_loss(model, batch, "graph")
+        meta, cpu = _grad_costs(cell, loss), _grad_costs(real, loss)
+    assert set(meta.bounded) == {"aten.index", "aten.unique_consecutive"}
+    for m, c in ((sum(meta.flops.values()), sum(cpu.flops.values())),
+                 (meta.bytes, cpu.bytes)):
+        assert c <= m <= 3 * c, (m, c)
+
+
+def test_a2a_records_count_the_exchange():
+    """The a2a cells' all-to-all bytes a device by the reference's
+    convention, and the tables' gradients: an all-reduce of the shard
+    over ``data`` (a2a_lookup), none (a2a_zero); no table all-gather."""
+    m = _meta_mesh()
+    cfg = configs.get("dlrm-rm2").config
+    table = 26 * cfg.table_rows * 64 * 4
+    for variant, shards in (("a2a_lookup", 16), ("a2a_zero", 256)):
+        cell = steps.build_cell("dlrm-rm2", "train_batch", m, variant=variant)
+        got = roofline.state_collectives(cell)
+        n_req = 65_536 // 256 * 26
+        cap = -(-2 * n_req // shards)
+        slots = shards * cap
+        assert got["all-to-all"] == 2 * slots * 4 + 2 * slots * 64 * 4
+        mlp = sum(t.numel() * t.element_size() for p, t, _ in
+                  steps.leaves(cell) if p[:2] == (0, "params")
+                  and p[2] != "tables")
+        shard_reduce = 2 * table / 16 if variant == "a2a_lookup" else 0
+        assert got["all-reduce"] == pytest.approx(shard_reduce + 2 * mlp)
+        assert got["all-gather"] == got["reduce-scatter"] == 0
+        serve = steps.build_cell("dlrm-rm2", "serve_p99", m, variant=variant)
+        assert roofline.state_collectives(serve)["all-to-all"] > 0
+        retrieval = steps.build_cell("dlrm-rm2", "retrieval_cand", m,
+                                     variant=variant)
+        assert sum(roofline.state_collectives(retrieval).values()) == 0
+
+
+def test_attn_remat_counts_the_recomputed_chunks():
+    """minitron-4b's SMOKE train step with 4-token attention chunks of
+    16: ``attn_remat`` counts more FLOPs than the baseline (each chunk's
+    scores recomputed in the backward pass)."""
+    flops = {}
+    with smoke_registry():
+        entry = base._REGISTRY["minitron-4b"]
+        base._REGISTRY["minitron-4b"] = dataclasses.replace(
+            entry, config=dataclasses.replace(entry.config, attn_chunk=4,
+                                              remat=True))
+        for v in ("baseline", "attn_remat"):
+            cell = steps.build_cell("minitron-4b", "train_4k", _meta_mesh(),
+                                    variant=v, backend="reference")
+            flops[v] = sum(roofline.count_costs(cell.fn, *cell.args)[1]
+                           .flops.values())
+    assert flops["attn_remat"] > flops["baseline"]
 
 
 def test_cli_writes_records(tmp_path, capsys):

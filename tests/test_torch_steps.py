@@ -168,6 +168,10 @@ class TestCellParity:
                                             "decode_32k")),
         ("mixtral-8x7b", "ep_moe", ("prefill_32k", "long_500k")),
         ("dlrm-rm2", "zero_tables", ("train_batch", "serve_p99")),
+        ("dlrm-rm2", "a2a_lookup", ("train_batch", "serve_p99", "serve_bulk",
+                                    "retrieval_cand")),
+        ("wide-deep", "a2a_zero", ("train_batch", "serve_p99", "serve_bulk",
+                                   "retrieval_cand")),
         ("minitron-4b", "attn_remat", ("train_4k", "prefill_32k")),
         ("stablelm-3b", "rs_grads", ("train_4k",)),
         ("colbert", "shortlist_topk", ("prune_index",)),
@@ -181,14 +185,25 @@ class TestCellParity:
             _assert_cells_equal(got, j_steps.build_cell(
                 arch, shape, rm, multi_pod=multi_pod, variant=variant))
             assert got.grads_pinned == (variant in ("rs_grads",
-                                                    "zero_tables")
+                                                    "zero_tables", "a2a_zero")
                                         and got.kind == "train")
 
     @pytest.mark.parametrize("variant", ["a2a_lookup", "a2a_zero"])
     def test_a2a_variants_raise_naming_item_7a(self, variant):
-        with pytest.raises(NotImplementedError, match="item 7a"):
-            steps.build_cell("dlrm-rm2", "train_batch", _port_mesh(False),
-                             variant=variant)
+        """The a2a variants of every CTR shape equal the reference's
+        cells, their rules too (the mesh aside): the lookup routed to
+        the exchange, over every axis for ``a2a_zero``."""
+        rm, pm = _ref_mesh(False), _port_mesh(False)
+        for arch in ("dcn-v2", "wide-deep"):
+            for shape in configs.get(arch).shapes:
+                got = steps.build_cell(arch, shape, pm, variant=variant)
+                want = j_steps.build_cell(arch, shape, rm, variant=variant)
+                _assert_cells_equal(got, want)
+                assert got.rules["__mesh__"] is pm
+                assert ({k: v for k, v in got.rules.items()
+                         if k != "__mesh__"}
+                        == {k: v for k, v in want.rules.items()
+                            if k != "__mesh__"})
 
     def test_meta_cells_allocate_nothing(self):
         cell = steps.build_cell("qwen2.5-32b", "train_4k", _port_mesh(False))
@@ -211,7 +226,7 @@ def _smoke_shapes(entry):
     by = {
         "lm": {s: lm for s in ("train_4k", "prefill_32k", "decode_32k")},
         "gnn": {"molecule": {"n_nodes": 6, "n_edges": 10, "batch": 4}},
-        "recsys": {"serve_p99": {"batch": 8}},
+        "recsys": {"serve_p99": {"batch": 8}, "train_batch": {"batch": 64}},
         "retrieval": {
             "encode_corpus": {"batch": 4, "doc_len": 24},
             "prune_index": {"docs_per_block": 6, "doc_len": 20,
