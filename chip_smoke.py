@@ -34,6 +34,27 @@ passed — any failure exits non-zero):
    ``path_ms`` holds kernel time only.  Launch counts are zeroed just
    before and read just after; every top-10 is then held against the
    ``reference`` backend.
+4a. The autotuner (``[tuning]``, ``core/tuning.py``), under 60 s:
+   (a) for each prune bucket of phase 3 and each bucket of its bf16
+   pack and phase 4's int8 and residual-4 packs (their streaming keys
+   at 64 queries, k 10; a bucket's shorter last slab too) and the
+   routing table, the config the path resolved is printed and its
+   ``block_docs`` held equal to the launchers' own rule on this card
+   (``colbert_maxsim_docs_per_block``, B4's and B6's grid); the card's
+   SM count, opt-in shared memory and
+   each kernel's block shared memory are printed.  (b) B1, B2 (k 16),
+   bf16 and fp32 B3 and B5 at 1/2, 1 and 2 x their doc block on the
+   widest bucket: bit-equal.  (c) A measured race on the widest prune
+   bucket (2,048 samples, dim 128) and one on the widest bf16 bucket's
+   streaming key (64 x 32 queries, k 10): each candidate's ms and the
+   winner; a second ``tune`` of each key launches nothing (counts
+   zeroed, then read).  (d) ``dump_cache``, ``clear_cache``,
+   ``load_cache``: equal configs, and ``tune`` in measured mode races
+   nothing.  (e) Measured mode (``REPRO_AUTOTUNE=measure``, every key of
+   the path but the two raced holding its heuristic): the pruning ranks
+   and keep masks equal a heuristic run's and phase 3's keep bit for
+   bit, and the e2e and two-stage top-10s equal phase 3's, with no
+   race run on the path.
 4b. Persistence and live mutation (``[persist]``, ``serve.index_io``,
    ``serve.mutation``) on phase 3's encoder (seed 0 again), pruned
    corpus and queries, in a temporary directory removed at the end.
@@ -867,6 +888,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.maxsim_top2.ops import maxsim_top2_op
     from repro_torch.kernels.maxsim_top2.ref import maxsim_top2_ref
+    from repro_torch.kernels.maxsim_topk import ops as topk_ops
     from repro_torch.kernels.maxsim_topk.ops import maxsim_topk_op
     from repro_torch.kernels.maxsim_topk.ref import maxsim_topk_ref
     from repro_torch.data.synthetic import ctr_batch, lm_batch
@@ -883,7 +905,8 @@ def main() -> int:
                                              _streaming_first_stage, search,
                                              topk_search)
     from repro_torch.serve.routing import RoutingIndex
-    from repro_torch.core.backend import shortlist_knobs
+    from repro_torch.core import backend as backend_lib
+    from repro_torch.core import tuning
     from repro_torch.core.metrics import mrr_at_k
     from repro_torch.data.synthetic import token_corpus
     from repro_torch.launch import train as train_lib
@@ -1816,6 +1839,229 @@ def main() -> int:
         log(f"[grid] kernel rows over the phase: {json.dumps(grid_counts)}; "
             f"the phase took {time.perf_counter() - phase_t:.2f} s ({smi})")
 
+    def tuning_phase(res, packs, table, e2e, zero_counts, read_counts):
+        """Phase 4a: the autotuner's heuristic against the launchers'
+        rule, grouping invariance, the measured races, the cache round
+        trip and the main path under the raced configs."""
+        from repro_torch.serve.retrieval import _codec_of
+        phase_t = time.perf_counter()
+        packed, q_emb = res.packed, res.q_emb
+        samples, d_mask = res.samples, res.d_mask
+        d_emb = res.d_emb.float()
+        N, dim = samples.shape
+        n_q, l = q_emb.shape[:2]
+        cm_lib = build.library("colbert_maxsim")
+        limits = tuning.card_limits("cuda")
+        log(f"[tuning] card: {json.dumps(limits)}; block shared memory "
+            f"{json.dumps(tuning.kernel_smem('pruning', {}))} "
+            f"{json.dumps(tuning.kernel_smem('serving', {'codec': 'bf16'}))}"
+            f" {json.dumps(tuning.kernel_smem('serving', {}))}")
+
+        def today(n_docs, G, gx):
+            with torch.cuda.device(0):
+                return cm_lib.colbert_maxsim_docs_per_block(n_docs, G, gx)
+
+        # (a) the configs the path resolved against the launchers' rule
+        plan = pruning_pipeline.bucket_plan(
+            pruning_pipeline.effective_lengths(d_mask), d_mask.shape[1])
+        grids = []
+        for b in plan:
+            shape = dict(n_samples=N, m=b.width, dim=dim,
+                         n_docs=len(b.indices))
+            cfg = backend_lib.tuned("pruning", device="cuda", **shape)
+            want = today(len(b.indices), 1, -(-N // 128))
+            grids.append(cfg.block_docs == want)
+            log(f"[tuning] prune bucket {len(b.indices)} x {b.width}: "
+                f"{cfg} launcher rule {want}")
+        for name, p in (("bf16", packed), ("int8", packs["int8"]),
+                        ("residual4", packs["residual4"])):
+            codec = _codec_of(p)
+            for b in p.buckets:
+                if not b.n_docs:
+                    continue
+                shape = dict(n_q=n_q, n_docs=b.n_docs, m=b.cap, l=l,
+                             dim=dim, k=10, n_shards=1)
+                if codec:
+                    shape["codec"] = codec
+                cfg = backend_lib.tuned("serving", device="cuda", **shape)
+                G = cm_ops.tile_group(b.cap, codec == "bf16")
+                gx = cm_ops.query_blocks(n_q, l)
+                want = today(min(cfg.chunk_docs, b.n_docs), G, gx)
+                grids.append(cfg.block_docs == want)
+                # a shorter last slab: the op's own rule at its size
+                last = b.n_docs % cfg.chunk_docs if b.n_docs > cfg.chunk_docs \
+                    else 0
+                if last:
+                    got = cm_ops.default_block_docs(
+                        n_q, l, last, b.cap, codec == "bf16", q_emb.device)
+                    grids.append(got == today(last, G, gx))
+                log(f"[tuning] {name} bucket {b.n_docs} x {b.cap} "
+                    f"(streaming, codec {codec}): {cfg} launcher rule "
+                    f"{want} (a {min(cfg.chunk_docs, b.n_docs)}-doc slab)"
+                    + (f"; last slab of {last}: {got}, launcher rule "
+                       f"{today(last, G, gx)}" if last else ""))
+        bd = backend_lib.tuned_routing_blocks(
+            n_q, table.n_buckets, table.n_centroids, l, table.dim,
+            device="cuda")
+        want = today(table.n_buckets, cm_ops.tile_group(table.n_centroids,
+                                                        False),
+                     cm_ops.query_blocks(n_q, l))
+        grids.append(bd == want)
+        log(f"[tuning] routing table {table.n_buckets} x "
+            f"{table.n_centroids}: block_docs {bd} launcher rule {want}")
+        expect(all(grids), "a heuristic doc block differs from the "
+               "launchers' rule")
+
+        # (b) grouping invariance on the widest bucket of each kernel
+        big = max(plan, key=lambda b: len(b.indices) * b.width)
+        idx = torch.as_tensor(big.indices, device="cuda")
+        tok = d_emb[idx, :big.width].contiguous()
+        alive = d_mask[idx, :big.width].contiguous()
+        B = tok.shape[0]
+        K = backend_lib.tuned("pruning", device="cuda", n_samples=N,
+                              m=big.width, dim=dim, n_docs=B).shortlist
+        pb = max(packed.buckets, key=lambda b: b.n_docs * b.cap)
+        ib = max(packs["int8"].buckets, key=lambda b: b.n_docs * b.cap)
+        rb = max(packs["residual4"].buckets, key=lambda b: b.n_docs * b.cap)
+        rv = rb.residual_view(packs["residual4"].dim)
+        i_embs = ib.dense_embs(packs["int8"].dim)
+        runs = {
+            "maxsim_top2": (
+                lambda bd: maxsim_top2_op(samples, tok, alive, block_docs=bd),
+                topk_ops.default_block_docs(N, B, q_emb.device)),
+            "maxsim_topk": (
+                lambda bd: maxsim_topk_op(samples, tok, alive, k=K,
+                                          block_docs=bd),
+                topk_ops.default_block_docs(N, B, q_emb.device)),
+            "colbert_maxsim_multi_bf16": (
+                lambda bd: cm_ops.colbert_maxsim_multi_op(
+                    q_emb, pb.embs, pb.masks, block_docs=bd),
+                cm_ops.default_block_docs(n_q, l, pb.n_docs, pb.cap, True,
+                                          q_emb.device)),
+            "colbert_maxsim_multi": (
+                lambda bd: cm_ops.colbert_maxsim_multi_op(
+                    q_emb, i_embs, ib.masks, block_docs=bd),
+                cm_ops.default_block_docs(n_q, l, ib.n_docs, ib.cap, False,
+                                          q_emb.device)),
+            "colbert_maxsim_residual_multi": (
+                lambda bd: cm_ops.colbert_maxsim_residual_multi_op(
+                    q_emb, rv.codes, rv.resq, rv.scale, rv.codebook,
+                    rb.masks, bits=rv.bits, block_docs=bd),
+                cm_ops.default_block_docs(n_q, l, rb.n_docs, rb.cap, False,
+                                          q_emb.device)),
+        }
+        same = {}
+        for name, (fn, base) in runs.items():
+            blocks = sorted({max(1, base // 2), base, 2 * base})
+            outs = [fn(bd) for bd in blocks]
+            outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+            same[name] = (blocks, all(
+                torch.equal(x, y) for o in outs[1:]
+                for x, y in zip(o, outs[0])))
+        torch.cuda.synchronize()
+        log(f"[tuning] grouping invariance (doc blocks; bit-equal): "
+            f"{json.dumps(same)}")
+        expect(all(ok for _, ok in same.values()),
+               f"an output depends on the doc block: {same}")
+        del tok, alive, i_embs, rv
+
+        # (c) the measured races, and a second tune of each key
+        races = {"pruning": dict(n_samples=N, m=big.width, dim=dim,
+                                 n_docs=B),
+                 "serving": dict(n_q=n_q, n_docs=pb.n_docs, m=pb.cap, l=l,
+                                 dim=dim, k=10, n_shards=1, codec="bf16")}
+        raced = {}
+        for kind, shape in races.items():
+            heur = backend_lib.tuned(kind, device="cuda", **shape)
+            t = time.perf_counter()
+            cfg = tuning.tune(kind, device="cuda", measure=True, **shape)
+            race_s = time.perf_counter() - t
+            key = tuning.shape_key(kind, shape, platform="cuda",
+                                   measured=True)
+            cands = tuning.race_info()[key]
+            raced[key] = cfg
+            log(f"[tuning] race {kind} {json.dumps(shape)} in {race_s:.2f} s"
+                f": heuristic {heur}; candidates (ms) "
+                f"{json.dumps(cands)}; winner shortlist {cfg.shortlist} "
+                f"block_docs {cfg.block_docs} ({smi})")
+            zero_counts()
+            again = tuning.tune(kind, device="cuda", measure=True, **shape)
+            torch.cuda.synchronize()
+            n = read_counts()
+            expect(again is cfg and not any(n.values()),
+                   f"a second tune of the {kind} key launched {n}")
+
+        # (d) the cache round trip
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            n_dumped = tuning.dump_cache(path, merge=False)
+            before = tuning.cache_info()
+            tuning.clear_cache()
+            n_loaded = tuning.load_cache(path)
+        finally:
+            os.unlink(path)
+        after = tuning.cache_info()
+        ran = []
+        real = tuning._measure_pruning, tuning._measure_serving
+
+        def counted(fn):
+            def measure(*a):
+                ran.append(a[0])
+                return fn(*a)
+            return measure
+
+        tuning._measure_pruning, tuning._measure_serving = map(counted, real)
+        zero_counts()
+        for kind, shape in races.items():
+            expect(tuning.tune(kind, device="cuda", measure=True, **shape)
+                   == before[tuning.shape_key(kind, shape, platform="cuda",
+                                              measured=True)],
+                   f"the reloaded {kind} config differs")
+        n = read_counts()
+        log(f"[tuning] cache round trip: {n_dumped} dumped, {n_loaded} "
+            f"loaded, configs equal {after == before}, races after the "
+            f"load {len(ran)}, launches {sum(n.values())}")
+        expect(after == before and not ran and not any(n.values()),
+               "the cache round trip changed a config or raced")
+
+        # (e) the main path in measured mode under the raced configs
+        for key, cfg in before.items():
+            if key[2] == "heuristic":
+                tuning._CACHE.setdefault(key[:2] + ("measured",) + key[3:],
+                                         cfg)
+        heur_keep, heur_ranks, _ = pruning_pipeline.prune_corpus(
+            d_emb, d_mask, samples, 0.5)
+        os.environ["REPRO_AUTOTUNE"] = "measure"
+        try:
+            t = time.perf_counter()
+            keep, ranks, _ = pruning_pipeline.prune_corpus(
+                d_emb, d_mask, samples, 0.5)
+            torch.cuda.synchronize()
+            prune_s = time.perf_counter() - t
+            e2e_r = RetrievalServer(packed, k=10,
+                                    n_first=packed.n_docs).query_batch(q_emb)
+            two_r = RetrievalServer(packed, k=10, n_first=64).query_batch(
+                q_emb)
+        finally:
+            del os.environ["REPRO_AUTOTUNE"]
+            tuning._measure_pruning, tuning._measure_serving = real
+        eq = {"ranks": torch.equal(ranks, heur_ranks),
+              "keep": torch.equal(keep, heur_keep)
+              and torch.equal(keep, res.keep),
+              "e2e": all(np.array_equal(a, b) for a, b in zip(e2e_r, e2e)),
+              "two-stage": (np.array_equal(two_r[0], res.idx)
+                            and np.array_equal(two_r[1], res.scores))}
+        log(f"[tuning] main path under the raced configs (prune "
+            f"{prune_s:.3f} s): bit-equal {json.dumps(eq)}, races run "
+            f"{len(ran)}")
+        expect(all(eq.values()) and not ran,
+               f"the main path under the raced configs differs: {eq}, "
+               f"{len(ran)} races")
+        took = time.perf_counter() - phase_t
+        log(f"[tuning] the phase took {took:.2f} s")
+        expect(took < 60.0, f"[tuning] took {took:.2f} s (limit 60)")
+
     def cli_phase():
         """Phase 6b, ``[cli]``: ``python -m repro_torch.launch.serve`` (and
         ``launch.train``) as child processes on the card at the smoke
@@ -2119,6 +2365,8 @@ def main() -> int:
         log(f"[routing] nprobe=1 recall@10 vs exhaustive {recall:.4f}, "
             f"route_stats {json.dumps(st)}")
 
+        tuning_phase(res, packs, table, (e2e_idx, e2e_scores), zero_counts,
+                     read_counts)
         persist_phase(res, pruned, packs, zero_counts, read_counts)
         loop_phase(res, packs, zero_counts, read_counts)
         grid_phase(res, packs, zero_counts, read_counts)
@@ -2134,7 +2382,8 @@ def main() -> int:
         alive = d_mask[idx, :big.width].contiguous()
         B, m, dim = tok.shape
         N = samples.shape[0]
-        K, _ = shortlist_knobs(m)
+        K = backend_lib.tuned("pruning", device="cuda", n_samples=N, m=m,
+                              dim=dim, n_docs=B).shortlist
         log(f"[kernel] ptxas: maxsim_top2 {build.ptxas_report('maxsim_top2')}"
             f" || maxsim_topk {build.ptxas_report('maxsim_topk')}"
             f" || colbert_maxsim {build.ptxas_report('colbert_maxsim')}")

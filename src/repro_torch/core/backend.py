@@ -36,10 +36,12 @@ for both cuBLAS matmuls and cuDNN, so the plain large products the
 port leaves to ``torch.matmul`` (encoder, pooled first stage, dense
 shortlist rescan, the reference oracles) run in full fp32 on the card.
 
-The reference's autotuner (``core/tuning.py``) is not ported yet: the
-knobs it resolved are fixed here (:func:`shortlist_knobs`,
-:data:`STREAM_CHUNK_DOCS`).  The CUDA kernels' tile sizes are
-compile-time constants of their sources.
+Knobs: :func:`tuned` and the ``tuned_*_blocks`` helpers are the seam to
+the autotuner (``core/tuning.py``): the shortlist schedule, the doc
+block of B1, B2, B3 and B5, and the streaming slab, by shape and by the
+card the call runs on.  Explicit arguments win; ``None`` is filled from
+the tuner.  The CUDA kernels' tiles are compile-time constants of their
+sources.
 """
 
 from __future__ import annotations
@@ -59,10 +61,12 @@ __all__ = [
     "SERVING",
     "SHORTLIST",
     "SHORTLIST_TOPK",
-    "STREAM_CHUNK_DOCS",
     "resolve_backend",
     "resolve_device",
-    "shortlist_knobs",
+    "tuned",
+    "tuned_routing_blocks",
+    "tuned_serving_blocks",
+    "tuned_streaming_blocks",
 ]
 
 REFERENCE = "reference"
@@ -74,11 +78,6 @@ SERVING = (REFERENCE, FUSED)
 PRUNING = BACKENDS
 
 _ENV_VAR = "REPRO_BACKEND"
-
-# Doc-axis slab each streaming top-k step scores then reduces
-# (the reference's tuned ``chunk_docs``).  Results never depend on it:
-# the (-score, id) merge is exact for any chunking.
-STREAM_CHUNK_DOCS = 1024
 
 
 def resolve_device(device=None) -> torch.device:
@@ -125,18 +124,75 @@ def resolve_backend(backend: str | None = None, *,
     return backend
 
 
-def _pow2_at_least(x: int) -> int:
-    p = 1
-    while p < x:
-        p *= 2
-    return p
+def tuned(kind: str, *, device=None, **shape):
+    """The autotuner's ``KernelConfig`` for (kind, shape) on ``device``
+    (``core.tuning.tune``; imported here lazily so the kernel layer
+    below this module never imports the tuner)."""
+    from repro_torch.core import tuning
+    return tuning.tune(kind, device=device, **shape)
 
 
-def shortlist_knobs(m: int) -> tuple[int, int]:
-    """``(shortlist K, rescan_every R)`` for documents of width ``m``:
-    the reference heuristic's K ~ sqrt(m) in [4, 32], R = K - 1, which
-    satisfies the exactness bound K >= R + 1."""
-    k = _pow2_at_least(max(int(m ** 0.5), 2))
-    k = max(4, min(32, k))
-    k = min(k, max(m, 2))
-    return k, max(1, k - 1)
+def tuned_serving_blocks(n_q: int, n_docs: int, m: int, l: int, dim: int,
+                         block_docs: int | None = None, *,
+                         codec: str | None = None, device=None) -> int:
+    """``block_docs`` of the multi sweep over one doc array (n_docs, m,
+    dim); ``m`` is the capacity of the array scored (a packed index's
+    bucket keys its own entry).  ``codec`` (``"bf16"``, ``"int8"``,
+    ``"residual4"``, ...) joins the key only when set, so fp32 keys stay
+    the reference's.  An explicit value wins.  (The reference also
+    resolves ``block_q`` here; the port's query tile is a compile-time
+    constant of the kernels, so nothing takes it.)"""
+    if block_docs is None:
+        shape = dict(n_q=n_q, n_docs=n_docs, m=m, l=l, dim=dim)
+        if codec is not None:
+            shape["codec"] = codec
+        block_docs = tuned("serving", device=device, **shape).block_docs
+    return block_docs
+
+
+def tuned_routing_blocks(n_q: int, n_buckets: int, n_centroids: int,
+                         l: int, dim: int, *,
+                         n_probe: int | None = None,
+                         threshold: float | None = None,
+                         block_docs: int | None = None,
+                         device=None) -> int:
+    """``block_docs`` of the router's centroid pass: the table scored as
+    one bucket of ``n_buckets`` docs of ``n_centroids`` tokens.
+    ``n_probe`` and ``threshold`` join the key only when set.  An
+    explicit value wins."""
+    if block_docs is None:
+        shape = dict(n_q=n_q, n_docs=n_buckets, m=n_centroids, l=l,
+                     dim=dim)
+        if n_probe is not None:
+            shape["n_probe"] = n_probe
+        if threshold is not None:
+            shape["threshold"] = threshold
+        block_docs = tuned("serving", device=device, **shape).block_docs
+    return block_docs
+
+
+def tuned_streaming_blocks(n_q: int, n_docs: int, m: int, l: int, dim: int,
+                           k: int, *, n_shards: int = 1, n_groups: int = 1,
+                           replicas: int = 1,
+                           block_docs: int | None = None,
+                           chunk_docs: int | None = None,
+                           codec: str | None = None,
+                           device=None) -> tuple[int, int]:
+    """``(block_docs, chunk_docs)`` of the streaming top-k over one bucket
+    (n_docs, m, dim): the serving key extended by the merge fan-in ``k``
+    and the candidate shard count ``n_shards`` (knobs sized for the
+    shard-local slice); ``n_groups`` (> 1), ``replicas`` (> 1) and
+    ``codec`` join the key only when set.  Explicit values win."""
+    if block_docs is None or chunk_docs is None:
+        shape = dict(n_q=n_q, n_docs=n_docs, m=m, l=l, dim=dim,
+                     k=k, n_shards=n_shards)
+        if n_groups > 1:
+            shape["n_groups"] = n_groups
+        if replicas > 1:
+            shape["replicas"] = replicas
+        if codec is not None:
+            shape["codec"] = codec
+        cfg = tuned("serving", device=device, **shape)
+        block_docs = cfg.block_docs if block_docs is None else block_docs
+        chunk_docs = cfg.chunk_docs if chunk_docs is None else chunk_docs
+    return block_docs, chunk_docs

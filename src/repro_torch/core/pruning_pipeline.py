@@ -24,8 +24,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import backend as backend_lib
 from repro_torch.core import voronoi
-from repro_torch.core.backend import _pow2_at_least
+from repro_torch.core.tuning import _pow2_at_least
 from repro_torch.sharding.specs import data_mesh_for
 
 __all__ = [
@@ -91,9 +92,19 @@ def _bucket_order_sharded(e, k, samples, devices, **kw):
     shard runs the normal batch path on its slice on its device (all
     launched before any result is read back), and the outputs return to
     ``e``'s device.  Per-document pruning touches no other document, so
-    this equals the unsharded batch bit for bit."""
+    this equals the unsharded batch bit for bit.  The tuner is warmed
+    for every shard's shape first, so a measured race never runs while
+    other shards' work is in flight."""
     n_b = e.shape[0]
     per = -(-n_b // len(devices))
+    if voronoi.resolve_pruning_backend(
+            kw["backend"], shortlist=kw["shortlist"], fast=kw["fast"],
+            bf16_scores=kw["bf16_scores"], step_size=kw["step_size"],
+            device=devices[0]) != backend_lib.REFERENCE:
+        for a, dev in zip(range(0, n_b, per), devices):
+            backend_lib.tuned("pruning", device=dev,
+                              n_samples=samples.shape[0], m=e.shape[1],
+                              dim=e.shape[-1], n_docs=min(per, n_b - a))
     outs = []
     for a, dev in zip(range(0, n_b, per), devices):
         outs.append(voronoi.pruning_order_batch(

@@ -225,26 +225,30 @@ def _pruning_order_reference(d_embs, d_masks, samples, *, step_size,
     return _greedy_loop(state, d_masks, samples.shape[0], step_size, rescan)
 
 
-def _pruning_order_fused(d_embs, d_masks, samples, *, step_size):
+def _pruning_order_fused(d_embs, d_masks, samples, *, step_size,
+                         block_docs):
     """Kernel path: each step's top-2 reassignment is one
-    ``maxsim_top2`` launch over the whole bucket; no (N, m) score matrix
-    is ever resident."""
+    ``maxsim_top2`` launch over the whole bucket (``block_docs``
+    documents a CUDA block); no (N, m) score matrix is ever resident."""
     def rescan(alive, state, _):
-        return maxsim_top2_update_op(samples, d_embs, alive, state)[0]
+        return maxsim_top2_update_op(samples, d_embs, alive, state,
+                                     block_docs=block_docs)[0]
 
-    state = maxsim_top2_op(samples, d_embs, d_masks)
+    state = maxsim_top2_op(samples, d_embs, d_masks, block_docs=block_docs)
     return _greedy_loop(state, d_masks, samples.shape[0], step_size, rescan)
 
 
 def _pruning_order_shortlist(d_embs, d_masks, samples, *, shortlist,
-                             rescan_every, rescan, bf16_scores=False):
+                             rescan_every, rescan, bf16_scores=False,
+                             block_docs=None):
     """Exact top-K shortlist pruning over a bucket.  Each sample keeps
     its top-K alive tokens from the last rescan; between rescans at most
     ``rescan_every - 1`` tokens die, so the true top-2 of the alive set
     stays inside the shortlist (K >= R + 1).  ``rescan="dense"`` caches
     the (B, N, m) score tensor (in bf16 with ``bf16_scores``) and
     rescans it with a stable sort in fp32; ``rescan="topk"`` rescans
-    through the ``maxsim_topk`` kernel."""
+    through the ``maxsim_topk`` kernel (``block_docs`` documents a CUDA
+    block)."""
     B, m = d_masks.shape
     n = samples.shape[0]
     K, R = min(shortlist, m), rescan_every
@@ -260,7 +264,8 @@ def _pruning_order_shortlist(d_embs, d_masks, samples, *, shortlist,
                 torch.where(alive[:, None, :], scores, NEG_INF).float(), K)
     else:
         def rescan_fn(alive):
-            return maxsim_topk_op(samples, d_embs, alive, k=K)
+            return maxsim_topk_op(samples, d_embs, alive, k=K,
+                                  block_docs=block_docs)
 
     n_steps = m - 1
     kcol = torch.arange(K, device=dev)
@@ -294,17 +299,27 @@ def _pruning_order_shortlist(d_embs, d_masks, samples, *, shortlist,
     return rank, err_at, order
 
 
-def _resolve_shortlist_knobs(shortlist, rescan_every, *, m):
-    """Fill ``None`` shortlist knobs from the fixed K ~ sqrt(m) schedule
-    (``backend.shortlist_knobs``); validate the exactness bound."""
-    k, r = backend_lib.shortlist_knobs(m)
-    if shortlist is None:
-        shortlist = k if rescan_every is None else max(k, rescan_every + 1)
-    if rescan_every is None:
-        rescan_every = min(r, max(shortlist - 1, 1))
+def _resolve_shortlist_knobs(d_embs, samples, shortlist=None,
+                             rescan_every=None, block_docs=None):
+    """Fill ``None`` knobs from the autotuner (backend seam) for the
+    bucket ``d_embs`` (B, m, dim) against ``samples``; validate the
+    exactness bound on whatever the caller pinned."""
+    if None in (shortlist, rescan_every, block_docs):
+        B, m, dim = d_embs.shape
+        cfg = backend_lib.tuned("pruning", device=d_embs.device,
+                                n_samples=samples.shape[0], m=m, dim=dim,
+                                n_docs=B)
+        if shortlist is None:
+            # grow past the tuned K if the caller pinned a longer rescan
+            # interval: the exactness bound is not the tuner's to break
+            shortlist = (cfg.shortlist if rescan_every is None
+                         else max(cfg.shortlist, rescan_every + 1))
+        if rescan_every is None:
+            rescan_every = min(cfg.rescan_every, max(shortlist - 1, 1))
+        block_docs = cfg.block_docs if block_docs is None else block_docs
     if rescan_every > shortlist - 1:
         raise ValueError("need shortlist >= rescan_every + 1 for exactness")
-    return shortlist, rescan_every
+    return shortlist, rescan_every, block_docs
 
 
 def resolve_pruning_backend(backend: str | None, *, shortlist: bool = False,
@@ -366,14 +381,16 @@ def pruning_order_batch(d_embs, d_masks, samples, *, step_size: int = 1,
             f"{backend}-kernel equivalent; drop them or choose "
             "backend='reference'/'shortlist'")
     if backend in (backend_lib.SHORTLIST, backend_lib.SHORTLIST_TOPK):
-        K, R = _resolve_shortlist_knobs(None, None, m=d_masks.shape[1])
+        K, R, bd = _resolve_shortlist_knobs(d_embs, samples)
         return _pruning_order_shortlist(
             d_embs, d_masks, samples, shortlist=K, rescan_every=R,
             rescan="topk" if backend == backend_lib.SHORTLIST_TOPK
-            else "dense", bf16_scores=bf16_scores)
+            else "dense", bf16_scores=bf16_scores, block_docs=bd)
     if backend == backend_lib.FUSED:
         return _pruning_order_fused(d_embs, d_masks, samples,
-                                    step_size=step_size)
+                                    step_size=step_size,
+                                    block_docs=_resolve_shortlist_knobs(
+                                        d_embs, samples)[2])
     return _pruning_order_reference(d_embs, d_masks, samples,
                                     step_size=step_size, single_pass=fast,
                                     bf16_scores=bf16_scores)
@@ -383,19 +400,22 @@ def pruning_order_shortlist(d_emb, d_mask, samples, *,
                             shortlist: int | None = None,
                             rescan_every: int | None = None,
                             bf16_scores: bool = False,
-                            rescan: str = "dense"):
-    """The exact shortlist path for ONE document, with pinnable knobs."""
+                            rescan: str = "dense",
+                            block_docs: int | None = None):
+    """The exact shortlist path for ONE document, with pinnable knobs
+    (``None``s from the autotuner)."""
     if rescan not in ("dense", "topk"):
         raise ValueError(f"rescan={rescan!r}: one of ('dense', 'topk')")
     if rescan == "topk" and bf16_scores:
         raise ValueError(
             "bf16_scores caches a bf16 dense score matrix and has no "
             "topk-kernel equivalent; drop it or use rescan='dense'")
-    K, R = _resolve_shortlist_knobs(shortlist, rescan_every,
-                                    m=d_emb.shape[0])
+    K, R, bd = _resolve_shortlist_knobs(d_emb[None], samples, shortlist,
+                                        rescan_every, block_docs)
     out = _pruning_order_shortlist(d_emb[None], d_mask[None], samples,
                                    shortlist=K, rescan_every=R,
-                                   rescan=rescan, bf16_scores=bf16_scores)
+                                   rescan=rescan, bf16_scores=bf16_scores,
+                                   block_docs=bd)
     return tuple(o[0] for o in out)
 
 

@@ -52,21 +52,25 @@ _F = ctypes.c_float
 SIGNATURES = {
     "maxsim_top2": {"maxsim_top2_launch": [_P, _P, _P, _I, _I, _I, _I,
                                            _P, _P, _P, _P, _P, _P, _P, _P,
-                                           _P]},
+                                           _I, _P],
+                    "maxsim_top2_smem": []},
     "maxsim_topk": {"maxsim_topk_launch": [_P, _P, _P, _I, _I, _I, _I, _I,
-                                           _P, _P, _P, _P, _P, _P, _P]},
+                                           _P, _P, _P, _P, _P, _P, _I, _P],
+                    "maxsim_topk_smem": []},
     "colbert_maxsim": {
         "colbert_maxsim_multi_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        _I, _P, _P, _P, _P, _P, _P],
+                                        _I, _P, _P, _P, _P, _P, _I, _P],
         "colbert_maxsim_rerank_launch": [_P, _P, _P, _P, _I, _I, _I, _I,
                                          _I, _I, _P, _P, _P, _P],
         "colbert_maxsim_residual_multi_launch": [
             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-            _P, _P],
+            _P, _I, _P],
         "colbert_maxsim_residual_rerank_launch": [
             _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
             _P, _P, _P, _P],
         "colbert_maxsim_split_planes": [_P, _I, _I, _I, _P, _P, _P],
+        "colbert_maxsim_docs_per_block": [_I, _I, _I],
+        "colbert_maxsim_multi_smem": [_I],
     },
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -217,6 +221,24 @@ def launch(name: str, entry: str, device, *args) -> None:
     with torch.cuda.device(device):
         err = getattr(lib, entry)(*args)
     check(name, err)
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of ``device``'s card."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def docs_per_block(n_docs: int, G: int, gx: int, sms: int) -> int:
+    """The doc block of a launch over ``gx`` blocks along the other axis
+    on a card of ``sms`` SMs: about four blocks an SM, a whole number of
+    tile groups of ``G`` docs.  The heuristic of ``core/tuning.py`` for
+    B1, B2, B3 and B5, which take their doc block as a launch argument;
+    B4 and B6 keep this rule in their launcher
+    (``csrc/colbert_maxsim.cu::sweep::docs_per_block``, exported as
+    ``colbert_maxsim_docs_per_block``)."""
+    units = max(1, -(-n_docs // G))
+    groups = max(1, min(units, -(-4 * sms // gx)))
+    return -(-units // groups) * G
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -20,7 +20,11 @@ sweep, fp32 docs) into three bf16 planes first, into scratch allocated
 here, and takes a dim that is a multiple of 8 up to 128.
 ``.launches`` on each launching wrapper counts its launches, and
 ``.bf16_launches`` on the two dense ones the share of them on bf16
-docs.
+docs.  The two multi sweeps take ``block_docs``, the docs a CUDA block
+takes (the tuner's ``KernelConfig.block_docs``, rounded up to a whole
+tile group by the launcher; :func:`default_block_docs` where not
+given); their result does not depend on it.  The reranks size their
+own doc groups (one query a block).
 """
 
 from __future__ import annotations
@@ -35,6 +39,34 @@ from repro_torch.kernels.colbert_maxsim.ref import (
 L_MAX = 64   # query tokens per query the kernels take (one wgmma M)
 BF16_DIM_MAX = 128   # the query planes' row length (csrc PLANE_DP)
 DOC_DTYPES = (torch.float32, torch.bfloat16)
+# doc rows a tile of the multi sweeps: bf16 docs (csrc multi_bf16::TN),
+# fp32 and residual docs (sweep::TN)
+TILE_ROWS_BF16 = 128
+TILE_ROWS = 64
+
+
+def tile_group(m: int, bf16: bool) -> int:
+    """G, the docs of m tokens a multi-sweep tile holds: the tile's rows
+    over m padded to a power of two (at least 8), or 1 for a doc that
+    fills a tile or more."""
+    rows = TILE_ROWS_BF16 if bf16 else TILE_ROWS
+    m_pad = max(8, 1 << (max(m, 1) - 1).bit_length())
+    return 1 if m_pad >= rows else rows // m_pad
+
+
+def query_blocks(n_q: int, l: int) -> int:
+    """Blocks along the query axis of a multi sweep: two warpgroups of
+    floor(64 / l) queries a block."""
+    return -(-n_q // (2 * (L_MAX // l)))
+
+
+def default_block_docs(n_q: int, l: int, n_docs: int, m: int, bf16: bool,
+                       device) -> int:
+    """The multi sweeps' doc block on ``device``'s card: about four
+    blocks an SM over the query blocks, a whole number of tile groups
+    (``build.docs_per_block``)."""
+    return build.docs_per_block(n_docs, tile_group(m, bf16),
+                                query_blocks(n_q, l), build.sm_count(device))
 
 
 def _device_of(t):
@@ -57,7 +89,8 @@ def _queries(q_embs, q_masks):
     return q_masks
 
 
-def _launch(entry, q_embs, d_embs, d_masks, q_masks, n_docs):
+def _launch(entry, q_embs, d_embs, d_masks, q_masks, n_docs,
+            block_docs=None):
     q_masks = _queries(q_embs, q_masks)
     n_q, l, dim = q_embs.shape
     m = d_embs.shape[-2]
@@ -69,11 +102,15 @@ def _launch(entry, q_embs, d_embs, d_masks, q_masks, n_docs):
                   d_masks.shape + (dim,), dev)
     build.require(d_masks, "d_masks", torch.bool, d_masks.shape, dev)
     bf16 = d_embs.dtype == torch.bfloat16
+    block = []
     if entry == "colbert_maxsim_multi_launch":
         if bf16 and d_embs.data_ptr() % 16:
             raise ValueError("bf16 d_embs must be 16-byte aligned")
         scratch = _query_planes(q_embs, 64 // l) + (
             (None, None) if bf16 else _doc_planes(d_embs))
+        if block_docs is None:
+            block_docs = default_block_docs(n_q, l, n_docs, m, bf16, dev)
+        block = [int(block_docs)]
     else:
         scratch = _query_planes(q_embs, 1)
         # the rerank reads its candidates 16 bytes at a time (fp32) or
@@ -85,7 +122,7 @@ def _launch(entry, q_embs, d_embs, d_masks, q_masks, n_docs):
         "colbert_maxsim", entry, dev, q_embs.data_ptr(), q_masks.data_ptr(),
         d_embs.data_ptr(), d_masks.data_ptr(), n_q, l, n_docs, m, dim,
         int(bf16), *[None if s is None else s.data_ptr() for s in scratch],
-        out.data_ptr(), build.stream_ptr(q_embs))
+        out.data_ptr(), *block, build.stream_ptr(q_embs))
     return out
 
 
@@ -120,14 +157,16 @@ def _count(fn, d_embs):
     fn.bf16_launches += d_embs.dtype == torch.bfloat16
 
 
-def colbert_maxsim_multi_op(q_embs, d_embs, d_masks, q_masks=None):
+def colbert_maxsim_multi_op(q_embs, d_embs, d_masks, q_masks=None, *,
+                            block_docs: int | None = None):
     """(n_q, l, dim) x (n_docs, m, dim) -> (n_q, n_docs)."""
     if _device_of(d_embs).type in build.PLAIN_DEVICES:
-        return colbert_maxsim_multi_ref(q_embs, d_embs, d_masks, q_masks)
+        return colbert_maxsim_multi_ref(q_embs, d_embs, d_masks, q_masks,
+                                        block_docs=block_docs)
     if d_masks.dim() != 2:
         raise ValueError("d_masks must be (n_docs, m)")
     out = _launch("colbert_maxsim_multi_launch", q_embs, d_embs, d_masks,
-                  q_masks, d_masks.shape[0])
+                  q_masks, d_masks.shape[0], block_docs)
     _count(colbert_maxsim_multi_op, d_embs)
     return out
 
@@ -163,7 +202,7 @@ def colbert_maxsim_op(q_emb, d_embs, d_masks, q_mask=None):
 
 
 def _residual_launch(entry, q_embs, q_masks, codes, resq, rscale, tables,
-                     bucket_of, d_masks, bits):
+                     bucket_of, d_masks, bits, block_docs=None):
     """Check and launch one residual kernel; ``codes`` (..., n_docs, m)
     with leading query axis on the rerank, ``tables`` (C, dim) or
     (n_buckets, C, dim).  Codes and ``bucket_of`` are not range-checked
@@ -187,10 +226,15 @@ def _residual_launch(entry, q_embs, q_masks, codes, resq, rscale, tables,
                   tables.shape[:-1] + (dim,), dev)
     args = [t.data_ptr() for t in (codes, resq, rscale, tables)]
     group = 64 // l
+    block = []
     if bucket_of is not None:
         build.require(bucket_of, "bucket_of", torch.int32, shape[:-1], dev)
         args += [bucket_of.data_ptr(), tables.shape[0]]
         group = 1
+    else:
+        if block_docs is None:
+            block_docs = default_block_docs(n_q, l, n_docs, m, False, dev)
+        block = [int(block_docs)]
     # the Hopper kernels load a chunk's residual bits as one word and
     # codebook rows 16 bytes at a time
     if resq.data_ptr() % bits or tables.data_ptr() % 16:
@@ -201,13 +245,14 @@ def _residual_launch(entry, q_embs, q_masks, codes, resq, rscale, tables,
     build.launch(
         "colbert_maxsim", entry, dev, q_embs.data_ptr(), q_masks.data_ptr(),
         *args, d_masks.data_ptr(), n_q, l, n_docs, m, dim, tables.shape[-2],
-        bits, *[t.data_ptr() for t in scratch], out.data_ptr(),
+        bits, *[t.data_ptr() for t in scratch], out.data_ptr(), *block,
         build.stream_ptr(q_embs))
     return out
 
 
 def colbert_maxsim_residual_multi_op(q_embs, codes, resq, rscale, codebook,
-                                     d_masks, q_masks=None, *, bits: int):
+                                     d_masks, q_masks=None, *, bits: int,
+                                     block_docs: int | None = None):
     """A query batch vs ONE residual bucket, decoded in the kernel:
     q_embs (n_q, l, dim) x [codes (n_docs, m) int8, resq (n_docs, m,
     dim*bits//8) uint8, rscale (n_docs, m, 1) f32, codebook (C, dim)
@@ -217,12 +262,12 @@ def colbert_maxsim_residual_multi_op(q_embs, codes, resq, rscale, codebook,
     if _device_of(codes).type in build.PLAIN_DEVICES:
         return colbert_maxsim_residual_multi_ref(
             q_embs, codes, resq, rscale, codebook, d_masks, q_masks,
-            bits=bits)
+            bits=bits, block_docs=block_docs)
     if codes.dim() != 2:
         raise ValueError("codes must be (n_docs, m)")
     out = _residual_launch("colbert_maxsim_residual_multi_launch", q_embs,
                            q_masks, codes, resq, rscale, codebook, None,
-                           d_masks, bits)
+                           d_masks, bits, block_docs)
     colbert_maxsim_residual_multi_op.launches += 1
     return out
 

@@ -75,8 +75,10 @@ def _per_query(q_embs, d_blocks):
                         for q, d in zip(q_embs, d_blocks)])
 
 
-def colbert_maxsim_multi_ref(q_embs, d_embs, d_masks, q_masks=None):
-    """q_embs (n_q, l, dim); d_embs (n_docs, m, dim) -> (n_q, n_docs)."""
+def colbert_maxsim_multi_ref(q_embs, d_embs, d_masks, q_masks=None, *,
+                             block_docs=None):
+    """q_embs (n_q, l, dim); d_embs (n_docs, m, dim) -> (n_q, n_docs).
+    ``block_docs`` (the kernel's doc block) changes nothing here."""
     d = d_embs.float()
     s = _per_query(q_embs, d.expand((q_embs.shape[0],) + d.shape))
     return _reduce(s, d_masks[None],
@@ -93,10 +95,12 @@ def colbert_maxsim_rerank_ref(q_embs, d_subs, m_subs, q_masks=None):
 
 
 def colbert_maxsim_residual_multi_ref(q_embs, codes, resq, rscale, codebook,
-                                      d_masks, q_masks=None, *, bits: int):
+                                      d_masks, q_masks=None, *, bits: int,
+                                      block_docs=None):
     """A query batch vs one residual bucket: codes (n_docs, m) int8,
     resq (n_docs, m, dim*bits//8) uint8, rscale (n_docs, m, 1) f32,
-    codebook (C, dim) f32 -> (n_q, n_docs)."""
+    codebook (C, dim) f32 -> (n_q, n_docs).  ``block_docs`` (the
+    kernel's doc block) changes nothing here."""
     d = dequantize_residual(resq, rscale, codes, codebook, bits)
     return colbert_maxsim_multi_ref(q_embs, d, d_masks, q_masks)
 

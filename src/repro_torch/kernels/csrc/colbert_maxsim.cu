@@ -312,7 +312,8 @@ int run(const CUtensorMap& tq, const CUtensorMap& td, const Args& a,
 
 int launch(const float* q, const uint8_t* qmask, const void* docs,
            const uint8_t* dmask, int n_q, int l, int n_docs, int m, int dim,
-           void* q_planes, int* q_flags, float* out, cudaStream_t stream) {
+           void* q_planes, int* q_flags, float* out, int docs_per_block,
+           cudaStream_t stream) {
   if (l < 1 || l > 64 || m < 1 || dim % 8 ||
       reinterpret_cast<uintptr_t>(docs) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -333,12 +334,10 @@ int launch(const float* q, const uint8_t* qmask, const void* docs,
       !encode_3d(&td, docs, dim, m, n_docs, dim * 2ull, dim * 2ull * m,
                  a.m_pad, G))
     return static_cast<int>(cudaErrorInvalidValue);
-  // about four blocks an SM, query blocks fastest; a doc group is a
-  // whole number of tiles
+  // query blocks fastest; a doc group is the caller's doc block rounded
+  // up to a whole number of tiles
   const int gx = (n_q + 2 * a.qpw - 1) / (2 * a.qpw);
-  const int units = (n_docs + G - 1) / G;
-  const int groups = max(1, min(units, (4 * sm_count() + gx - 1) / gx));
-  a.docs_per_block = (units + groups - 1) / groups * G;
+  a.docs_per_block = whole_groups(docs_per_block, G);
   const int gy = (n_docs + a.docs_per_block - 1) / a.docs_per_block;
   switch (G) {
     case 1: return run<1>(tq, td, a, gx, gy, stream);
@@ -416,7 +415,10 @@ inline int geometry(Sweep& s) {
 }
 
 // Docs a block, a whole number of tile groups, for about four blocks an
-// SM over gx blocks along the other axis.
+// SM over gx blocks along the other axis: B4's and B6's grid (one query
+// a block, gx = n_q).  B3 and B5 take their doc block from the caller
+// (core/tuning.py, whose heuristic is this rule; chip_smoke.py holds the
+// two equal through colbert_maxsim_docs_per_block).
 inline int docs_per_block(int n_docs, int G, int gx) {
   const int units = (n_docs + G - 1) / G;
   const int groups = max(1, min(units, (4 * sm_count() + gx - 1) / gx));
@@ -852,10 +854,11 @@ int run(const CUtensorMap& tq, const CUtensorMap& td, const Args& a, dim3 grid,
 
 template <int BITS>
 int run_g(int G, const CUtensorMap& tq, const CUtensorMap& td, Args& a,
-          cudaStream_t stream) {
-  // query blocks fastest; a doc group is a whole number of tiles
+          int docs_per_block, cudaStream_t stream) {
+  // query blocks fastest; a doc group is the caller's doc block rounded
+  // up to a whole number of tiles
   const int gx = (a.s.n_q + 2 * a.s.qpw - 1) / (2 * a.s.qpw);
-  a.docs_per_block = docs_per_block(a.s.n_docs, G, gx);
+  a.docs_per_block = whole_groups(docs_per_block, G);
   const dim3 grid(gx, (a.s.n_docs + a.docs_per_block - 1) / a.docs_per_block);
   switch (G) {
     case 1: return run<BITS, 1>(tq, td, a, grid, stream);
@@ -870,7 +873,8 @@ int run_g(int G, const CUtensorMap& tq, const CUtensorMap& td, Args& a,
 int launch_f32(const float* q, const uint8_t* qmask, const float* docs,
                const uint8_t* dmask, int n_q, int l, int n_docs, int m,
                int dim, void* q_planes, int* q_flags, void* d_planes,
-               int* d_flags, float* out, cudaStream_t stream) {
+               int* d_flags, float* out, int docs_per_block,
+               cudaStream_t stream) {
   if (l < 1 || l > 64 || m < 1 || dim < 8 || dim % 8 || dim > PLANE_DP)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_q < 1 || n_docs < 1) return static_cast<int>(cudaGetLastError());
@@ -889,7 +893,7 @@ int launch_f32(const float* q, const uint8_t* qmask, const float* docs,
   if (!encode_3d(&td, dp, PLANE_DP, m, 3ull * n_docs, row, row * m,
                  a.s.m_pad, G))
     return static_cast<int>(cudaErrorInvalidValue);
-  return run_g<0>(G, tq, td, a, stream);
+  return run_g<0>(G, tq, td, a, docs_per_block, stream);
 }
 
 int launch_resid(const float* q, const uint8_t* qmask, const int8_t* codes,
@@ -897,7 +901,7 @@ int launch_resid(const float* q, const uint8_t* qmask, const int8_t* codes,
                  const float* codebook, const uint8_t* dmask, int n_q, int l,
                  int n_docs, int m, int dim, int n_centroids, int bits,
                  void* q_planes, int* q_flags, float* out,
-                 cudaStream_t stream) {
+                 int docs_per_block, cudaStream_t stream) {
   // 16-byte codebook loads; a chunk's residual bits load as one 4-byte
   // (4-bit) or 2-byte (2-bit) word
   if (l < 1 || l > 64 || m < 1 || dim < 8 || dim % 8 || dim > PLANE_DP ||
@@ -920,8 +924,8 @@ int launch_resid(const float* q, const uint8_t* qmask, const int8_t* codes,
                              &tq, stream);
   if (err) return err;
   const int G = geometry(a.s);
-  return bits == 2 ? run_g<2>(G, tq, tq, a, stream)
-                   : run_g<4>(G, tq, tq, a, stream);
+  return bits == 2 ? run_g<2>(G, tq, tq, a, docs_per_block, stream)
+                   : run_g<4>(G, tq, tq, a, docs_per_block, stream);
 }
 
 }  // namespace multi_sm90
@@ -1419,19 +1423,21 @@ int launch(const float* q, const uint8_t* qmask, const void* docs,
 // The caller's scratch: the query planes, (3, n_q·l, 128) bf16, and
 // flags, (ceil(n_q / floor(64 / l)),) int32; for fp32 docs also the doc
 // planes, (3, n_docs·m, 128) bf16, and flags, (n_docs,) int32 (null for
-// bf16 docs).
+// bf16 docs).  A block takes docs_per_block docs, rounded up to a whole
+// number of tile groups.
 extern "C" int colbert_maxsim_multi_launch(
     const float* q, const uint8_t* qmask, const void* docs,
     const uint8_t* dmask, int n_q, int l, int n_docs, int m, int dim,
     int bf16, void* q_planes, int* q_flags, void* d_planes, int* d_flags,
-    float* out, void* stream) {
+    float* out, int docs_per_block, void* stream) {
   if (bf16)
     return multi_bf16::launch(q, qmask, docs, dmask, n_q, l, n_docs, m, dim,
-                              q_planes, q_flags, out,
+                              q_planes, q_flags, out, docs_per_block,
                               static_cast<cudaStream_t>(stream));
   return multi_sm90::launch_f32(q, qmask, static_cast<const float*>(docs),
                                 dmask, n_q, l, n_docs, m, dim, q_planes,
                                 q_flags, d_planes, d_flags, out,
+                                docs_per_block,
                                 static_cast<cudaStream_t>(stream));
 }
 
@@ -1447,16 +1453,18 @@ extern "C" int colbert_maxsim_rerank_launch(
 }
 
 // The caller's scratch: the query planes, (3, n_q·l, 128) bf16, and
-// flags, (ceil(n_q / floor(64 / l)),) int32.
+// flags, (ceil(n_q / floor(64 / l)),) int32.  A block takes
+// docs_per_block docs, rounded up to a whole number of tile groups.
 extern "C" int colbert_maxsim_residual_multi_launch(
     const float* q, const uint8_t* qmask, const int8_t* codes,
     const uint8_t* resq, const float* scale, const float* codebook,
     const uint8_t* dmask, int n_q, int l, int n_docs, int m, int dim,
     int n_centroids, int bits, void* q_planes, int* q_flags, float* out,
-    void* stream) {
+    int docs_per_block, void* stream) {
   return multi_sm90::launch_resid(q, qmask, codes, resq, scale, codebook,
                                   dmask, n_q, l, n_docs, m, dim, n_centroids,
                                   bits, q_planes, q_flags, out,
+                                  docs_per_block,
                                   static_cast<cudaStream_t>(stream));
 }
 
@@ -1482,6 +1490,18 @@ extern "C" int colbert_maxsim_split_planes(const float* x, int rows, int dim,
   return sm90::split_planes(x, rows, dim, group_rows,
                             static_cast<__nv_bfloat16*>(planes), flags,
                             static_cast<cudaStream_t>(stream));
+}
+
+// sweep::docs_per_block on the current card (B4's and B6's grid rule),
+// for holding core/tuning.py's heuristic to it.
+extern "C" int colbert_maxsim_docs_per_block(int n_docs, int G, int gx) {
+  return sweep::docs_per_block(n_docs, G, gx);
+}
+
+// Dynamic shared memory of one block of the multi sweep: bf16 docs
+// (multi_bf16), else fp32 or residual docs (multi_sm90).
+extern "C" int colbert_maxsim_multi_smem(int bf16) {
+  return bf16 ? multi_bf16::SMEM_DYNAMIC : multi_sm90::SMEM_DYNAMIC;
 }
 
 extern "C" const char* colbert_maxsim_error_string(int err) {

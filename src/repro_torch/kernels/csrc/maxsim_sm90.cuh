@@ -28,9 +28,10 @@
 // take turns issuing their wgmmas (two named barriers), so one's
 // epilogue runs under the other's products.  Blocks of one document
 // group are adjacent in launch order, so the sample blocks that read the
-// same tokens run together in the 50 MB L2; the doc groups are sized for
-// about four blocks an SM, so a bucket of 128 documents (16 sample
-// blocks x 32 groups of 4) fills the card as well as one of 2,908.
+// same tokens run together in the 50 MB L2; the caller sizes the doc
+// groups (core/tuning.py's heuristic: about four blocks an SM, so a
+// bucket of 128 documents, 16 sample blocks x 32 groups of 4, fills the
+// card as well as one of 2,908).
 //
 // An epilogue Epi is default-constructed at a document's start, takes
 // add(v0, v1, col) for the thread's rows r0 and r1 at column col, and
@@ -252,18 +253,18 @@ inline int prepare(const float* samples, const float* tokens, int B, int N,
 }
 
 // Launch `kernel` (a __global__ that runs score_block<Epi>) over sample
-// blocks x document groups: about four blocks an SM, the blocks of one
-// group adjacent.
+// blocks x document groups of `per` documents (the caller's doc block,
+// core/tuning.py; at least 1), the blocks of one group adjacent.  A
+// document's arithmetic does not depend on the group it falls in.
 template <class Kernel, class Out>
 int launch(Kernel kernel, const Prepared& p, const int* t_flags,
            const int* s_flags, const uint8_t* alive, int N, int B, int m,
-           const Out& out, cudaStream_t stream) {
+           int per, const Out& out, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DYNAMIC);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int gx = (N + ROWS - 1) / ROWS;
-  const int groups = max(1, min(B, (4 * sm_count() + gx - 1) / gx));
-  const int per = (B + groups - 1) / groups;
+  per = whole_groups(per, 1);
   dim3 grid(gx, (B + per - 1) / per);
   kernel<<<grid, NT, SMEM_DYNAMIC, stream>>>(p.ts, p.tt, s_flags,
                                              p.n_sgroups, t_flags, alive, N,

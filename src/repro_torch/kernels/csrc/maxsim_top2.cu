@@ -147,14 +147,14 @@ maxsim_top2_sm90(const __grid_constant__ CUtensorMap ts,
 // samples (N, dim) fp32, tokens (B, m, dim) fp32, alive (B, m) bool ->
 // best, second (B, N) fp32, bi, si (B, N) int32.  Scratch from the
 // caller: s_planes (3, N, 128) bf16, s_flags (ceil(N / 64),) int32,
-// t_planes (3, B·m, 128) bf16, t_flags (B,) int32.  Returns a
-// cudaError_t code.
+// t_planes (3, B·m, 128) bf16, t_flags (B,) int32.  A block takes
+// docs_per_block documents.  Returns a cudaError_t code.
 extern "C" int maxsim_top2_launch(const float* samples, const float* tokens,
                                   const uint8_t* alive, int B, int N, int m,
                                   int dim, void* s_planes, int* s_flags,
                                   void* t_planes, int* t_flags, float* best,
                                   float* second, int* bi, int* si,
-                                  void* stream) {
+                                  int docs_per_block, void* stream) {
   if (m < 1 || dim < 1 || dim > PLANE_DP)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B < 1 || N < 1) return static_cast<int>(cudaGetLastError());
@@ -164,8 +164,11 @@ extern "C" int maxsim_top2_launch(const float* samples, const float* tokens,
                           t_planes, t_flags, s, p);
   if (err) return err;
   return launch(maxsim_top2_sm90, p, t_flags, s_flags, alive, N, B, m,
-                Top2Out{best, second, bi, si}, s);
+                docs_per_block, Top2Out{best, second, bi, si}, s);
 }
+
+// Dynamic shared memory of one block.
+extern "C" int maxsim_top2_smem() { return SMEM_DYNAMIC; }
 
 extern "C" const char* maxsim_top2_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -198,13 +198,14 @@ maxsim_topk_sm90(const __grid_constant__ CUtensorMap ts,
 // samples (N, dim) fp32, tokens (B, m, dim) fp32, alive (B, m) bool ->
 // vals (B, N, k) fp32, idxs (B, N, k) int32.  Scratch from the caller:
 // s_planes (3, N, 128) bf16, s_flags (ceil(N / 64),) int32, t_planes
-// (3, B·m, 128) bf16, t_flags (B,) int32.  Returns a cudaError_t code.
+// (3, B·m, 128) bf16, t_flags (B,) int32.  A block takes docs_per_block
+// documents.  Returns a cudaError_t code.
 extern "C" int maxsim_topk_launch(const float* samples, const float* tokens,
                                   const uint8_t* alive, int B, int N, int m,
                                   int dim, int k, void* s_planes,
                                   int* s_flags, void* t_planes,
                                   int* t_flags, float* vals, int* idxs,
-                                  void* stream) {
+                                  int docs_per_block, void* stream) {
   if (k < 1 || k > KMAX || k > m || dim < 1 || dim > PLANE_DP)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B < 1 || N < 1) return static_cast<int>(cudaGetLastError());
@@ -214,18 +215,22 @@ extern "C" int maxsim_topk_launch(const float* samples, const float* tokens,
                           t_planes, t_flags, s, p);
   if (err) return err;
   const TopKOut out{vals, idxs, k};
+  const int per = docs_per_block;
   if (k <= 4)
     return launch(maxsim_topk_sm90<4>, p, t_flags, s_flags, alive, N, B, m,
-                  out, s);
+                  per, out, s);
   if (k <= 8)
     return launch(maxsim_topk_sm90<8>, p, t_flags, s_flags, alive, N, B, m,
-                  out, s);
+                  per, out, s);
   if (k <= 16)
     return launch(maxsim_topk_sm90<16>, p, t_flags, s_flags, alive, N, B, m,
-                  out, s);
+                  per, out, s);
   return launch(maxsim_topk_sm90<32>, p, t_flags, s_flags, alive, N, B, m,
-                out, s);
+                per, out, s);
 }
+
+// Dynamic shared memory of one block (every k).
+extern "C" int maxsim_topk_smem() { return SMEM_DYNAMIC; }
 
 extern "C" const char* maxsim_topk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -578,6 +578,12 @@ inline bool encode_3d(CUtensorMap* map, const void* ptr, uint64_t d0,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The caller's doc block as a whole number of tile groups of G docs (at
+// least one group).
+inline int whole_groups(int docs, int G) {
+  return (max(docs, 1) + G - 1) / G * G;
+}
+
 inline int sm_count() {
   int dev = 0, n = 0;
   cudaGetDevice(&dev);

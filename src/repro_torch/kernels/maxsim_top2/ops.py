@@ -8,7 +8,10 @@ entry) into scratch allocated here; the kernel takes dim <= 128.
 
 * :func:`maxsim_top2_op` — (best, second, argbest, argsecond); a CPU
   tensor runs the plain version (``ref.py``), a CUDA tensor launches
-  the kernel (``maxsim_top2_op.launches`` counts the launches).
+  the kernel (``maxsim_top2_op.launches`` counts the launches), a
+  block taking ``block_docs`` documents (``maxsim_topk.ops``'s
+  ``default_block_docs`` where not given; the result does not depend
+  on it).
 * :func:`maxsim_top2_update_op` — cell reassignment after an
   alive-mask shrink: rescan, then keep the old state for every sample
   whose best and second both survived (the reference's
@@ -28,10 +31,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.maxsim_top2.ref import (maxsim_top2_ref,
                                                  maxsim_top2_rows_ref,
                                                  merge_chunk_top2)
-from repro_torch.kernels.maxsim_topk.ops import DIM_MAX
+from repro_torch.kernels.maxsim_topk.ops import DIM_MAX, default_block_docs
 
 
-def _launch(samples, tokens, alive):
+def _launch(samples, tokens, alive, block_docs=None):
     B, m, dim = tokens.shape
     N = samples.shape[0]
     dev = tokens.device
@@ -49,35 +52,39 @@ def _launch(samples, tokens, alive):
     t_planes = torch.empty((3, B * m, DIM_MAX), dtype=torch.bfloat16,
                            device=dev)
     t_flags = torch.empty((B,), dtype=torch.int32, device=dev)
+    if block_docs is None:
+        block_docs = default_block_docs(N, B, dev)
     build.launch(
         "maxsim_top2", "maxsim_top2_launch", dev, samples.data_ptr(),
         tokens.data_ptr(), alive.data_ptr(), B, N, m, dim,
         s_planes.data_ptr(), s_flags.data_ptr(), t_planes.data_ptr(),
         t_flags.data_ptr(), best.data_ptr(), second.data_ptr(),
-        bi.data_ptr(), si.data_ptr(), build.stream_ptr(tokens))
+        bi.data_ptr(), si.data_ptr(), int(block_docs),
+        build.stream_ptr(tokens))
     maxsim_top2_op.launches += 1
     return best, second, bi, si
 
 
-def maxsim_top2_op(samples, tokens, alive):
+def maxsim_top2_op(samples, tokens, alive, *, block_docs: int | None = None):
     """samples (N, dim); tokens (m, dim) or (B, m, dim); alive (m,) or
     (B, m) bool -> (best, second, argbest, argsecond), each (N,) or
     (B, N); f32, f32, int32, int32."""
     if build.plain(tokens):
-        return maxsim_top2_ref(samples, tokens, alive)
+        return maxsim_top2_ref(samples, tokens, alive, block_docs=block_docs)
     if tokens.device.type != "cuda":
         raise ValueError(f"maxsim_top2 runs on cpu or cuda, not "
                          f"{tokens.device}")
     if tokens.dim() == 2:
         return tuple(o[0] for o in _launch(samples, tokens[None],
-                                           alive[None]))
-    return _launch(samples, tokens, alive)
+                                           alive[None], block_docs))
+    return _launch(samples, tokens, alive, block_docs)
 
 
 maxsim_top2_op.launches = 0
 
 
-def maxsim_top2_update_op(samples, tokens, alive, prev):
+def maxsim_top2_update_op(samples, tokens, alive, prev, *,
+                          block_docs: int | None = None):
     """Cell state under the shrunk ``alive`` mask from ``prev`` (the
     (best, second, argbest, argsecond) tuple under a superset mask):
     a full rescan, kept only for samples whose best or second died.
@@ -85,7 +92,7 @@ def maxsim_top2_update_op(samples, tokens, alive, prev):
     p_best, p_second, p_bi, p_si = prev
     affected = (~alive.gather(-1, p_bi.long())
                 | ~alive.gather(-1, p_si.long()))
-    fresh = maxsim_top2_op(samples, tokens, alive)
+    fresh = maxsim_top2_op(samples, tokens, alive, block_docs=block_docs)
     new = tuple(torch.where(affected, f, p)
                 for f, p in zip(fresh, prev))
     return new, affected

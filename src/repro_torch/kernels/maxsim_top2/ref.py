@@ -18,9 +18,10 @@ import torch
 from repro_torch.core.scoring import doc_scores, top2_from_scores
 
 
-def maxsim_top2_ref(samples, tokens, alive):
+def maxsim_top2_ref(samples, tokens, alive, *, block_docs=None):
     """samples (N, dim); tokens (..., m, dim); alive (..., m) bool ->
-    best, second (..., N) f32 and argbest, argsecond (..., N) int32."""
+    best, second (..., N) f32 and argbest, argsecond (..., N) int32.
+    ``block_docs`` (the kernel's doc block) changes nothing here."""
     scores = doc_scores(samples.float(), tokens.float())
     return top2_from_scores(scores, alive)
 

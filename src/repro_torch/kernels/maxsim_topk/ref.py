@@ -21,9 +21,10 @@ def topk_lowest_index(scores, k: int):
     return vals[..., :k], idxs[..., :k].to(torch.int32)
 
 
-def maxsim_topk_ref(samples, tokens, alive, k: int):
+def maxsim_topk_ref(samples, tokens, alive, k: int, *, block_docs=None):
     """samples (N, dim); tokens (..., m, dim); alive (..., m) ->
-    values (..., N, k) f32 and indices (..., N, k) int32."""
+    values (..., N, k) f32 and indices (..., N, k) int32.  ``block_docs``
+    (the kernel's doc block) changes nothing here."""
     scores = doc_scores(samples.float(), tokens.float())
     scores = torch.where(alive[..., None, :], scores, NEG_INF)
     return topk_lowest_index(scores, k)

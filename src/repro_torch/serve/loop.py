@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import backend as backend_lib
-from repro_torch.core.backend import _pow2_at_least
+from repro_torch.core.tuning import _pow2_at_least
 from repro_torch.serve.retrieval import TopKResult
 from repro_torch.sharding import axis_rules, current_rules
 

@@ -13,6 +13,17 @@ Counterpart of ``repro.serve.retrieval`` on a single device:
   (score, global doc id) candidates at once; sort-merges by the
   (-score, id) order combine them.  No (n_q, n_docs) matrix is built.
 
+Knobs: ``block_docs`` (the docs a block of B3/B5 takes) and
+``chunk_docs`` (the streaming slab) resolve per bucket through the
+autotuner (``core.backend.tuned_serving_blocks`` /
+``tuned_streaming_blocks``) where the caller passes ``None``; explicit
+values win.  A streaming bucket's tuned block serves its full slabs; a
+shorter last slab takes the launchers' rule at its own size, so the
+heuristic gives every launch the grid it had before the tuner.  No
+answer depends on either knob.  :class:`RetrievalServer`
+resolves every key its closures ask for before its first serve
+(``_warm_tuner``), so a measured race never runs inside a served batch.
+
 Every selection and merge orders on (-score, id) with stable sorts —
 descending score, ties to the lowest doc id, ``lax.top_k``'s contract —
 because ``torch.topk`` promises no order among ties.  Sentinels are the
@@ -59,7 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import backend as backend_lib
-from repro_torch.core.backend import _pow2_at_least
+from repro_torch.core.tuning import _pow2_at_least
 from repro_torch.core.scoring import NEG_INF
 from repro_torch.kernels.colbert_maxsim.ops import (
     colbert_maxsim_multi_op, colbert_maxsim_rerank_op,
@@ -163,17 +174,35 @@ def _maxsim_scores_reference(d_embs, active_mask, q_embs, q_masks):
     return colbert_maxsim_multi_ref(q_embs, d_embs, active_mask, q_masks)
 
 
-def _score_block(d_embs, active_mask, q_embs, q_masks, *, backend):
+def _codec_of(index) -> str | None:
+    """The tuner's codec tag of an index: ``"int8"`` or ``"residual{b}"``
+    for a compressed pack, ``"bf16"`` for bf16 docs, None for fp32."""
+    if isinstance(index, PackedIndex):
+        if index.codec_tag() is not None:
+            return index.codec_tag()
+        embs = next((b.embs for b in index.buckets if b.embs is not None),
+                    None)
+    else:
+        embs = index.d_embs
+    return ("bf16" if embs is not None and embs.dtype == torch.bfloat16
+            else None)
+
+
+def _score_block(d_embs, active_mask, q_embs, q_masks, *, backend,
+                 block_docs=None):
     """Score one doc array (dense, or a compressed :class:`ResidualView`)
-    on the resolved backend -> (n_q, n_docs)."""
+    on the resolved backend -> (n_q, n_docs); on ``fused`` a block of
+    the kernel takes ``block_docs`` docs (``None``: the launchers' rule
+    at this array's shape)."""
     if backend == backend_lib.FUSED:
         if isinstance(d_embs, ResidualView):
             return colbert_maxsim_residual_multi_op(
                 q_embs, d_embs.codes, d_embs.resq, d_embs.scale,
                 d_embs.codebook, active_mask.contiguous(), q_masks,
-                bits=d_embs.bits)
+                bits=d_embs.bits, block_docs=block_docs)
         return colbert_maxsim_multi_op(q_embs, d_embs.contiguous(),
-                                       active_mask.contiguous(), q_masks)
+                                       active_mask.contiguous(), q_masks,
+                                       block_docs=block_docs)
     return _maxsim_scores_reference(d_embs, active_mask, q_embs, q_masks)
 
 
@@ -194,20 +223,33 @@ def _bucket_array(index: PackedIndex, b, backend):
 
 
 def maxsim_scores(index, q_embs, q_masks=None, *,
-                  backend: str | None = None):
+                  backend: str | None = None,
+                  block_docs: int | None = None):
     """(n_q, n_docs) exact MaxSim over the pruned index (either layout;
-    packed buckets scatter back through their doc-id remap)."""
+    packed buckets scatter back through their doc-id remap).
+    ``block_docs`` pins the kernels' doc block; ``None`` takes the
+    autotuner's, per bucket shape."""
     backend = backend_lib.resolve_backend(backend, allow=backend_lib.SERVING,
                                           device=q_embs.device)
+    codec = _codec_of(index)
+
+    def score(embs, masks):
+        bd = block_docs
+        if backend == backend_lib.FUSED:
+            bd = backend_lib.tuned_serving_blocks(
+                q_embs.shape[0], *masks.shape, q_embs.shape[1],
+                q_embs.shape[-1], block_docs, codec=codec,
+                device=q_embs.device)
+        return _score_block(embs, masks, q_embs, q_masks, backend=backend,
+                            block_docs=bd)
+
     if not isinstance(index, PackedIndex):
-        return _score_block(index.d_embs, index.active_mask, q_embs,
-                            q_masks, backend=backend)
+        return score(index.d_embs, index.active_mask)
     out = torch.zeros((q_embs.shape[0], index.n_docs), dtype=torch.float32,
                       device=q_embs.device)
     for b in index.buckets:
-        out[:, b.doc_ids.long()] = _score_block(
-            _bucket_array(index, b, backend), b.masks, q_embs, q_masks,
-            backend=backend)
+        out[:, b.doc_ids.long()] = score(_bucket_array(index, b, backend),
+                                         b.masks)
     return out
 
 
@@ -266,11 +308,29 @@ def _stream_chunk_topk(n: int, chunk: int, k: int, score_slab,
     return torch.cat(vals, dim=1), torch.cat(ids, dim=1)
 
 
+def _stream_knobs(n_docs: int, m: int, q_embs, k: int, *, block_docs,
+                  chunk_docs, codec, n_shards: int = 1, n_groups: int = 1,
+                  replicas: int = 1) -> tuple:
+    """The streaming sweep's knobs over one bucket of ``n_docs`` docs of
+    capacity ``m`` (the bucket's global count; the tuner sizes the
+    shard-local slice): ``(block_docs, chunk_docs, short_block)``.
+    The tuned doc block is sized for a full slab; ``short_block``, the
+    block of a shorter last slab, is the caller's pin or ``None`` (the
+    launchers' rule at that slab's size).  Explicit values win."""
+    bd, cd = backend_lib.tuned_streaming_blocks(
+        q_embs.shape[0], n_docs, m, q_embs.shape[1], q_embs.shape[-1], k,
+        n_shards=n_shards, n_groups=n_groups, replicas=replicas,
+        block_docs=block_docs, chunk_docs=chunk_docs, codec=codec,
+        device=q_embs.device)
+    return bd, cd, block_docs
+
+
 def _chunk_candidates(embs, masks, doc_ids, q_embs, q_masks, k: int, *,
-                      backend, chunk_docs, pad_from: int | None = None,
+                      backend, knobs, pad_from: int | None = None,
                       owner=None, leaf: int = 0):
     """One doc array's exact-MaxSim candidates through the streaming
-    reduce loop.
+    reduce loop, in ``knobs`` (:func:`_stream_knobs`): slabs of
+    ``chunk_docs``, the last one shorter where the array does not divide.
 
     ``owner``/``leaf`` is the mutation stale mask (:class:`MutationView`):
     slab scores of docs this leaf does not own — a base copy shadowed by
@@ -280,9 +340,14 @@ def _chunk_candidates(embs, masks, doc_ids, q_embs, q_masks, k: int, *,
     :func:`_stream_chunk_topk`).  The clip guards sentinel ids (< 0,
     forced to -inf by the pad audit regardless) against wraparound."""
 
+    block_docs, chunk_docs, short_block = knobs
+    full = min(chunk_docs, masks.shape[0])
+
     def slab(a, b):
         s = _score_block(embs[a:b], masks[a:b], q_embs, q_masks,
-                         backend=backend)
+                         backend=backend,
+                         block_docs=block_docs if b - a == full
+                         else short_block)
         if owner is not None:
             ids = (torch.arange(a, b, device=s.device) if doc_ids is None
                    else doc_ids[a:b].long())
@@ -353,8 +418,8 @@ class MutationView:
     n_live: int
 
 
-def _topk_local(index, q_embs, q_masks, k: int, *, backend, chunk_docs,
-                mutation=None, real_cap=None):
+def _topk_local(index, q_embs, q_masks, k: int, *, backend, block_docs,
+                chunk_docs, mutation=None, real_cap=None):
     """Every bucket's streaming candidates, root-merged; capped at the
     real documents of ``index`` (``real_cap`` where given; the live
     docs under ``mutation``) so no sentinel fills a column.  Under
@@ -368,9 +433,13 @@ def _topk_local(index, q_embs, q_masks, k: int, *, backend, chunk_docs,
         owner = mutation.owner
     vals, ids = [], []
     for leaf_index, leaf in leaves:
+        codec = _codec_of(leaf_index)
         for e, mk, di in _index_views(leaf_index, backend):
+            knobs = _stream_knobs(mk.shape[0], mk.shape[1], q_embs, k,
+                                  block_docs=block_docs,
+                                  chunk_docs=chunk_docs, codec=codec)
             v, i = _chunk_candidates(e, mk, di, q_embs, q_masks, k,
-                                     backend=backend, chunk_docs=chunk_docs,
+                                     backend=backend, knobs=knobs,
                                      owner=owner, leaf=leaf)
             vals.append(v)
             ids.append(i)
@@ -437,21 +506,35 @@ def _shards(index, b: int, devices: tuple) -> tuple:
     return got
 
 
+def _bucket_ids(index, bucket_ids=None) -> tuple:
+    """``bucket_ids`` (all by default), or the dense layout's one bucket
+    whatever they are."""
+    if not isinstance(index, PackedIndex):
+        return (0,)
+    return tuple(range(len(index.buckets)) if bucket_ids is None
+                 else bucket_ids)
+
+
+def _bucket_shape(index, b: int) -> tuple[int, int]:
+    """(docs, capacity) of bucket ``b`` (the dense layout's for 0)."""
+    if isinstance(index, PackedIndex):
+        return index.buckets[b].n_docs, index.buckets[b].cap
+    return tuple(index.d_masks.shape)
+
+
 def _placed(index, devices, bucket_ids=None) -> list:
     """Shard ``s`` of every bucket of ``bucket_ids`` (all by default; the
     dense layout's one bucket whatever they are) on ``devices[s]``: one
     list of (embs, masks, doc_ids) views a device (:func:`_shards`)."""
     devices = tuple(devices)
-    if not isinstance(index, PackedIndex):
-        bucket_ids = (0,)
-    elif bucket_ids is None:
-        bucket_ids = range(len(index.buckets))
-    shards = [_shards(index, b, devices) for b in bucket_ids]
+    shards = [_shards(index, b, devices)
+              for b in _bucket_ids(index, bucket_ids)]
     return [[sh[s] for sh in shards] for s in range(len(devices))]
 
 
 def _topk_search_sharded(index, q_embs, q_masks, k: int, *, backend,
-                         chunk_docs, devices, bucket_ids=None, root=None):
+                         block_docs, chunk_docs, devices, bucket_ids=None,
+                         root=None, n_groups: int = 1, replicas: int = 1):
     """The sharded merge over ``devices`` (of ``bucket_ids``, all by
     default): each shard's (n_q, k) block is computed on its device
     (sentinel-padded to k columns where the shard holds fewer
@@ -459,9 +542,16 @@ def _topk_search_sharded(index, q_embs, q_masks, k: int, *, backend,
     blocks are copied to ``root`` (the queries' device by default) and
     merged there.  Returns (ids, scores), each (n_q, min(k, n_docs)).
     The flat mesh's streaming top-k (``--mesh host``) and one host
-    group's tier of the grid."""
+    group's tier of the grid (``n_groups`` and ``replicas`` key the
+    tuner, per bucket over ``len(devices)`` shards)."""
     n_docs = _n_docs(index)
     placed = _placed(index, devices, bucket_ids)
+    codec = _codec_of(index)
+    knobs = [_stream_knobs(*_bucket_shape(index, b), q_embs, k,
+                           block_docs=block_docs, chunk_docs=chunk_docs,
+                           codec=codec, n_shards=len(devices),
+                           n_groups=n_groups, replicas=replicas)
+             for b in _bucket_ids(index, bucket_ids)]
     on = {}
     blocks = []
     for dev, views in zip(devices, placed):
@@ -470,9 +560,9 @@ def _topk_search_sharded(index, q_embs, q_masks, k: int, *, backend,
                        None if q_masks is None else q_masks.to(dev))
         q, qm = on[dev]
         vals, ids = [], []
-        for e, mk, di in views:
+        for (e, mk, di), kn in zip(views, knobs):
             v, i = _chunk_candidates(e, mk, di, q, qm, k, backend=backend,
-                                     chunk_docs=chunk_docs, pad_from=n_docs)
+                                     knobs=kn, pad_from=n_docs)
             vals.append(v)
             ids.append(i)
         vals, ids = torch.cat(vals, dim=1), torch.cat(ids, dim=1)
@@ -523,6 +613,7 @@ def topk_search_group(index, q_embs, *, group: int, k: int = 10,
                       q_masks=None, backend: str | None = None,
                       placement: PlacementPlan | None = None,
                       buckets: tuple | None = None,
+                      block_docs: int | None = None,
                       chunk_docs: int | None = None):
     """One host group's tier of the grid merge tree: ``(ids, scores)``,
     each ``(n_q, min(k, n_docs))``, on the group's first device, from
@@ -537,7 +628,6 @@ def topk_search_group(index, q_embs, *, group: int, k: int = 10,
     the caller copies it (the grid exchange)."""
     backend = backend_lib.resolve_backend(backend, allow=backend_lib.SERVING,
                                           device=q_embs.device)
-    chunk_docs = chunk_docs or backend_lib.STREAM_CHUNK_DOCS
     mesh, n_groups, _, rules_placement = grid_axes_for()
     if mesh is None:
         raise ValueError(
@@ -567,8 +657,10 @@ def topk_search_group(index, q_embs, *, group: int, k: int = 10,
                            device=devices[0]),
                 torch.full((n_q, w), -torch.inf, device=devices[0]))
     return _topk_search_sharded(index, q_embs, q_masks, k, backend=backend,
-                                chunk_docs=chunk_docs, devices=devices,
-                                bucket_ids=bucket_ids, root=devices[0])
+                                block_docs=block_docs, chunk_docs=chunk_docs,
+                                devices=devices, bucket_ids=bucket_ids,
+                                root=devices[0], n_groups=n_groups,
+                                replicas=placement.replicas)
 
 
 def _arrive(block, root):
@@ -598,7 +690,8 @@ def _serving_assignment(placement: PlacementPlan, buckets, live, tried):
 
 
 def _topk_search_grid(index, q_embs, q_masks, k: int, *, backend, mesh,
-                      n_groups, placement, chunk_docs, monitor=None,
+                      n_groups, placement, block_docs, chunk_docs,
+                      monitor=None,
                       faults=None, selected=None, route_stats=None):
     """The grid merge tree: every host group reduces its buckets to an
     (n_q, w) block on its devices (:func:`topk_search_group`), the
@@ -635,7 +728,7 @@ def _topk_search_grid(index, q_embs, q_masks, k: int, *, backend, mesh,
         return topk_search_group(
             index, q_embs, group=group, k=k, q_masks=q_masks,
             backend=backend, placement=placement, buckets=bucket_ids,
-            chunk_docs=chunk_docs)
+            block_docs=block_docs, chunk_docs=chunk_docs)
 
     def fetch(group, block):
         if faults is not None:
@@ -740,7 +833,7 @@ def _topk_search_grid(index, q_embs, q_masks, k: int, *, backend, mesh,
 
 
 def _topk_search_routed(index, q_embs, q_masks, k: int, *, backend,
-                        chunk_docs, route, routing, n_probe,
+                        block_docs, chunk_docs, route, routing, n_probe,
                         route_threshold, route_stats, mutation=None,
                         gmesh=None, n_groups=1, placement=None, devices=None,
                         monitor=None, faults=None):
@@ -770,16 +863,17 @@ def _topk_search_routed(index, q_embs, q_masks, k: int, *, backend,
             return _topk_search_grid(
                 index, q_embs, q_masks, k, backend=backend, mesh=gmesh,
                 n_groups=n_groups, placement=placement,
-                chunk_docs=chunk_docs, monitor=monitor, faults=faults,
-                selected=bucket_ids, route_stats=stats)
+                block_docs=block_docs, chunk_docs=chunk_docs,
+                monitor=monitor, faults=faults, selected=bucket_ids,
+                route_stats=stats)
         view = _bucket_view(index, bucket_ids)
         if view is None and mutation is None:
             return _empty_topk(q_embs)
         if devices is not None:
             i, v = _topk_search_sharded(
                 index, q_embs, q_masks, k, backend=backend,
-                chunk_docs=chunk_docs, devices=devices,
-                bucket_ids=bucket_ids)
+                block_docs=block_docs, chunk_docs=chunk_docs,
+                devices=devices, bucket_ids=bucket_ids)
             # the sharded root caps at the corpus; the selection may
             # hold fewer docs, whose surplus columns are sentinels
             cap = min(k, _real_docs(view))
@@ -789,8 +883,8 @@ def _topk_search_routed(index, q_embs, q_masks, k: int, *, backend,
             base_real = 0 if view is None else _real_docs(view)
             real_cap = min(base_real + delta_real, mutation.n_live)
         return _topk_local(view, q_embs, q_masks, k, backend=backend,
-                           chunk_docs=chunk_docs, mutation=mutation,
-                           real_cap=real_cap)
+                           block_docs=block_docs, chunk_docs=chunk_docs,
+                           mutation=mutation, real_cap=real_cap)
 
     if route == "nprobe":
         selected, _ = routing_lib.select_nprobe(s_host, probe,
@@ -813,7 +907,8 @@ def _topk_search_routed(index, q_embs, q_masks, k: int, *, backend,
 
 
 def topk_search(index, q_embs, *, k: int = 10, q_masks=None,
-                backend: str | None = None, chunk_docs: int | None = None,
+                backend: str | None = None, block_docs: int | None = None,
+                chunk_docs: int | None = None,
                 route: str = "exhaustive", routing=None,
                 n_probe: int | None = None,
                 route_threshold: float | None = None,
@@ -824,7 +919,9 @@ def topk_search(index, q_embs, *, k: int = 10, q_masks=None,
     """Streaming exact top-k MaxSim: ``(top_idx, top_scores)``, each
     (n_q, min(k, n_docs)), equal to the (-score, id)-ordered top-k of
     :func:`maxsim_scores` without ever holding an (n_q, n_docs) score
-    matrix.  ``chunk_docs`` defaults to ``backend.STREAM_CHUNK_DOCS``.
+    matrix.  ``block_docs`` (the kernels' doc block) and ``chunk_docs``
+    (the slab a merge step scores) default to the autotuner's, per
+    bucket (``backend.tuned_streaming_blocks``).
 
     ``route`` is the candidate-routing tier (``serve/routing.py``):
     ``"exhaustive"`` (default) sweeps every bucket; ``"nprobe"`` and
@@ -860,7 +957,6 @@ def topk_search(index, q_embs, *, k: int = 10, q_masks=None,
     under a mesh."""
     backend = backend_lib.resolve_backend(backend, allow=backend_lib.SERVING,
                                           device=q_embs.device)
-    chunk_docs = chunk_docs or backend_lib.STREAM_CHUNK_DOCS
     if mutation is not None and mutation.n_live == 0:
         return _empty_topk(q_embs)
     if _n_docs(index) == 0 and mutation is None:
@@ -878,7 +974,8 @@ def topk_search(index, q_embs, *, k: int = 10, q_masks=None,
     if route != "exhaustive":
         return _topk_search_routed(
             index, q_embs, q_masks, k, backend=backend,
-            chunk_docs=chunk_docs, route=route, routing=routing,
+            block_docs=block_docs, chunk_docs=chunk_docs, route=route,
+            routing=routing,
             n_probe=n_probe, route_threshold=route_threshold,
             route_stats=route_stats, mutation=mutation, gmesh=gmesh,
             n_groups=n_groups, placement=placement,
@@ -887,14 +984,15 @@ def topk_search(index, q_embs, *, k: int = 10, q_masks=None,
     if gmesh is not None:
         return _topk_search_grid(
             index, q_embs, q_masks, k, backend=backend, mesh=gmesh,
-            n_groups=n_groups, placement=placement, chunk_docs=chunk_docs,
-            monitor=monitor, faults=faults)
+            n_groups=n_groups, placement=placement, block_docs=block_docs,
+            chunk_docs=chunk_docs, monitor=monitor, faults=faults)
     if devices is not None:
         return _topk_search_sharded(
             index, q_embs, q_masks, k, backend=backend,
-            chunk_docs=chunk_docs, devices=devices)
+            block_docs=block_docs, chunk_docs=chunk_docs, devices=devices)
     return _topk_local(index, q_embs, q_masks, k, backend=backend,
-                       chunk_docs=chunk_docs, mutation=mutation)
+                       block_docs=block_docs, chunk_docs=chunk_docs,
+                       mutation=mutation)
 
 
 # Query rows a first-stage product takes at once.  Every block has this
@@ -971,7 +1069,8 @@ def _rerank_candidates(index, q_embs, q_masks, cand, *, backend):
 
 def search(index, q_embs, *, k: int = 10, n_first: int = 64,
            end_to_end: bool = False, q_masks=None,
-           backend: str | None = None, chunk_docs: int | None = None,
+           backend: str | None = None, block_docs: int | None = None,
+           chunk_docs: int | None = None,
            return_full: bool = True, route: str = "exhaustive",
            routing=None, n_probe: int | None = None,
            route_threshold: float | None = None,
@@ -1016,14 +1115,16 @@ def search(index, q_embs, *, k: int = 10, n_first: int = 64,
     if end_to_end or n_first >= n_docs:
         if not return_full:
             return topk_search(index, q_embs, k=k, q_masks=q_masks,
-                               backend=backend, chunk_docs=chunk_docs,
+                               backend=backend, block_docs=block_docs,
+                               chunk_docs=chunk_docs,
                                route=route, routing=routing,
                                n_probe=n_probe,
                                route_threshold=route_threshold,
                                route_stats=route_stats, mutation=mutation,
                                placement=placement, monitor=monitor,
                                faults=faults)
-        scores = maxsim_scores(index, q_embs, q_masks, backend=backend)
+        scores = maxsim_scores(index, q_embs, q_masks, backend=backend,
+                               block_docs=block_docs)
         top_scores, top_idx = topk_lowest_index(scores, k)
         return top_idx, top_scores, scores
     if not return_full:
@@ -1079,10 +1180,15 @@ class RetrievalServer:
     buckets over the survivors (``PlacementPlan.rebalance``; this one
     process holds the whole index) and answers the same query again at
     full coverage; ``"fail"`` raises ``serve.health.DegradedCoverage``.
+
+    ``block_docs`` and ``chunk_docs`` pin the streaming sweep's knobs;
+    ``None`` takes the autotuner's, every key resolved when a batch
+    shape's closure is built (``_warm_tuner``), before it serves.
     """
 
     def __init__(self, index, *, k: int = 10, n_first: int = 64,
-                 backend: str | None = None, chunk_docs: int | None = None,
+                 backend: str | None = None, block_docs: int | None = None,
+                 chunk_docs: int | None = None,
                  max_cached_closures: int = 32, route: str = "exhaustive",
                  routing=None, n_probe: int | None = None,
                  route_threshold: float | None = None, monitor=None,
@@ -1107,6 +1213,7 @@ class RetrievalServer:
         self.n_first = n_first
         self.backend = backend_lib.resolve_backend(
             backend, allow=backend_lib.SERVING, device=index.device)
+        self._block_docs = block_docs
         self._chunk_docs = chunk_docs
         self._max_cached = max(1, int(max_cached_closures))
         self._search = collections.OrderedDict()
@@ -1212,6 +1319,48 @@ class RetrievalServer:
         elif gmesh is None and mesh is not None:
             _placed(self.index, mesh.devices_along(axes))
 
+    def _warm_tuner(self, q_embs):
+        """Resolve every tuner key the closure for this batch shape will
+        ask for, so a measured race never runs inside a served batch:
+        on the streaming e2e route (any backend: the slab is
+        backend-agnostic) each bucket's streaming key — under a grid per
+        host group's shard count, on a flat mesh per its shard count,
+        else with the live deltas' — and on a routed ``fused`` server
+        the centroid pass's key.  The two-stage route consults none."""
+        index = self.index
+        if (self.route == "exhaustive" and self._mutation is None
+                and self.n_first < _n_docs(index)):
+            return
+        kw = dict(block_docs=self._block_docs, chunk_docs=self._chunk_docs,
+                  codec=_codec_of(index))
+        gmesh, n_groups, _, placement = grid_axes_for()
+        mesh, axes, _ = mesh_axes_for("candidates")
+        if gmesh is not None:
+            placement = _resolve_placement(index, self._placement or placement,
+                                           n_groups)
+            n_cand = len(gmesh.devices_along(("candidates",), hosts=0))
+            for b in range(placement.n_buckets):
+                _stream_knobs(*_bucket_shape(index, b), q_embs, self.k,
+                              n_shards=n_cand, n_groups=n_groups,
+                              replicas=placement.replicas, **kw)
+        elif mesh is not None:
+            n_shards = len(mesh.devices_along(axes))
+            for b in _bucket_ids(index):
+                _stream_knobs(*_bucket_shape(index, b), q_embs, self.k,
+                              n_shards=n_shards, **kw)
+        else:
+            deltas = () if self._mutation is None else self._mutation.deltas
+            for leaf in (index, *deltas):
+                kw["codec"] = _codec_of(leaf)
+                for _, mk, _ in _index_views(leaf, self.backend):
+                    _stream_knobs(mk.shape[0], mk.shape[1], q_embs, self.k,
+                                  **kw)
+        if self.route != "exhaustive" and self.backend == backend_lib.FUSED:
+            r = self.routing
+            backend_lib.tuned_routing_blocks(
+                q_embs.shape[0], r.n_buckets, r.n_centroids,
+                q_embs.shape[1], r.dim, device=q_embs.device)
+
     def _closure_for(self, q_embs):
         mesh, axes, _ = mesh_axes_for("candidates")
         gmesh, n_groups, _, placement = grid_axes_for()
@@ -1231,6 +1380,7 @@ class RetrievalServer:
         if not building:
             return entry.result()
         try:
+            self._warm_tuner(q_embs)
             fn = self._build_closure()
         except BaseException as e:
             entry.set_exception(e)
@@ -1246,7 +1396,8 @@ class RetrievalServer:
         e2e = self.route != "exhaustive" or self._mutation is not None
         run = functools.partial(
             self._run, self.index, k=self.k, n_first=self.n_first,
-            backend=self.backend, chunk_docs=self._chunk_docs,
+            backend=self.backend, block_docs=self._block_docs,
+            chunk_docs=self._chunk_docs,
             end_to_end=e2e, route=self.route, routing=self.routing,
             n_probe=self.n_probe, route_threshold=self.route_threshold,
             mutation=self._mutation, placement=self._placement,

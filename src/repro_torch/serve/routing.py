@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import backend as backend_lib
-from repro_torch.core.backend import _pow2_at_least
+from repro_torch.core.tuning import _pow2_at_least
 from repro_torch.serve.index import PackedIndex
 from repro_torch.serve.retrieval import _score_block
 
@@ -253,15 +253,22 @@ def check_route(route: str, routing, index, n_probe) -> None:
 
 
 def centroid_scores(routing: RoutingIndex, q_embs, q_masks=None, *,
-                    backend: str | None = None):
+                    backend: str | None = None,
+                    block_docs: int | None = None):
     """``(S, U)``, each (n_q, n_buckets): ``S`` the centroid MaxSim (the
     table scored like any bucket, one ``colbert_maxsim_multi`` launch
-    on ``fused``), ``U = S + radius * sum_t ||q_t||`` the bounded
+    on ``fused``, its doc block from the routing-keyed tuner entry
+    unless given), ``U = S + radius * sum_t ||q_t||`` the bounded
     route's upper bound (masked query tokens add 0 to both)."""
     backend = backend_lib.resolve_backend(backend, allow=backend_lib.SERVING,
                                           device=q_embs.device)
+    if backend == backend_lib.FUSED:
+        block_docs = backend_lib.tuned_routing_blocks(
+            q_embs.shape[0], routing.n_buckets, routing.n_centroids,
+            q_embs.shape[1], routing.dim, block_docs=block_docs,
+            device=q_embs.device)
     s = _score_block(routing.centroids, routing.cmask, q_embs, q_masks,
-                     backend=backend)
+                     backend=backend, block_docs=block_docs)
     qn = torch.linalg.vector_norm(q_embs, dim=-1)
     if q_masks is not None:
         qn = torch.where(q_masks, qn, 0.0)

@@ -490,13 +490,14 @@ class TestDeviceGuard:
         scale = torch.ones(3, 8, 1)
         cb = torch.randn(4, 16, generator=g)
         run = {
-            "maxsim_top2": lambda: t2._launch(s, t, a),
-            "maxsim_topk": lambda: tk._launch(s, t, a, 4),
+            # the doc block given: its default reads the tensors' card
+            "maxsim_top2": lambda: t2._launch(s, t, a, 1),
+            "maxsim_topk": lambda: tk._launch(s, t, a, 4, 1),
             "multi_fp32": lambda: cm._launch(
-                "colbert_maxsim_multi_launch", q, d, dm, None, 3),
+                "colbert_maxsim_multi_launch", q, d, dm, None, 3, 1),
             "multi_bf16": lambda: cm._launch(
                 "colbert_maxsim_multi_launch", q, d.bfloat16(), dm, None,
-                3),
+                3, 1),
             "rerank_fp32": lambda: cm._launch(
                 "colbert_maxsim_rerank_launch", q, d[None].expand(
                     2, -1, -1, -1).contiguous(), dm[None].expand(
@@ -507,7 +508,7 @@ class TestDeviceGuard:
                     2, -1, -1).contiguous(), None, 3),
             "residual_multi": lambda: cm._residual_launch(
                 "colbert_maxsim_residual_multi_launch", q, None, codes, resq,
-                scale, cb, None, dm, 4),
+                scale, cb, None, dm, 4, 1),
             "residual_rerank": lambda: cm._residual_launch(
                 "colbert_maxsim_residual_rerank_launch", q, None,
                 codes[None].expand(2, -1, -1).contiguous(),

@@ -235,5 +235,7 @@ class TestBackendSeam:
     def test_shortlist_knobs_match_reference_heuristic(self, m):
         from repro.core.tuning import heuristic_config
         cfg = heuristic_config("pruning", n_samples=2048, m=m, dim=128)
-        assert backend_lib.shortlist_knobs(m) == (cfg.shortlist,
-                                                  cfg.rescan_every)
+        got = backend_lib.tuned("pruning", device="cpu", n_samples=2048,
+                                m=m, dim=128)
+        assert (got.shortlist, got.rescan_every) == (cfg.shortlist,
+                                                     cfg.rescan_every)
