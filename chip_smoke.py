@@ -144,7 +144,11 @@ passed — any failure exits non-zero):
    route's split pre-pass alone are timed beside it.  B4 runs on the
    int8 two-stage serve's candidates (fp32, three terms) and the main
    path's (bf16); those widened to fp32 and one query against 1,024 of
-   them (``colbert_maxsim_op``) are timed beside.  B5/B6 at 4 and 2 bits
+   them (``colbert_maxsim_op``) are timed beside, and
+   ``colbert_maxsim_batch_op`` (64 queries of 32 tokens against 1,024
+   shared docs of 128, dim 128: one B4 launch a query) is held to its
+   plain version within 1e-5, timed and bounded under B4's row
+   (``batch_op``).  B5/B6 at 4 and 2 bits
    and at 8 and 127 centroids.  Then B3, B6 and B4 (fp32 and bf16 docs)
    on docs and tables far from unit norm (randn, norm ~11) against a
    float64 MaxSim (``[norm11]``).  These launches do not
@@ -453,7 +457,27 @@ passed — any failure exits non-zero):
    request dropped, loss and every digest equal to the baseline's; and
    ``serve_bulk`` under ``a2a_lookup`` on ``fused``: one B8 launch a
    forward, no other kernel, probabilities bit-equal to the baseline
-   cell's.  The phase's seconds and the script's so far are printed.
+   cell's.  Then each cell of the reference's collective table (bytes a
+   device on the 16 x 16 production mesh, from its compiled HLO)
+   beside the port's count of the same cell on ``meta`` positions of
+   that mesh (``launch.roofline``: the parameters' and the activations'
+   collectives and the lookup exchange), counted by a CPU-only child
+   process started after the build and run beside the card's phases;
+   gate: every ratio within 25 %.  The phase's seconds and the script's
+   so far are printed.
+11f. The examples (``[examples]``, ``examples/*_torch.py``) on the card
+   through their ``main``: ``quickstart_torch`` and
+   ``prune_and_serve_torch`` at the originals' sizes, and
+   ``train_colbert_torch --full --steps 5`` into a fresh temporary
+   checkpoint directory (the full ``colbert`` config, resumed from
+   nothing).  Their figures and each kernel's launches over the three
+   are printed, with the card's name and power limit; gates: at least
+   one launch of the pruning kernel (B1 or B2, whichever the backend
+   resolves), of B3 and of B4; each example's pruning ranks >= 99 %
+   equal to the ``reference`` backend's on the card and its keep masks
+   too; quickstart's and train_colbert's MaxSim top-10s, and
+   prune_and_serve's two-stage top-10, equal to the ``reference``
+   backend's (ties within 1e-5 aside); under 90 s.
 13. The ``kernels`` JSON line; ``path_ms`` is each kernel's summed
    event time over the launches ``launches`` counts: the main path (B2,
    bf16 B3/B4), the fused pruning leg (B1), the compressed and routed
@@ -520,6 +544,43 @@ import torch
 import torch.nn.functional as F
 
 ATOL = 1e-5
+# The reference's collectives, bytes a device on the 16 x 16 production
+# mesh, from its compiled HLO (repro.launch.roofline.parse_hlo_costs;
+# the cells built on an Auto-axis mesh of 256 forced host devices)
+REF_COLLECTIVES = {
+    ("minitron-4b", "prefill_32k", "baseline"): 2.134e11,
+    ("minitron-4b", "decode_32k", "baseline"): 8.205e8,
+    ("minitron-4b", "train_4k", "baseline"): 6.592e10,
+    ("stablelm-3b", "train_4k", "baseline"): 4.224e10,
+    ("granite-moe-3b-a800m", "prefill_32k", "baseline"): 3.435e11,
+    ("granite-moe-3b-a800m", "train_4k", "baseline"): 6.327e10,
+    ("gin-tu", "ogb_products", "baseline"): 1.199e10,
+    ("gin-tu", "full_graph_sm", "baseline"): 4.214e7,
+    ("gin-tu", "molecule", "baseline"): 1.622e7,
+    ("dlrm-rm2", "train_batch", "baseline"): 9.607e8,
+    ("dlrm-rm2", "train_batch", "a2a_lookup"): 8.854e8,
+    ("dlrm-rm2", "serve_bulk", "baseline"): 2.198e8,
+    ("dlrm-rm2", "serve_p99", "baseline"): 4.29e5,
+    ("bert4rec", "serve_p99", "baseline"): 2.338e9,
+    ("colbert", "encode_corpus", "baseline"): 5.751e8,
+    ("colbert", "train_contrastive", "baseline"): 6.125e9,
+}
+COLLECTIVE_TOL = 0.25
+# The child that counts them on meta, off the card
+_COUNT_CHILD = """
+import json, sys, torch
+from repro_torch.launch import roofline, steps
+from repro_torch.launch.mesh import make_production_mesh
+mesh = make_production_mesh(devices=[torch.device("meta")])
+for arch, shape, variant in json.loads(sys.argv[1]):
+    cell = steps.build_cell(arch, shape, mesh, variant=variant,
+                            backend="reference")
+    _, costs = roofline.count_costs(cell.fn, *cell.args, mesh=mesh)
+    print(json.dumps([arch, shape, variant,
+                      roofline.collectives(cell, costs)]), flush=True)
+"""
+EXAMPLES_S = 90.0             # the [examples] phase's budget
+CHILDREN = []                 # processes to stop when the script ends
 # layer-0 received attention of the full colbert (bf16 compute), card
 # against CPU: the two round the bf16 matmuls in different orders
 R_ATOL = 1e-4
@@ -902,7 +963,8 @@ def main() -> int:
     from repro_torch.serve.retrieval import (RetrievalServer, TokenIndex,
                                              _first_stage_scores,
                                              _pooled_query_blocks,
-                                             _streaming_first_stage, search,
+                                             _streaming_first_stage,
+                                             maxsim_scores, search,
                                              topk_search)
     from repro_torch.serve.routing import RoutingIndex
     from repro_torch.core import backend as backend_lib
@@ -936,6 +998,15 @@ def main() -> int:
     secs = build.build_all(force=True)
     log(f"[build] 5 sources (8 kernels) built in {secs:.2f} s")
     timer = PathTimes(build)
+    # phase 11e's collective counts: a CPU-only child beside the card's
+    # phases, read (and waited for) in [cells]
+    counter = subprocess.Popen(
+        [sys.executable, "-c", _COUNT_CHILD,
+         json.dumps(list(REF_COLLECTIVES))],
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                 PYTHONPATH=str(Path(__file__).resolve().parent / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    CHILDREN.append(counter)
 
     rows = []
 
@@ -2549,6 +2620,39 @@ def main() -> int:
                 nbytes(q_emb, d_sub, m_sub) + N_QUERIES * d_sub.shape[1] * 4,
                 tc_flops=fl)
         del d8, m8, d16, m16
+        # colbert_maxsim_batch_op: 64 queries of 32 tokens against 1,024
+        # shared docs of 128 (dim 128), one B4 launch a query; held to
+        # its plain version and logged under B4's row
+        g = torch.Generator(device="cuda").manual_seed(5)
+        bq = torch.randn((64, 32, 128), generator=g, device="cuda")
+        bq = bq / bq.norm(dim=-1, keepdim=True)
+        bd = torch.randn((1024, 128, 128), generator=g, device="cuda")
+        bd = bd / bd.norm(dim=-1, keepdim=True)
+        bm = torch.rand((1024, 128), generator=g, device="cuda") < 0.9
+        n0 = cm_ops.colbert_maxsim_rerank_op.launches
+        o = cm_ops.colbert_maxsim_batch_op(bq, bd, bm)
+        torch.cuda.synchronize()
+        b_launches = cm_ops.colbert_maxsim_rerank_op.launches - n0
+        err, rel = score_err(o, cm_ref.colbert_maxsim_batch_ref(bq, bd, bm))
+        expect(err <= ATOL and rel <= 1e-6 and b_launches == 64,
+               f"colbert_maxsim_batch_op disagrees with plain or launched "
+               f"{b_launches} times")
+        ms = cuda_ms(lambda: cm_ops.colbert_maxsim_batch_op(bq, bd, bm))
+        plain_ms = cuda_ms(lambda: cm_ref.colbert_maxsim_batch_ref(bq, bd,
+                                                                   bm),
+                           reps=2)
+        fl = 2.0 * 64 * 32 * 1024 * 128 * 128 * split_products(bq, bd)
+        b_ms, b_by = bound(fl, nbytes(bq, bd, bm) + 64 * 1024 * 4, fl)
+        log(f"[kernel] colbert_maxsim_batch_op (B4 a query): queries "
+            f"{tuple(bq.shape)}, docs {tuple(bd.shape)} fp32 "
+            f"({terms(bd)} terms): max abs err {err:.3e} sentinel rel err "
+            f"{rel:.2e} kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound "
+            f"{b_ms:.3f} ms ({b_by}); {b_launches} B4 launches")
+        next(r for r in rows if r["name"] == "colbert_maxsim_rerank")[
+            "batch_op"] = {"launches": b_launches, "max_abs_err": err,
+                           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                           "bound_by": b_by}
+        del bq, bd, bm, o
         # B5/B6 — the residual sweeps, on the widest bucket (B5) and the
         # two-stage candidates (B6) of each residual index; the row is the
         # path's 4-bit, 8-centroid index, the others are held and logged
@@ -5177,10 +5281,123 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         a2a_phase(run, grid, on_meta, axis_rules)
+        collective_table()
         took = time.perf_counter() - phase_t
         log(f"[cells] kernel rows over the phase: {json.dumps(cells_counts)}; "
             f"the phase took {took:.2f} s, the script so far "
             f"{time.perf_counter() - script_t:.2f} s ({smi})")
+
+    def collective_table():
+        """Phase 11e's collective table: the child's counts (started
+        after the build) beside the reference's figures."""
+        out, err = counter.communicate(timeout=600)
+        expect(counter.returncode == 0,
+               f"[cells] the collective count failed: {err[-2000:]}")
+        got = {tuple(json.loads(line)[:3]): json.loads(line)[3]
+               for line in out.splitlines()}
+        for key, want in REF_COLLECTIVES.items():
+            br = got.get(key)
+            if br is None:
+                expect(False, f"[cells] no collective count for {key}")
+                continue
+            total = sum(br.values())
+            ratio = total / want
+            log(f"[cells] collectives a device on pod16x16, {' '.join(key)}:"
+                f" port (meta) {total:.4g} bytes ("
+                + ", ".join(f"{k} {v:.4g}" for k, v in br.items() if v)
+                + f"), reference HLO {want:.4g}, ratio {ratio:.3f}")
+            expect(abs(ratio - 1) <= COLLECTIVE_TOL,
+                   f"[cells] {key} collectives at {ratio:.3f} of the "
+                   f"reference's")
+
+    def examples_phase():
+        """Phase 11f, ``[examples]``: the three example counterparts on
+        the card (module docstring)."""
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+        import prune_and_serve_torch
+        import quickstart_torch
+        import train_colbert_torch
+        t0 = time.perf_counter()
+        kern = {"maxsim_top2": maxsim_top2_op, "maxsim_topk": maxsim_topk_op,
+                "colbert_maxsim_multi": cm_ops.colbert_maxsim_multi_op,
+                "colbert_maxsim_rerank": cm_ops.colbert_maxsim_rerank_op}
+        for f in kern.values():
+            f.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()) as quiet:
+            qs = quickstart_torch.main([])
+            ps = prune_and_serve_torch.main([])
+            with tempfile.TemporaryDirectory() as td:
+                tc = train_colbert_torch.main(
+                    ["--full", "--steps", "5", "--ckpt-dir",
+                     os.path.join(td, "ck")])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        n = {k: f.launches for k, f in kern.items()}
+        for line in quiet.getvalue().splitlines():
+            log(f"[examples] | {line}")
+        log(f"[examples] quickstart: nDCG@10 unpruned "
+            f"{qs['unpruned']['ndcg10']:.4f}, voronoi @50% "
+            f"{qs['voronoi']['ndcg10']:.4f}, random "
+            f"{qs['random']['ndcg10']:.4f}, first-k "
+            f"{qs['first_k']['ndcg10']:.4f}; prune_and_serve: budget "
+            f"{ps['budget']:.0%}, packed {ps['packed_mb']:.3f} MB (int8 "
+            f"{ps['int8_mb']:.3f} MB), two-stage MRR@10 "
+            f"{ps['mrr10_unpruned']:.4f} -> {ps['mrr10_packed']:.4f}, batch "
+            f"ms {({k: round(v, 3) for k, v in ps['batch_ms'].items()})}, "
+            f"compacted bit-identical {ps['compacted_identical']}; "
+            f"train_colbert (full config, 5 steps): loss "
+            f"{tc['final_loss']:.4f} in {tc['wall_s']:.2f} s, MRR@10 "
+            f"{tc['mrr10']:.4f} -> {tc['mrr10_pruned']:.4f} at "
+            f"{tc['remain_pct']:.0f}%; launches {n}; {run_s:.2f} s ({smi})")
+        expect(n["maxsim_top2"] + n["maxsim_topk"] > 0,
+               "[examples] the pruning kernel did not launch")
+        expect(n["colbert_maxsim_multi"] > 0, "[examples] B3 did not launch")
+        expect(n["colbert_maxsim_rerank"] > 0, "[examples] B4 did not launch")
+        expect(tc["start"] == 0, "[examples] train_colbert did not start "
+                                 "from nothing")
+
+        def hold_pruning(tag, d_embs, d_masks, out, frac):
+            ranks, errs, _ = voronoi.pruning_order_batch(
+                d_embs, d_masks, out["samples"], backend="reference")
+            keep = voronoi.global_keep_masks(ranks, errs, d_masks, frac)
+            real = d_masks.bool()
+            r_share = (ranks == out["ranks"])[real].float().mean().item()
+            k_share = (keep == out["keep"])[real].float().mean().item()
+            log(f"[examples] {tag}: ranks {r_share:.6f} and keep masks "
+                f"{k_share:.6f} equal to the reference backend's")
+            expect(r_share >= 0.99 and k_share >= 0.99,
+                   f"[examples] {tag} pruning strays from reference")
+
+        def hold_top10(tag, index, q_emb, q_mask, scores):
+            ref = maxsim_scores(index, q_emb, q_mask, backend="reference")
+            rs, ri = torch.sort(ref, dim=-1, descending=True, stable=True)
+            i = torch.sort(scores, dim=-1, descending=True,
+                           stable=True).indices[:, :10]
+            agree, bad = ids_ok(i.cpu(), ri[:, :10].cpu(), rs[:, :11].cpu())
+            err = (scores - ref)[ref > -1e29].abs().max().item()
+            log(f"[examples] {tag} top-10 vs reference backend: ids equal "
+                f"{agree:.4f}, untied mismatches {bad}, max |score err| "
+                f"{err:.3e}")
+            expect(bad == 0 and err <= ATOL,
+                   f"[examples] {tag} top-10 disagrees with reference")
+
+        hold_pruning("quickstart", qs["d_embs"], qs["d_masks"], qs, 0.5)
+        hold_top10("quickstart voronoi @50%", qs["pruned"], qs["q_embs"],
+                   None, qs["voronoi"]["scores"])
+        hold_pruning("prune_and_serve", ps["d_embs"], ps["d_masks"], ps,
+                     ps["budget"])
+        i, s = search(ps["packed"], ps["q_embs"], k=10, n_first=64,
+                      return_full=False)
+        hold_to_reference("[examples] prune_and_serve two-stage",
+                          ps["packed"], ps["q_embs"], 64, i.cpu(), s.cpu())
+        hold_pruning("train_colbert", tc["d_emb"], tc["d_mask"], tc, 0.5)
+        hold_top10("train_colbert unpruned",
+                   TokenIndex.build(tc["d_emb"], tc["d_mask"]), tc["q_emb"],
+                   tc["q_mask"], tc["scores"])
+        took = time.perf_counter() - t0
+        log(f"[examples] phase {took:.2f} s (the examples {run_s:.2f} s), "
+            f"the script so far {time.perf_counter() - script_t:.2f} s")
+        expect(took <= EXAMPLES_S, f"[examples] took {took:.1f} s")
 
     def a2a_phase(run, grid, on_meta, axis_rules):
         """Phase 11e's a2a legs (``[cells]``): dlrm-rm2 ``train_batch`` at
@@ -5203,7 +5420,7 @@ def main() -> int:
         for variant in ("baseline", "a2a_lookup", "a2a_zero"):
             cell = steps.build_cell("dlrm-rm2", "train_batch", grid,
                                     variant=variant)
-            coll = roofline.state_collectives(steps.build_cell(
+            coll = roofline.collectives(steps.build_cell(
                 "dlrm-rm2", "train_batch", on_meta(grid), variant=variant))
             real = steps.materialize(
                 cell, dev, torch.Generator(device=dev).manual_seed(0))
@@ -5293,6 +5510,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cells_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples_phase()
 
     # 13. kernels line
     for r_ in rows:
@@ -5325,4 +5545,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        for child in CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()

@@ -9,6 +9,8 @@ Counterpart of ``repro.kernels.colbert_maxsim.ops``:
   block (two-stage rerank), one launch;
 * :func:`colbert_maxsim_op` — one query vs a doc batch, the
   ``n_q = 1`` case of the rerank kernel;
+* :func:`colbert_maxsim_batch_op` — a query batch vs shared docs, the
+  single-query case once a query (the reference's ``vmap``);
 * :func:`colbert_maxsim_residual_multi_op` and
   :func:`colbert_maxsim_residual_rerank_op` — the same two sweeps over
   residual-codec docs, decoded inside the kernel tile by tile.
@@ -33,7 +35,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.colbert_maxsim.ref import (
-    colbert_maxsim_multi_ref, colbert_maxsim_rerank_ref,
+    colbert_maxsim_batch_ref, colbert_maxsim_multi_ref,
+    colbert_maxsim_rerank_ref,
     colbert_maxsim_residual_multi_ref, colbert_maxsim_residual_rerank_ref)
 
 L_MAX = 64   # query tokens per query the kernels take (one wgmma M)
@@ -199,6 +202,29 @@ def colbert_maxsim_op(q_emb, d_embs, d_masks, q_mask=None):
     return colbert_maxsim_rerank_op(
         q_emb[None], d_embs[None], d_masks[None],
         None if q_mask is None else q_mask[None])[0]
+
+
+def colbert_maxsim_batch_op(q_embs, d_embs, d_masks):
+    """q_embs (n_q, l, dim) x d_embs (n_docs, m, dim) -> (n_q, n_docs),
+    no query masks: the reference's ``vmap`` of the single-query kernel
+    over shared docs.  On the card, one rerank launch (B4) a query over
+    the docs as its candidates: the kernel reads a query's candidates
+    at its own offset, so a broadcast would have to be copied once a
+    query; each launch reads the shared, 16-byte aligned docs in place
+    and counts under ``colbert_maxsim_rerank_op.launches``.  Its limits
+    are B4's (1-64 query tokens, dim a multiple of 8 up to 128;
+    ``ValueError`` otherwise)."""
+    if _device_of(d_embs).type in build.PLAIN_DEVICES:
+        return colbert_maxsim_batch_ref(q_embs, d_embs, d_masks)
+    if q_embs.dim() != 3 or d_masks.dim() != 2:
+        raise ValueError("q_embs must be (n_q, l, dim) and d_masks "
+                         "(n_docs, m)")
+    out = torch.empty((q_embs.shape[0], d_masks.shape[0]),
+                      dtype=torch.float32, device=d_embs.device)
+    for i in range(q_embs.shape[0]):
+        out[i] = colbert_maxsim_rerank_op(q_embs[i:i + 1], d_embs[None],
+                                          d_masks[None])[0]
+    return out
 
 
 def _residual_launch(entry, q_embs, q_masks, codes, resq, rscale, tables,

@@ -85,6 +85,15 @@ def colbert_maxsim_multi_ref(q_embs, d_embs, d_masks, q_masks=None, *,
                    None if q_masks is None else q_masks[:, None, :])
 
 
+def colbert_maxsim_batch_ref(q_embs, d_embs, d_masks):
+    """q_embs (n_q, l, dim) x d_embs (n_docs, m, dim) -> (n_q, n_docs):
+    :func:`colbert_maxsim_ref` of each query against the shared docs."""
+    if not q_embs.shape[0]:
+        return q_embs.new_zeros((0, d_embs.shape[0]), dtype=torch.float32)
+    return torch.stack([colbert_maxsim_ref(q, d_embs, d_masks)
+                        for q in q_embs])
+
+
 def colbert_maxsim_rerank_ref(q_embs, d_subs, m_subs, q_masks=None):
     """Query i vs its own candidates: q_embs (n_q, l, dim);
     d_subs (n_q, n_cand, m, dim); m_subs (n_q, n_cand, m) ->

@@ -68,7 +68,8 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool,
         record.update(status="skipped", skip_reason=cell.skip)
         return record
     try:
-        _, costs = roofline.count_costs(cell.fn, *cell.args)
+        _, costs = roofline.count_costs(cell.fn, *cell.args,
+                                         mesh=cell.mesh)
         analysis = roofline.analyze(cell, costs, n_dev)
     except Exception as e:
         failed = getattr(getattr(e, "costs", None), "failed_op", None)

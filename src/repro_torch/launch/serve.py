@@ -109,7 +109,8 @@ from repro_torch.serve.loop import ServeLoop
 from repro_torch.serve.retrieval import (RetrievalServer, TokenIndex,
                                          topk_search)
 from repro_torch.serve.routing import RoutingIndex
-from repro_torch.sharding import PlacementPlan, axis_rules, serve_rules
+from repro_torch.sharding import (PlacementPlan, axis_rules, note_topk,
+                                 serve_rules)
 from repro_torch.train import checkpoint, train_step
 
 ENCODE_BATCH = 512   # docs per encoder forward (bounds attention memory)
@@ -769,8 +770,8 @@ def bert4rec_topk(model, cfg, items, *, k: int = 100,
     descending, ties to the lowest id)."""
     _, user = recsys.bert4rec_user_vectors(model, cfg, items,
                                            backend=backend)
-    return topk_lowest_index(recsys.score_candidates(
-        user, model.embed.weight.to(user.dtype)), k)
+    return topk_lowest_index(note_topk(recsys.score_candidates(
+        user, model.embed.weight.to(user.dtype))), k)
 
 
 @torch.no_grad()

@@ -96,6 +96,7 @@ class Cell:
     compute_dtype: torch.dtype = F32
     remat: bool = False          # a train step recomputes its blocks
     grads_pinned: bool = False   # rs_grads / zero_tables / a2a_zero
+    model_passes: int = 1        # model forwards a step (ColBERT's: 2)
     draws: dict = dataclasses.field(default_factory=dict)
 
 
@@ -618,7 +619,7 @@ def _colbert_cell(entry, shape, mesh, multi_pod, variant, backend):
                     _with_rules(rules, step), (train_step.make_train_state(model), batch),
                     (sspec, {"query_ids": bsp, "doc_ids": bsp}),
                     (sspec, None), mesh, rules, mf,
-                    compute_dtype=cfg.compute_dtype,
+                    compute_dtype=cfg.compute_dtype, model_passes=2,
                     draws={(1, "query_ids"): ids, (1, "doc_ids"): ids},
                     **common)
 

@@ -48,6 +48,7 @@ from repro_torch.core import backend as backend_lib
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.kernels.flash_attention.ref import visible
 from repro_torch.models.common import rope, rounded_einsum
+from repro_torch.sharding.specs import constrain
 
 NEG = -1e30
 
@@ -105,6 +106,9 @@ class Attention(nn.Module):
         if rope_theta is not None:
             q = rope(q, positions, rope_theta)
             k = rope(k, positions, rope_theta)
+        q = constrain(q, "batch", "seq", "heads", None)
+        k = constrain(k, "batch", "seq", "kv_heads", None)
+        v = constrain(v, "batch", "seq", "kv_heads", None)
         backend = backend_lib.resolve_backend(
             backend, allow=backend_lib.SERVING, device=x.device)
         if backend == backend_lib.FUSED and attn_mask is None:
@@ -124,7 +128,8 @@ class Attention(nn.Module):
                 ctx = torch.cat([attend(qg[:, c:c + chunk], k, v, c, causal,
                                         window, attn_mask)
                                  for c in range(0, S, chunk)], dim=1)
-        return F.linear(ctx.reshape(B, S, H * hd), self.wo.weight)
+        ctx = constrain(ctx.reshape(B, S, H * hd), "batch", "seq", "heads")
+        return F.linear(ctx, self.wo.weight)
 
 
 def _scaled(s, hd):
@@ -203,6 +208,8 @@ def decode_attention(attn: Attention, x, cache: KVCache, pos: int, *,
     slot = pos % C
     cache.k[:, :, slot] = k[:, 0].to(cache.k.dtype)
     cache.v[:, :, slot] = v[:, 0].to(cache.v.dtype)
+    constrain(cache.k, "batch", "kv_heads", "kv_len", None)
+    constrain(cache.v, "batch", "kv_heads", "kv_len", None)
 
     qg = q.view(B, KV, H // KV, hd)
     s = _scaled(rounded_einsum("bkgh,bkjh->bkgj", qg, cache.k), hd)
@@ -218,4 +225,5 @@ def decode_attention(attn: Attention, x, cache: KVCache, pos: int, *,
     w = torch.softmax(s.float(), dim=-1).to(x.dtype)
     ctx = rounded_einsum("bkgj,bkjh->bkgh", w, cache.v).reshape(B, 1,
                                                            H * hd)
+    ctx = constrain(ctx, "batch", "seq", "heads")
     return F.linear(ctx, attn.wo.weight), cache

@@ -20,6 +20,7 @@ from repro_torch.core.regularizers import ball_projection
 from repro_torch.models.attention import attention_weights_received
 from repro_torch.models.common import dense_init, embed_init, rms_norm
 from repro_torch.models.transformer import LMConfig, Transformer
+from repro_torch.sharding.specs import constrain
 
 MASK_ID = 3  # reserved vocab ids: 0=pad, 1=[Q], 2=[D], 3=[MASK]
 
@@ -67,7 +68,7 @@ class ColBERT(nn.Module):
         the compute dtype."""
         h = self.backbone.hidden_states(token_ids, attn_mask=attn_mask)
         raw = h @ self.proj.weight.T.to(self.cfg.compute_dtype)
-        return self._finalize(raw)
+        return self._finalize(constrain(raw, "batch", "seq", None))
 
     def encode_queries(self, token_ids):
         """Query augmentation: pad/truncate to ``query_len`` with [MASK]

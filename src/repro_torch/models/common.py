@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding.specs import constrain
+
 
 def dense_init(generator, in_dim, out_dim, dtype=torch.float32, scale=None):
     """(in_dim, out_dim) normal matrix scaled by 1/sqrt(in_dim)."""
@@ -80,7 +82,8 @@ def gelu(x):
 
 def swiglu(x, w_gate, w_up, w_down):
     """silu(x W_gate) * (x W_up) W_down with ``nn.Linear`` modules."""
-    return w_down(F.silu(w_gate(x)) * w_up(x))
+    h = constrain(F.silu(w_gate(x)) * w_up(x), "batch", "seq", "ffn")
+    return w_down(h)
 
 
 def mlp(x, ws, bs=None, act=F.relu, final_act: bool = False):

@@ -42,6 +42,7 @@ from torch import nn
 
 from repro_torch.core.segment import take_rows
 from repro_torch.models.common import dense_init, rounded_einsum
+from repro_torch.sharding.specs import constrain, note_topk
 
 
 class MoE(nn.Module):
@@ -121,7 +122,7 @@ def route(p: MoE, xt, top_k: int):
     order, renormalised gates (nb, tb, k) fp32)."""
     logits = xt.float() @ p.router
     probs = torch.softmax(logits, dim=-1)
-    expert_ids = top_k_ids(probs, top_k)
+    expert_ids = top_k_ids(note_topk(probs), top_k)
     gates = probs.gather(-1, expert_ids)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     return logits, probs, expert_ids, gates
@@ -162,7 +163,8 @@ def moe_ffn(p: MoE, x, *, top_k: int, capacity_factor: float = 1.25,
     nb = n_blocks(T, block_tokens)
     tb = T // nb
     cap = capacity(tb, top_k, E, capacity_factor)
-    logits, probs, expert_ids, gates = route(p, x.reshape(nb, tb, D), top_k)
+    xt = constrain(x.reshape(nb, tb, D), "batch", None, "embed")
+    logits, probs, expert_ids, gates = route(p, xt, top_k)
     cell_tok, cell_ok, slot, counts = dispatch(expert_ids, E, cap)
 
     # ---- aux losses ----
@@ -176,13 +178,15 @@ def moe_ffn(p: MoE, x, *, top_k: int, capacity_factor: float = 1.25,
     # ---- dispatch: buffer cells gather their tokens ----
     base = (torch.arange(nb, device=x.device) * tb)[:, None, None]
     buf = take_rows(x.reshape(T, D), cell_tok + base)           # (nb,E,cap,D)
-    buf = torch.where(cell_ok[..., None], buf, 0)
+    buf = constrain(torch.where(cell_ok[..., None], buf, 0),
+                    "batch", "expert", None, "embed")
 
     # ---- expert FFN (SwiGLU), batched over blocks ----
     g = rounded_einsum("becd,edf->becf", buf, p.w_gate)
     u = rounded_einsum("becd,edf->becf", buf, p.w_up)
-    h = silu(g) * u
-    out_buf = rounded_einsum("becf,efd->becd", h, p.w_down)
+    h = constrain(silu(g) * u, "batch", "expert", None, "ffn")
+    out_buf = constrain(rounded_einsum("becf,efd->becd", h, p.w_down),
+                        "batch", "expert", None, "embed")
 
     # ---- combine: a token's kept outputs, expert-ascending ----
     ex, r = torch.sort(expert_ids, dim=-1)                      # (nb, tb, k)
@@ -196,4 +200,5 @@ def moe_ffn(p: MoE, x, *, top_k: int, capacity_factor: float = 1.25,
     y = terms[:, :, 0]
     for j in range(1, top_k):
         y = y + terms[:, :, j]
+    y = constrain(y, "batch", None, "embed")
     return y.reshape(B, S, D), losses

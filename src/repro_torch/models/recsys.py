@@ -62,7 +62,7 @@ from repro_torch.kernels.embedding_bag.ref import (bag_reduce, gather_rows,
 from repro_torch.kernels.maxsim_topk.ref import topk_lowest_index
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import dense_init
-from repro_torch.sharding.specs import current_rules
+from repro_torch.sharding.specs import constrain, current_rules, note_topk
 
 __all__ = [
     "A2APlan", "Bert4RecConfig", "DCN", "DCNConfig", "DLRM", "DLRMConfig",
@@ -155,7 +155,19 @@ def _table_lookup(tables, ids, *, backend=None):
     reference's routing), else the per-feature gather."""
     if (current_rules() or {}).get("__lookup__") == "a2a":
         return alltoall_lookup(tables, ids, backend=backend)
+    _constrain_table(tables, ids)
     return _gather_lookup(tables, ids, backend)
+
+
+def _constrain_table(tables, ids):
+    """The reference's constraint on the (F, V[, D]) tables it reads at
+    ``ids`` (B, F), on a view of the stacked rows."""
+    n_feat = ids.shape[1]
+    view = tables.view(n_feat, -1, *tables.shape[1:])
+    if tables.shape[1] == 1:        # the wide table: (F, V)
+        constrain(view[..., 0], "table_axis", "table_rows", ids=ids)
+    else:
+        constrain(view, "table_axis", "table_rows", None, ids=ids)
 
 
 # ---------------------------------------------------------------------------
@@ -463,6 +475,7 @@ class DLRM(nn.Module):
     def forward(self, dense, sparse_ids, *, backend=None):
         x0 = self.bot(dense.to(self.cfg.compute_dtype), final_act=True)
         emb = _table_lookup(self.tables, sparse_ids, backend=backend)
+        emb = constrain(emb, "batch", None, None)
         return self.top(self.interact(x0, emb))[:, 0]
 
 
@@ -535,7 +548,7 @@ class DCN(nn.Module):
                         emb.reshape(B, -1)], dim=-1)
         x = x0
         for cl in self.cross:
-            x = x0 * cl(x) + x
+            x = constrain(x0 * cl(x) + x, "batch", None)
         return self.mlp(x)[:, 0]
 
 
@@ -596,6 +609,7 @@ class WideDeep(nn.Module):
     def forward(self, sparse_ids, *, backend=None):
         emb = _table_lookup(self.tables, sparse_ids, backend=backend)
         deep = self.mlp(emb.reshape(sparse_ids.shape[0], -1))[:, 0]
+        _constrain_table(self.wide, sparse_ids)
         wide = _feature_bag(self.wide, sparse_ids, "sum",
                             backend=backend)[:, 0]
         return deep + wide + self.bias
@@ -725,6 +739,7 @@ def user_tower(model: nn.Module, dense, sparse_ids, *, backend=None):
     """User vector = mean of the sparse feature embeddings (one B8 launch
     on ``fused``: B bags of F ids, ``mode="mean"``), plus the bottom
     MLP's output when the model has a dense tower -> (B, D)."""
+    _constrain_table(model.tables, sparse_ids)
     u = _feature_bag(model.tables, sparse_ids, "mean", backend=backend)
     if dense is not None and hasattr(model, "bot"):
         u = u + model.bot(dense.to(u.dtype), final_act=True)
@@ -733,7 +748,8 @@ def user_tower(model: nn.Module, dense, sparse_ids, *, backend=None):
 
 def score_candidates(user_vec, item_table):
     """(B, D) x (n_cand, D) -> (B, n_cand) in one matmul."""
-    return user_vec @ item_table.T
+    item_table = constrain(item_table, "candidates", None)
+    return constrain(user_vec @ item_table.T, "batch", "candidates")
 
 
 def retrieve_topk(model: nn.Module, dense, sparse_ids, *, k: int = 100,
@@ -743,4 +759,4 @@ def retrieve_topk(model: nn.Module, dense, sparse_ids, *, k: int = 100,
     ties to the lowest id (``lax.top_k``'s rule)."""
     u = user_tower(model, dense, sparse_ids, backend=backend)
     items = model.tables[:model.cfg.table_rows]
-    return topk_lowest_index(score_candidates(u, items), k)
+    return topk_lowest_index(note_topk(score_candidates(u, items)), k)

@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.attention import Attention, KVCache, decode_attention
 from repro_torch.models.common import dense_init, embed_init, rms_norm, swiglu
 from repro_torch.models.moe import MoE, init_moe_
+from repro_torch.sharding.specs import constrain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,13 +130,16 @@ class Block(nn.Module):
                       window=window, rope_theta=cfg.rope_theta,
                       attn_mask=attn_mask, chunk=cfg.attn_chunk,
                       remat_chunk=cfg.remat_attn_chunk, backend=backend)
-        return self._ffn(x + h, aux=True)
+        x = constrain(x + h, "batch", "seq", "embed")
+        x, aux = self._ffn(x, aux=True)
+        return constrain(x, "batch", "seq", "embed"), aux
 
     def decode(self, x, cache: KVCache, pos: int, window=None):
         h, _ = decode_attention(self.attn, rms_norm(x, self.ln1), cache, pos,
                                 window=window,
                                 rope_theta=self.cfg.rope_theta)
-        return self._ffn(x + h, aux=False)[0]
+        x = constrain(x + h, "batch", "seq", "embed")
+        return constrain(self._ffn(x, aux=False)[0], "batch", "seq", "embed")
 
 
 class Transformer(nn.Module):
@@ -163,7 +167,7 @@ class Transformer(nn.Module):
     def _final(self, tokens, attn_mask, window, backend):
         """(final hidden states (B, S, D), the MoE blocks' aux losses, a
         list with one dict a layer, empty when dense)."""
-        x = self._embed(tokens)
+        x = constrain(self._embed(tokens), "batch", "seq", "embed")
         remat = self.cfg.remat and torch.is_grad_enabled()
         auxs = []
         for layer in self.layers:
@@ -194,13 +198,15 @@ class Transformer(nn.Module):
         else:
             zero = torch.zeros((), device=x.device)
             aux = {"load_balance": zero, "router_z": zero}
-        return self.logits(x), aux
+        return constrain(self.logits(x), "batch", "seq", "vocab"), aux
 
     def forward(self, tokens, attn_mask=None, *, window="cfg", backend=None):
         """Full-sequence forward -> logits (B, S, vocab)."""
         if window == "cfg":
             window = self.cfg.window
-        return self.logits(self._final(tokens, attn_mask, window, backend)[0])
+        return constrain(self.logits(self._final(tokens, attn_mask, window,
+                                                 backend)[0]),
+                         "batch", "seq", "vocab")
 
     def init_cache(self, batch: int, max_len: int, *, window=None):
         """Stacked per-layer KV cache {"k", "v"}: (n_layers, batch,

@@ -4,18 +4,21 @@ LM, GNN and recsys cells (``specs.py``) and the bucket placement plan of the gri
 
 from repro_torch.sharding.placement import (PLACEMENT_FORMAT, PlacementPlan,
                                             bucket_weights)
-from repro_torch.sharding.specs import (axis_rules, constrain, current_rules,
+from repro_torch.sharding.specs import (axis_rules, constrain, counting,
+                                        current_rules,
                                         data_mesh_for, gnn_rules,
                                         grid_axes_for, lm_decode_rules,
                                         lm_prefill_rules, lm_rules_ep_moe,
                                         lm_train_rules, logical_to_spec,
-                                        mesh_axes_for, recsys_rules,
+                                        mesh_axes_for, note_topk,
+                                        recsys_rules,
                                         recsys_rules_rowsharded, serve_rules,
                                         spec_for)
 
 __all__ = ["PLACEMENT_FORMAT", "PlacementPlan", "axis_rules",
-           "bucket_weights", "constrain", "current_rules", "data_mesh_for",
+           "bucket_weights", "constrain", "counting", "current_rules",
+           "data_mesh_for",
            "gnn_rules", "grid_axes_for", "lm_decode_rules",
            "lm_prefill_rules", "lm_rules_ep_moe", "lm_train_rules",
-           "logical_to_spec", "mesh_axes_for", "recsys_rules",
+           "logical_to_spec", "mesh_axes_for", "note_topk", "recsys_rules",
            "recsys_rules_rowsharded", "serve_rules", "spec_for"]

@@ -15,7 +15,11 @@ with none, so code that fans work out to threads (the grid exchange,
 
 :func:`constrain` is the identity: eager PyTorch has no sharding hint
 for a compiler to honour, so placement is done by the consumers above,
-which copy each shard onto its device.  The LM, GNN and recsys rule sets
+which copy each shard onto its device.  The models call it at the
+reference's constraint points with the same logical axes, so that the
+dry run's collective counter (``launch.roofline.Collectives``, active
+under :func:`counting`) reads each constrained tensor's spec there;
+:func:`note_topk` marks the top-ks it counts.  The LM, GNN and recsys rule sets
 (:func:`lm_train_rules` and the six after it) are plain dicts equal to
 the reference's; they feed the cells' specs and the dry run's counts
 (``launch.steps``, ``launch.roofline``), and no code places tensors by
@@ -27,10 +31,11 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager
 
-__all__ = ["axis_rules", "constrain", "current_rules", "data_mesh_for",
+__all__ = ["axis_rules", "constrain", "counting", "current_rules",
+           "data_mesh_for",
            "gnn_rules", "grid_axes_for", "lm_decode_rules",
            "lm_prefill_rules", "lm_rules_ep_moe", "lm_train_rules",
-           "logical_to_spec", "mesh_axes_for", "recsys_rules",
+           "logical_to_spec", "mesh_axes_for", "note_topk", "recsys_rules",
            "recsys_rules_rowsharded", "serve_rules", "spec_for"]
 
 _state = threading.local()
@@ -76,10 +81,36 @@ def spec_for(*logical_axes) -> tuple:
     return logical_to_spec(tuple(logical_axes))
 
 
-def constrain(x, *logical_axes):
+def constrain(x, *logical_axes, ids=None):
     """The identity: eager PyTorch has no sharding constraint (module
-    docstring).  Kept so code ported from the reference reads alike."""
+    docstring).  While a counter is active (:func:`counting`) it reads
+    ``x``'s spec under the active rules; ``ids``: ``x`` is a lookup table
+    about to be read at these ids."""
+    counter = getattr(_state, "counter", None)
+    if counter is not None:
+        counter.constrain(x, logical_axes, ids)
     return x
+
+
+def note_topk(x):
+    """Mark a top-k over the last axis of ``x`` for the active counter
+    (the identity otherwise)."""
+    counter = getattr(_state, "counter", None)
+    if counter is not None:
+        counter.topk(x)
+    return x
+
+
+@contextmanager
+def counting(counter):
+    """Route this thread's :func:`constrain` and :func:`note_topk` calls
+    to ``counter`` for the enclosed region."""
+    prev = getattr(_state, "counter", None)
+    _state.counter = counter
+    try:
+        yield counter
+    finally:
+        _state.counter = prev
 
 
 def mesh_axes_for(logical: str, rules: dict | None = None):

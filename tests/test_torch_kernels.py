@@ -17,8 +17,10 @@ try:
     import jax.numpy as jnp
 
     from repro.kernels.colbert_maxsim.ops import (
-        colbert_maxsim_multi_op as j_multi, colbert_maxsim_op as j_single,
-        colbert_maxsim_rerank_op as j_rerank)
+        colbert_maxsim_batch_op as j_batch, colbert_maxsim_multi_op as j_multi,
+        colbert_maxsim_op as j_single, colbert_maxsim_rerank_op as j_rerank)
+    from repro.kernels.colbert_maxsim.ref import (
+        colbert_maxsim_ref as j_single_ref)
     from repro.kernels.maxsim_top2.ops import (
         maxsim_top2_op as j_top2, maxsim_top2_update_op as j_update,
         voronoi_errors_fused as j_errs)
@@ -214,6 +216,33 @@ class TestColbertMaxsim:
         real = want > -1e29
         np.testing.assert_allclose(got[real], want[real], atol=ATOL)
         np.testing.assert_allclose(got[~real], want[~real], rtol=1e-6)
+
+
+    def test_batch_op_matches_jax_op(self):
+        """The reference's ``vmap`` of the single-query kernel over shared
+        docs, as ``tests/test_kernels.py`` runs it, against the plain
+        version: random normal queries and docs, every token alive."""
+        import jax
+        k = jax.random.PRNGKey(9)
+        q = jax.random.normal(k, (5, 8, 32))
+        d = jax.random.normal(jax.random.fold_in(k, 1), (12, 16, 32))
+        msk = jnp.ones((12, 16), bool)
+        want = np.asarray(j_batch(q, d, msk))
+        ref = np.stack([np.asarray(j_single_ref(q[i], d, msk))
+                        for i in range(5)])
+        got = cm.colbert_maxsim_batch_op(_t(q), _t(d), _t(msk)).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+        # masked doc tokens, and the plain version by query
+        q2, d2, dm2, _ = _colbert_case(3)
+        got = cm.colbert_maxsim_batch_op(_t(q2), _t(d2), _t(dm2))
+        want = np.asarray(j_batch(jnp.asarray(q2), jnp.asarray(d2),
+                                  jnp.asarray(dm2)))
+        real = want > -1e29
+        np.testing.assert_allclose(got.numpy()[real], want[real], atol=ATOL)
+        for i in range(q2.shape[0]):
+            assert torch.equal(got[i], cm_ref.colbert_maxsim_ref(
+                _t(q2[i]), _t(d2), _t(dm2)))
 
 
 def _cuda():

@@ -87,19 +87,34 @@ def test_meta_and_cpu_counts_equal_for_the_smoke_prefill():
 
 
 def test_state_collectives_of_a_train_cell():
+    """The parameters' collectives at the reference HLO's width (4 bytes
+    a float): pure FSDP shards every leaf over all 256 positions; the
+    layer stack is gathered in the forward and again in the backward,
+    the embedding and head once; each gradient is all-reduced (or, with
+    ``rs_grads``, reduce-scattered) once.  A prefill cell gathers each
+    leaf over ``data`` (its batch axis), keeping its ``model`` split."""
     m = _meta_mesh()
     base = steps.build_cell("stablelm-3b", "train_4k", m)
     pinned = steps.build_cell("stablelm-3b", "train_4k", m,
                               variant="rs_grads")
-    params = sum(t.numel() * t.element_size()
-                 for p, t, _ in steps.leaves(base) if p[:2] == (0, "params"))
-    got, rs = (roofline.state_collectives(c) for c in (base, pinned))
-    # pure FSDP shards every leaf; remat gathers each one twice
-    assert got["all-gather"] == rs["all-gather"] == 2 * params
+    leaves = [(p, t.numel() * 4) for p, t, _ in steps.leaves(base)
+              if p[:2] == (0, "params")]
+    params = sum(b for _, b in leaves)
+    layers = sum(b for p, b in leaves if "layers" in p)
+    got, rs = (roofline.param_collectives(c) for c in (base, pinned))
+    assert got["all-gather"] == rs["all-gather"] == params + layers
     assert got["all-reduce"] == 2 * params and got["reduce-scatter"] == 0
     assert rs["reduce-scatter"] == params and rs["all-reduce"] == 0
     serve = steps.build_cell("stablelm-3b", "prefill_32k", m)
-    assert sum(roofline.state_collectives(serve).values()) == 0
+    want = 0.0
+    for p, t, spec in steps.leaves(serve):
+        axes = [a for part in spec if part for a in
+                ((part,) if isinstance(part, str) else part)]
+        if p[0] == 0 and "data" in axes:
+            want += t.numel() * 4 / (16 if "model" in axes else 1)
+    got = roofline.param_collectives(serve)
+    assert got["all-gather"] == want > 0
+    assert sum(got.values()) == want
 
 
 def test_run_cell_prefill_on_meta():
@@ -119,7 +134,18 @@ def test_run_cell_prefill_on_meta():
         sharded + replicated + tokens, rel=1e-12)
     assert a["model_flops"] == pytest.approx(2.0 * cfg.active_param_count()
                                              * 32 * 32768)
-    assert a["counted_on"] == "reference" and a["collectives"] == "state"
+    assert (a["counted_on"] == "reference"
+            and a["collectives"] == "state+activations")
+    # the attention's output and the MLP's down projections contract the
+    # 16-way heads / ffn axis: an all-reduce of the (2, 32768, 3072)
+    # block a device (fp32 in the reference's HLO) each, every layer
+    br = a["collective_breakdown"]
+    assert br["all-reduce"] == 2 * L * 2 * (2 * 32768 * D * 4)
+    # the reference's compiled HLO: 2.134e11 bytes a device (24 query
+    # heads padded to 32 and 8 KV heads on the 16-way axis; its
+    # collective-permutes are left out)
+    assert a["collective_bytes_per_device"] == pytest.approx(2.134e11,
+                                                             rel=0.15)
     assert a["model_bound_s"] == pytest.approx(
         a["model_flops"] / (256 * roofline.PEAK_BF16_FLOPS))
     assert a["flops"] > a["model_flops"]
@@ -208,13 +234,15 @@ def test_gnn_count_on_meta_bounds_the_cpu_count():
 def test_a2a_records_count_the_exchange():
     """The a2a cells' all-to-all bytes a device by the reference's
     convention, and the tables' gradients: an all-reduce of the shard
-    over ``data`` (a2a_lookup), none (a2a_zero); no table all-gather."""
+    over ``data`` (a2a_lookup), none (a2a_zero); no table all-gather.
+    The retrieval cell's user tower reads the row-sharded tables in
+    place: one all-reduce of its 26 looked-up rows over ``model``."""
     m = _meta_mesh()
     cfg = configs.get("dlrm-rm2").config
     table = 26 * cfg.table_rows * 64 * 4
     for variant, shards in (("a2a_lookup", 16), ("a2a_zero", 256)):
         cell = steps.build_cell("dlrm-rm2", "train_batch", m, variant=variant)
-        got = roofline.state_collectives(cell)
+        got = roofline.collectives(cell)
         n_req = 65_536 // 256 * 26
         cap = -(-2 * n_req // shards)
         slots = shards * cap
@@ -226,10 +254,14 @@ def test_a2a_records_count_the_exchange():
         assert got["all-reduce"] == pytest.approx(shard_reduce + 2 * mlp)
         assert got["all-gather"] == got["reduce-scatter"] == 0
         serve = steps.build_cell("dlrm-rm2", "serve_p99", m, variant=variant)
-        assert roofline.state_collectives(serve)["all-to-all"] > 0
+        assert roofline.collectives(serve)["all-to-all"] > 0
         retrieval = steps.build_cell("dlrm-rm2", "retrieval_cand", m,
-                                     variant=variant)
-        assert sum(roofline.state_collectives(retrieval).values()) == 0
+                                     variant=variant, backend="reference")
+        _, costs = roofline.count_costs(retrieval.fn, *retrieval.args,
+                                        mesh=m)
+        got = roofline.collectives(retrieval, costs)
+        assert got["all-reduce"] == 2 * 26 * 64 * 4
+        assert sum(got.values()) == got["all-reduce"]
 
 
 def test_attn_remat_counts_the_recomputed_chunks():
