@@ -457,14 +457,19 @@ passed — any failure exits non-zero):
    request dropped, loss and every digest equal to the baseline's; and
    ``serve_bulk`` under ``a2a_lookup`` on ``fused``: one B8 launch a
    forward, no other kernel, probabilities bit-equal to the baseline
-   cell's.  Then each cell of the reference's collective table (bytes a
-   device on the 16 x 16 production mesh, from its compiled HLO)
-   beside the port's count of the same cell on ``meta`` positions of
-   that mesh (``launch.roofline``: the parameters' and the activations'
-   collectives and the lookup exchange), counted by a CPU-only child
-   process started after the build and run beside the card's phases;
-   gate: every ratio within 25 %.  The phase's seconds and the script's
-   so far are printed.
+   cell's.  Then the reference's collective tables, under the card's
+   name and power limit: bytes a device from its compiled HLO, one
+   table for the 16 x 16 production mesh (27 cells: LM prefill, decode,
+   batch-1 decode and training, the GNN, CTR, BERT4Rec and ColBERT
+   cells) and one for the 2 x 16 x 16 multi-pod mesh (17 cells: the LM
+   training cells with the sequence split over ``model``, the MoE
+   decodes and prefill, BERT4Rec, the CTR retrievals and ColBERT's
+   pruning), each beside the port's count of the same cell on ``meta``
+   positions of that mesh (``launch.roofline``: the parameters' and the
+   activations' collectives and the lookup exchange), counted by a
+   CPU-only child process started after the build and run beside the
+   card's phases; gate: every ratio within 25 %.  The phase's seconds
+   and the script's so far are printed.
 11f. The examples (``[examples]``, ``examples/*_torch.py``) on the card
    through their ``main``: ``quickstart_torch`` and
    ``prune_and_serve_torch`` at the originals' sizes, and
@@ -544,39 +549,75 @@ import torch
 import torch.nn.functional as F
 
 ATOL = 1e-5
-# The reference's collectives, bytes a device on the 16 x 16 production
-# mesh, from its compiled HLO (repro.launch.roofline.parse_hlo_costs;
-# the cells built on an Auto-axis mesh of 256 forced host devices)
+# The reference's collectives, bytes a device on the two production
+# meshes (16 x 16 and 2 x 16 x 16), from its compiled HLO
+# (repro.launch.roofline.parse_hlo_costs; the cells built on an
+# Auto-axis mesh of 256 or 512 forced host devices, the multi-pod ones
+# with multi_pod=True)
 REF_COLLECTIVES = {
-    ("minitron-4b", "prefill_32k", "baseline"): 2.134e11,
-    ("minitron-4b", "decode_32k", "baseline"): 8.205e8,
-    ("minitron-4b", "train_4k", "baseline"): 6.592e10,
-    ("stablelm-3b", "train_4k", "baseline"): 4.224e10,
-    ("granite-moe-3b-a800m", "prefill_32k", "baseline"): 3.435e11,
-    ("granite-moe-3b-a800m", "train_4k", "baseline"): 6.327e10,
-    ("gin-tu", "ogb_products", "baseline"): 1.199e10,
-    ("gin-tu", "full_graph_sm", "baseline"): 4.214e7,
-    ("gin-tu", "molecule", "baseline"): 1.622e7,
-    ("dlrm-rm2", "train_batch", "baseline"): 9.607e8,
-    ("dlrm-rm2", "train_batch", "a2a_lookup"): 8.854e8,
-    ("dlrm-rm2", "serve_bulk", "baseline"): 2.198e8,
-    ("dlrm-rm2", "serve_p99", "baseline"): 4.29e5,
-    ("bert4rec", "serve_p99", "baseline"): 2.338e9,
-    ("colbert", "encode_corpus", "baseline"): 5.751e8,
-    ("colbert", "train_contrastive", "baseline"): 6.125e9,
+    ("pod16x16", "minitron-4b", "prefill_32k", "baseline"): 2.134e11,
+    ("pod16x16", "minitron-4b", "decode_32k", "baseline"): 8.205e8,
+    ("pod16x16", "minitron-4b", "train_4k", "baseline"): 6.592e10,
+    ("pod16x16", "stablelm-3b", "train_4k", "baseline"): 4.224e10,
+    ("pod16x16", "granite-moe-3b-a800m", "prefill_32k", "baseline"): 3.435e11,
+    ("pod16x16", "granite-moe-3b-a800m", "train_4k", "baseline"): 6.327e10,
+    ("pod16x16", "gin-tu", "ogb_products", "baseline"): 1.199e10,
+    ("pod16x16", "gin-tu", "full_graph_sm", "baseline"): 4.214e7,
+    ("pod16x16", "gin-tu", "molecule", "baseline"): 1.622e7,
+    ("pod16x16", "dlrm-rm2", "train_batch", "baseline"): 9.607e8,
+    ("pod16x16", "dlrm-rm2", "train_batch", "a2a_lookup"): 8.854e8,
+    ("pod16x16", "dlrm-rm2", "serve_bulk", "baseline"): 2.198e8,
+    ("pod16x16", "dlrm-rm2", "serve_p99", "baseline"): 4.29e5,
+    ("pod16x16", "bert4rec", "serve_p99", "baseline"): 2.338e9,
+    ("pod16x16", "colbert", "encode_corpus", "baseline"): 5.751e8,
+    ("pod16x16", "colbert", "train_contrastive", "baseline"): 6.125e9,
+    ("pod16x16", "dlrm-rm2", "retrieval_cand", "baseline"): 4.208e6,
+    ("pod16x16", "dcn-v2", "retrieval_cand", "baseline"): 4.198e6,
+    ("pod16x16", "wide-deep", "retrieval_cand", "baseline"): 4.205e6,
+    ("pod16x16", "bert4rec", "retrieval_cand", "baseline"): 3.855e7,
+    ("pod16x16", "bert4rec", "train_batch", "baseline"): 1.32e9,
+    ("pod16x16", "colbert", "prune_index", "baseline"): 1.32e8,
+    ("pod16x16", "granite-moe-3b-a800m", "decode_32k", "baseline"): 1.379e9,
+    ("pod16x16", "granite-moe-3b-a800m", "long_500k", "baseline"): 1.1e7,
+    ("pod16x16", "mixtral-8x7b", "prefill_32k", "baseline"): 3.81e11,
+    ("pod16x16", "mixtral-8x7b", "decode_32k", "baseline"): 1.202e10,
+    ("pod16x16", "mixtral-8x7b", "long_500k", "baseline"): 1.219e7,
+    ("pod2x16x16", "minitron-4b", "train_4k", "baseline"): 2.565e11,
+    ("pod2x16x16", "stablelm-3b", "train_4k", "baseline"): 1.803e11,
+    ("pod2x16x16", "qwen2.5-32b", "train_4k", "baseline"): 6.797e11,
+    ("pod2x16x16", "granite-moe-3b-a800m", "train_4k", "baseline"): 7.368e11,
+    ("pod2x16x16", "mixtral-8x7b", "train_4k", "baseline"): 1.657e12,
+    ("pod2x16x16", "granite-moe-3b-a800m", "long_500k", "baseline"): 5.137e8,
+    ("pod2x16x16", "mixtral-8x7b", "long_500k", "baseline"): 7.525e9,
+    ("pod2x16x16", "granite-moe-3b-a800m", "decode_32k", "baseline"): 1.371e9,
+    ("pod2x16x16", "mixtral-8x7b", "decode_32k", "baseline"): 1.2e10,
+    ("pod2x16x16", "mixtral-8x7b", "prefill_32k", "baseline"): 1.969e11,
+    ("pod2x16x16", "bert4rec", "train_batch", "baseline"): 2.055e9,
+    ("pod2x16x16", "bert4rec", "serve_bulk", "baseline"): 3.594e8,
+    ("pod2x16x16", "bert4rec", "retrieval_cand", "baseline"): 3.855e7,
+    ("pod2x16x16", "dlrm-rm2", "retrieval_cand", "baseline"): 4.208e6,
+    ("pod2x16x16", "dcn-v2", "retrieval_cand", "baseline"): 4.198e6,
+    ("pod2x16x16", "wide-deep", "retrieval_cand", "baseline"): 4.205e6,
+    ("pod2x16x16", "colbert", "prune_index", "baseline"): 1.32e8,
 }
 COLLECTIVE_TOL = 0.25
-# The child that counts them on meta, off the card
+# The child that counts them on meta, off the card (at the lowest CPU
+# priority: it runs beside the card's host-bound phases)
 _COUNT_CHILD = """
-import json, sys, torch
+import json, os, sys, torch
+os.nice(19)
 from repro_torch.launch import roofline, steps
 from repro_torch.launch.mesh import make_production_mesh
-mesh = make_production_mesh(devices=[torch.device("meta")])
-for arch, shape, variant in json.loads(sys.argv[1]):
-    cell = steps.build_cell(arch, shape, mesh, variant=variant,
-                            backend="reference")
-    _, costs = roofline.count_costs(cell.fn, *cell.args, mesh=mesh)
-    print(json.dumps([arch, shape, variant,
+meshes = {}
+for name, arch, shape, variant in json.loads(sys.argv[1]):
+    pods = name == "pod2x16x16"
+    if name not in meshes:
+        meshes[name] = make_production_mesh(
+            multi_pod=pods, devices=[torch.device("meta")])
+    cell = steps.build_cell(arch, shape, meshes[name], multi_pod=pods,
+                            variant=variant, backend="reference")
+    _, costs = roofline.count_costs(cell.fn, *cell.args, mesh=cell.mesh)
+    print(json.dumps([name, arch, shape, variant,
                       roofline.collectives(cell, costs)]), flush=True)
 """
 EXAMPLES_S = 90.0             # the [examples] phase's budget
@@ -5293,8 +5334,10 @@ def main() -> int:
         out, err = counter.communicate(timeout=600)
         expect(counter.returncode == 0,
                f"[cells] the collective count failed: {err[-2000:]}")
-        got = {tuple(json.loads(line)[:3]): json.loads(line)[3]
+        got = {tuple(json.loads(line)[:4]): json.loads(line)[4]
                for line in out.splitlines()}
+        log(f"[cells] collective table, both production meshes, counted "
+            f"off the card beside this run ({smi}):")
         for key, want in REF_COLLECTIVES.items():
             br = got.get(key)
             if br is None:
@@ -5302,8 +5345,8 @@ def main() -> int:
                 continue
             total = sum(br.values())
             ratio = total / want
-            log(f"[cells] collectives a device on pod16x16, {' '.join(key)}:"
-                f" port (meta) {total:.4g} bytes ("
+            log(f"[cells] collectives a device on {key[0]}, "
+                f"{' '.join(key[1:])}: port (meta) {total:.4g} bytes ("
                 + ", ".join(f"{k} {v:.4g}" for k, v in br.items() if v)
                 + f"), reference HLO {want:.4g}, ratio {ratio:.3f}")
             expect(abs(ratio - 1) <= COLLECTIVE_TOL,

@@ -45,7 +45,7 @@ from repro_torch.kernels.maxsim_top2.ops import (maxsim_top2_op,
                                                  maxsim_top2_update_op)
 from repro_torch.kernels.maxsim_topk.ops import maxsim_topk_op
 from repro_torch.kernels.maxsim_topk.ref import topk_lowest_index
-from repro_torch.sharding.specs import data_mesh_for
+from repro_torch.sharding.specs import data_mesh_for, note_topk
 
 __all__ = [
     "CellState",
@@ -149,7 +149,8 @@ def _select_removals(err, alive, step_size: int):
     if step_size > m:
         raise ValueError(f"step_size={step_size} exceeds m={m}")
     k_want = (alive.sum(-1) - 1).clamp(0, step_size)
-    vals, idxs = torch.sort(err, dim=-1, stable=True)
+    vals, idxs = torch.sort(note_topk(err, "batch", None), dim=-1,
+                            stable=True)
     vals, idxs = vals[:, :step_size], idxs[:, :step_size]
     take = (torch.arange(step_size, device=err.device)[None, :]
             < k_want[:, None])

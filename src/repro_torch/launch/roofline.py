@@ -69,36 +69,54 @@ cell on the card would move half).  Two parts, summed a device:
   dimension a pass (and its shard again over batch axes it is not split
   on), reduce-scattered where the cell pins gradients (``rs_grads``,
   ``zero_tables``), and a replicated parameter under a sharded batch
-  all-reduces its gradient.  A serving step (prefill, decode, encode,
+  all-reduces its gradient.  Where training splits the sequence (the
+  multi-pod mesh), the token lookup gathers the embedding table whole
+  and reduces its gradient over the sequence's axes and then the
+  batch's (a tied table's head gathers and reduces it once more), and
+  the experts' gate and up weights keep their ffn split where the
+  experts' ffn axis is.  A serving step (prefill, decode, encode,
   serve, retrieval) all-gathers each parameter over the mesh axes its
   batch uses (the FSDP axis; a tensor-parallel axis stays sharded),
-  except at decode, where a product whose weight is FSDP-sharded on its
-  output dimension (``wo``, ``w_down``) gathers its one-token
-  activations instead.  A gather over two dimensions is two gathers,
-  the last dimension first; the first one's output counts too.  A CTR
-  table (``tables``, ``wide``) is
-  never gathered: a lookup reads the rows a device holds, and the
-  table's gradient is all-reduced over the positions that hold the
-  same shard.
+  except at decode, where a dense product whose weight is FSDP-sharded
+  on its output dimension (``wo``, ``w_down``) gathers its one-token
+  activations instead, and a tied head with a replicated vocabulary
+  keeps its shard (a permute of it, the logits reduced).  A gather over
+  two dimensions is two gathers, the last dimension first; the first
+  one's output counts too.  A CTR table (``tables``, ``wide``) is never
+  gathered: a lookup reads the rows a device holds, and the table's
+  gradient is all-reduced over the positions that hold the same shard.
 * the activations (:class:`Collectives`, at the models' constraint
-  points, the reference's, through ``sharding.constrain``): a product
+  points, the reference's, through ``sharding.constrain``, and at the
+  top-ks, attentions and catalog lookups the models mark with
+  ``note_topk``, ``note_attention`` and ``note_lookup``): a product
   that contracts a sharded ``heads`` or ``ffn`` axis (attention's output
   projection, the MLP's and the experts' down projections) all-reduces
-  its output; a head axis that does not divide its mesh ways is padded
-  and gathered (queries, keys and values, and the grouped queries once
-  more where the KV heads do not divide either); a sequence sharded in
-  training gathers keys and values for attention and reduce-scatters
-  their gradients; the GNN's segment sum over sharded edges into
-  replicated nodes all-reduces the nodes (again in the backward where
-  the messages need a gradient); a lookup into a table sharded by rows
-  or table-wise all-gathers the ids over the axes the table takes from
-  the batch and all-reduces the looked-up rows (and gathers their
-  gradient back); logits sharded over the vocabulary all-reduce their
-  softmax partials; decode over a sharded cache length all-reduces
-  P.V and the softmax's max and sum; a catalog parameter read as
-  candidates is gathered whole off its FSDP axis; and a top-k under a
-  sharded batch all-gathers its operand (XLA's TopK is not
-  partitioned).
+  its output (in training, the experts' two up projections' input
+  gradients too, and their weight gradients gather the ffn side); a
+  head axis that does not divide its mesh ways is padded and gathered
+  (queries, keys and values, and the grouped queries once more where
+  the KV heads do not divide either; where only the KV heads fail to
+  divide, the queries are gathered whole and P.V reduces over the
+  split key positions); a sequence split in training runs the query
+  chunks as XLA partitions the reference's scan
+  (:meth:`Collectives.attention`) and gathers the sequence into the
+  MoE blocks; the GNN's segment sum over sharded edges into replicated
+  nodes all-reduces the nodes (again in the backward where the messages
+  need a gradient); a lookup into a table sharded by rows or table-wise
+  all-gathers the ids over the axes the table takes from the batch and
+  all-reduces the looked-up rows (and gathers their gradient back);
+  a catalog read at batch-split ids gathers its rows
+  (:meth:`Collectives.lookup`); logits sharded over the vocabulary
+  all-reduce their softmax partials; decode over a sharded cache length
+  gathers the queries and the new token's keys and values over the
+  heads' ways and all-reduces P.V and the softmax's max and sum; a
+  batch-1 decode keeps every weight's FSDP shard, so its products reduce
+  or gather their small outputs over the FSDP axis instead (on a mesh
+  with a pod axis of weight replicas, XLA gathers the experts' gate and
+  up weights there); a catalog parameter read as candidates moves its
+  FSDP split to its rows by all-to-all where the ways match, else is
+  gathered whole; and a top-k gathers an operand split on any axis
+  (XLA's TopK is not partitioned).
 
 Under the ``a2a_lookup`` and ``a2a_zero`` variants the CTR tables are
 read through ``models/recsys.py::alltoall_lookup``: the exchange is
@@ -108,13 +126,18 @@ cap int32 each, the reference's dtype, and the rows sent back, shards x
 cap x D, in the backward the rows' gradients again; ``"collectives":
 "state+activations+a2a"``).
 
-Left out: XLA's involuntary reshards (collective-permutes and stray
-all-to-alls where 24 or 8 heads meet a 16-way axis; 5.3 % of
-minitron-4b's ``prefill_32k``) and the LM embeddings' lookups (1.1 %
-there; ``ROADMAP.md`` § C).
+Every ``ok`` cell of both production meshes is within 25 % of the
+reference's compiled HLO, in total and in each type that makes up 10 %
+of it (``PERF.md`` § 6).  Left out: XLA's involuntary reshards
+(collective-permutes and stray all-to-alls where 24 or 8 heads meet a
+16-way axis; 5.3 % of minitron-4b's ``prefill_32k``) and the LM
+embeddings' lookups outside a split sequence (1.1 % there;
+``ROADMAP.md`` § C).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -403,11 +426,13 @@ def _row_table(path) -> bool:
 
 class Collectives:
     """The activation collectives of one step, a device, by the
-    reference's conventions (module docstring): ``constrain`` and
-    ``topk`` are called by ``sharding.constrain`` / ``note_topk`` at the
-    models' constraint points while :func:`sharding.counting` routes
-    them here.  ``bytes`` by collective type; ``sites`` by (type, the
-    logical axes of the constraint that counted it)."""
+    reference's conventions (module docstring): ``constrain``,
+    ``topk``, ``attention`` and ``lookup`` are called by
+    ``sharding.constrain`` and ``note_topk`` / ``note_attention`` /
+    ``note_lookup`` at the models' constraint points while
+    :func:`sharding.counting` routes them here.  ``bytes`` by collective
+    type; ``sites`` by (type, the logical axes of the constraint that
+    counted it)."""
 
     def __init__(self, mesh):
         self.shape = dict(mesh.shape)
@@ -417,6 +442,7 @@ class Collectives:
         self._edges = None      # a sharded GNN message's width
         self._nodes_grad = False
         self._queries = 0.0     # q's padded all-gather, for k's
+        self._whole = 0.0       # q's bytes with every head, for k's
 
     def _add(self, kind, nbytes, logical):
         if nbytes:
@@ -425,8 +451,14 @@ class Collectives:
             self.sites[key] = self.sites.get(key, 0.0) + nbytes
 
     def _local(self, x, spec) -> float:
-        """``x``'s bytes a device under ``spec``."""
-        return _wire(x) / _prod(_spec_axes(spec), self.shape)
+        """``x``'s bytes a device under ``spec``: each dimension split
+        into ceil(size / ways) (XLA pads a dimension shorter than its
+        ways, so a one-block MoE buffer stays whole on every device)."""
+        n = _wire(x) / max(x.numel(), 1)
+        for i, d in enumerate(x.shape):
+            part = spec[i] if i < len(spec) else None
+            n *= -(-d // _prod(_axes_of(part), self.shape))
+        return float(n)
 
     def constrain(self, x, logical, ids=None):
         rules = current_rules() or {}
@@ -452,23 +484,93 @@ class Collectives:
             prev_logical, prev_spec, prev_shape = self._last
             ways = _prod(_axes_of(prev_spec[-2]), self.shape)
             if prev_logical[-2:] == ("kv_len", None) and ways > 1:
-                # decode over a sharded cache length: P.V (every head)
-                # and the softmax's max and sum a head reduce over it
-                b = self._local(x, spec) * _prod(_axes_of(spec[-1]),
-                                                 self.shape)
+                # decode over a sharded cache length: the queries meet
+                # the cache's whole KV-head axis, gathered; P.V (every
+                # head) and the softmax's max and sum a head reduce over
+                # the length
+                local = self._local(x, spec)
+                b = local * _prod(_axes_of(spec[-1]), self.shape)
+                self._add("all-gather", b, logical)
                 self._add("all-reduce", 2.0 * b * (1 + 2 / prev_shape[-1]),
                           logical)
+                if self._fsdp_kept(x) > 1:
+                    # the q, k and v products contract the FSDP-split
+                    # input dimension: their outputs reduce over it
+                    kv = prev_shape[1] * prev_shape[-1] / x.shape[-1]
+                    self._add("all-reduce", 2.0 * local * (1 + 2 * kv),
+                              logical)
+        elif (logical == ("batch", "kv_heads", "kv_len", None)
+              and spec[1] is None):
+            # the new token's K (or V) comes from a product split over
+            # the heads' ways; the cache's KV-head axis takes it whole
+            if _prod(_axes_of(logical_to_spec(("heads",), rules)[0]),
+                     self.shape) > 1:
+                B, kv, _, hd = x.shape
+                self._add("all-gather", -(-B // _prod(_axes_of(spec[0]),
+                                                      self.shape))
+                          * kv * hd * 4.0, logical)
+        elif logical == ("batch", None, "embed") and self._seq_split():
+            # tokens into MoE blocks: XLA gathers the sequence (again in
+            # the backward)
+            b = self._local(x, spec) * (2 if self._backward(x) else 1)
+            self._add("all-gather", b, logical)
         elif logical[-1] == "embed" and self._last is not None:
             prev_logical, prev_spec, _ = self._last
             if prev_logical[-1] in ("heads", "ffn"):
                 gone = set(_axes_of(prev_spec[-1])) - _spec_axes(spec)
                 if _prod(gone, self.shape) > 1:
-                    self._add("all-reduce", 2.0 * self._local(x, spec),
+                    # in the backward, the input gradients of the two
+                    # products that made the ffn axis contract it again
+                    n = (3 if prev_logical[-1] == "ffn"
+                         and self._backward(x) else 1)
+                    b = self._local(x, spec)
+                    fsdp = self._fsdp_kept(x)
+                    if fsdp > 1:
+                        # the weight keeps its FSDP split on the output:
+                        # reduce that slice, then gather it
+                        self._add("all-gather", b, logical)
+                        b /= fsdp
+                    self._add("all-reduce", 2.0 * b * n, logical)
+        elif logical[-1] == "ffn" and logical[0] == "batch":
+            ways = _prod(_axes_of(spec[-1]), self.shape)
+            fsdp = self._fsdp_kept(x)
+            if ways > 1 and fsdp > 1:
+                used = (_spec_axes(spec) | set(_axes_of(rules.get("fsdp")))
+                        | set(_axes_of(logical_to_spec(("batch",),
+                                                       rules)[0])))
+                if (logical[1] == "expert" and self._last is not None
+                        and set(self.shape) - used):
+                    # on a mesh with an axis of whole weight replicas
+                    # (pod), XLA gathers the experts' gate and up
+                    # weights' FSDP shards instead (their ffn split kept)
+                    E, F, D = x.shape[1], x.shape[-1], self._last[2][-1]
+                    self._add("all-gather", 2.0 * E * D * -(-F // ways) * 4,
                               logical)
+                else:
+                    # the gate and up products contract the FSDP-split
+                    # input dimension: both outputs reduce over it
+                    self._add("all-reduce", 2 * 2.0 * self._local(x, spec),
+                              logical)
+            if (logical == ("batch", "expert", None, "ffn") and ways > 1
+                    and self._backward(x)):
+                # the experts' weight gradients (FSDP on every axis) take
+                # their ffn-side activation whole: one gather a weight
+                self._add("all-gather", 3 * self._local(x, spec) * ways,
+                          logical)
         elif logical == ("candidates", None) and isinstance(x, nn.Parameter):
             # a catalog parameter read as candidates leaves its FSDP
-            # sharding: XLA gathers it whole first
-            if _prod(_axes_of(rules.get("fsdp")), self.shape) > 1:
+            # split on its columns: where its rows go to as many ways,
+            # XLA moves the split by an all-to-all of its shard (then a
+            # permute where the rows' mesh axes differ), else it gathers
+            # the catalog whole
+            fsdp = set(_axes_of(rules.get("fsdp")))
+            ways = _prod(fsdp, self.shape)
+            if ways > 1 and ways == _prod(_spec_axes(spec), self.shape):
+                self._add("all-to-all", _wire(x) / ways, logical)
+                if fsdp != _spec_axes(spec):
+                    self._add("collective-permute", self._local(x, spec),
+                              logical)
+            elif ways > 1:
                 self._add("all-gather", float(_wire(x)), logical)
         elif logical[-1] == "vocab":
             ways = _prod(_axes_of(spec[-1]), self.shape)
@@ -477,6 +579,31 @@ class Collectives:
                 part = self._local(x, spec) * ways / x.shape[-1]
                 self._add("all-reduce", 2 * 2.0 * part, logical)
         self._last = (tuple(logical), spec, tuple(x.shape))
+
+    def _seq_split(self) -> bool:
+        """The last constraint split the sequence (``("batch", "seq",
+        "embed")`` with its ``seq`` on more than one position)."""
+        if self._last is None or self._last[0] != ("batch", "seq", "embed"):
+            return False
+        return _prod(_axes_of(self._last[1][1]), self.shape) > 1
+
+    def _fsdp_kept(self, x) -> int:
+        """The ways of a serving step's FSDP axes that its batch leaves
+        free (the batch-1 decode): there XLA keeps each weight's FSDP
+        shard and moves the activations instead of gathering it."""
+        if x.requires_grad:
+            return 1
+        rules = current_rules() or {}
+        batch = set(_axes_of(logical_to_spec(("batch",), rules)[0]))
+        return _prod(set(_axes_of(rules.get("fsdp"))) - batch, self.shape)
+
+    @staticmethod
+    def _backward(x) -> bool:
+        """``x`` will take a gradient and this is the step's first
+        forward (not its recomputation inside the backward): the place
+        to count the backward's collectives once."""
+        return (x.requires_grad
+                and torch._C._current_graph_task_id() == -1)
 
     def _heads(self, x, spec, logical):
         """q, then k, then v (B, S, heads, hd) at attention's
@@ -487,23 +614,84 @@ class Collectives:
         shape = self.shape
         heads = x.shape[2]
         ways = _prod(_axes_of(spec[2]), shape)
+        rest = _prod(_spec_axes(spec) - set(_axes_of(spec[2])), shape)
         full = 0.0
         if ways > 1 and heads % ways:
-            rest = _prod(_spec_axes(spec) - set(_axes_of(spec[2])), shape)
             padded = -(-heads // ways) * ways if heads > ways else heads
             full = _wire(x) / heads * padded / rest
         if logical[2] == "heads":
             self._queries = full
+            self._whole = _wire(x) / rest if ways > 1 else 0.0
         elif full:
-            full += self._queries
-            self._queries = 0.0
+            if self._queries:
+                full += self._queries
+            elif self._whole:
+                # queries whose heads divide their ways meet KV heads
+                # that do not: XLA gathers the queries' group factor,
+                # then their KV-head factor, and splits the keys'
+                # positions instead, so P.V reduces the whole output
+                full += self._whole * (1 + 1 / heads)
+                self._add("all-reduce", 2.0 * self._whole, logical)
+            self._queries = self._whole = 0.0
         self._add("all-gather", full, logical)
-        seq = _prod(_axes_of(spec[1]), shape)
-        if logical[2] == "kv_heads" and seq > 1:
-            gathered = self._local(x, spec) * seq
-            self._add("all-gather", gathered, logical)
-            if x.requires_grad:
-                self._add("reduce-scatter", gathered, logical)
+
+    def attention(self, q, k, chunk):
+        """Attention over a sequence sharded ``W`` ways (training on the
+        multi-pod mesh), counted as XLA partitions the reference's
+        query-chunk scan.  The sequence's ways split into ``a`` on the
+        chunk index and ``r`` on a chunk's rows; every chunk step
+        gathers the stacked query chunks' index (once a layer pass, twice
+        in the backward).  Where the query group ``g`` (heads a KV head)
+        is at most ``r`` (or ``r`` is 1), the keys stay split ``W`` ways:
+        a chunk gathers its query rows, reduces P.V over the rows' ways
+        at full rows and over the index's ways at its own rows, and
+        reduces the softmax's max and sum over all ``W``; the backward
+        gathers the output gradient's and the probabilities' rows and
+        reduces dQ as P.V.  Where ``g`` is larger, keys and values are
+        gathered over the rows' ways once a layer pass and the query rows
+        stay split.  Forward terms count at each call, the recomputation
+        included; backward terms at the first call of a step that
+        records gradients."""
+        logical = ("batch", "seq", "heads", None)
+        spec = logical_to_spec(logical, current_rules() or {})
+        W = _prod(_axes_of(spec[1]), self.shape)
+        if W <= 1:
+            return
+        B, S, H, hd = q.shape
+        kv = k.shape[2]
+        g = H // kv
+        c = S if chunk is None else min(chunk, S)
+        n = -(-S // c)
+        a = math.gcd(W, n)
+        r = W // a
+        row = B / _prod(_axes_of(spec[0]), self.shape) * 4  # fp32, a row
+        qc = row * c * H * hd                      # one query chunk
+        bwd = self._backward(q)
+        if a > 1:
+            self._add("all-gather", row * n * c / r * H * hd * (3 if bwd
+                                                                else 1),
+                      logical)
+        pv = 2 * qc / r if a > 1 else 0.0         # P.V over the index
+        if r == 1 or g <= r:
+            full = qc if r > 1 else 0.0
+            soft = row * H * c
+            # the backward gathers the probabilities' rows once more
+            # where the group neither is 1 nor fills the rows' ways
+            again = int(1 < g and g % r != 0)
+            ag = n * full * (1 + (2 + again if bwd else 0))
+            ar = n * ((2 * full + pv) * (2 if bwd else 1)
+                      + 2 * 2 * soft + (2 * soft if bwd else 0))
+            if bwd and r > 1 and g % r == 0:
+                # dS's rows onto the group axis, and back
+                self._add("all-to-all", n * 2 * soft * S / W, logical)
+        else:
+            kvg = row * S / a * kv * hd           # K (or V) over the rows
+            soft = row * H * c / r
+            ag = 2 * kvg * (2 if bwd else 1)
+            ar = n * (pv * (2 if bwd else 1) + 2 * 2 * soft
+                      + (2 * soft + 2 * 2 * kvg if bwd else 0))
+        self._add("all-gather", ag, logical)
+        self._add("all-reduce", ar, logical)
 
     def _lookup(self, table, spec, ids, rules, logical):
         """A lookup of ``table`` (F, V[, D]) at ``ids`` (B, F)."""
@@ -524,10 +712,43 @@ class Collectives:
                     and batch - kept):
                 self._add("all-gather", rows, logical)
 
-    def topk(self, x):
-        batch = logical_to_spec(("batch",), current_rules() or {})[0]
-        if _prod(_axes_of(batch), self.shape) > 1:
-            self._add("all-gather", _wire(x), ("top_k",))
+    def lookup(self, table, ids):
+        """Rows of a catalog parameter (V, D), FSDP-split on D, read at
+        batch-split ids (BERT4Rec's labels and serving targets), as XLA
+        partitions the gather: the rows are read at the column shard and
+        gathered over the batch's innermost axis; where the batch spans
+        a further axis (the multi-pod mesh's ``pod``) they are then
+        gathered whole, columns over the FSDP axis and rows over the
+        rest, else they return to their batch shards by an all-to-all
+        and a permute.  In training each such read all-reduces its own
+        whole-table gradient over every device."""
+        rules = current_rules() or {}
+        shape = self.shape
+        fsdp = set(_axes_of(rules.get("fsdp")))
+        batch = _axes_of(logical_to_spec(("batch",), rules)[0])
+        fw = _prod(fsdp, shape)
+        if fw <= 1 or _prod(batch, shape) <= 1:
+            return
+        free = [a for a in batch if a not in fsdp]
+        rest = _prod(free[:-1], shape)
+        rows = ids.numel() * table.shape[1] * 4    # every column, fp32
+        logical = ("lookup",)
+        self._add("all-gather", rows / rest / fw, logical)
+        if rest > 1:
+            self._add("all-gather", rows / rest + rows, logical)
+        else:
+            local = rows / _prod(batch, shape)
+            self._add("all-to-all", local, logical)
+            self._add("collective-permute", local, logical)
+        if torch.is_grad_enabled() and table.requires_grad:
+            self._add("all-reduce", 2.0 * _wire(table), logical)
+
+    def topk(self, x, logical):
+        """A top-k over ``x``'s last axis: XLA's TopK is not partitioned,
+        so an operand sharded on any axis is gathered whole."""
+        spec = logical_to_spec(tuple(logical), current_rules() or {})
+        if _prod(_spec_axes(spec), self.shape) > 1:
+            self._add("all-gather", float(_wire(x)), ("top_k",))
 
 
 def _gathered(nbytes, spec, axes: set, shape: dict) -> float:
@@ -550,7 +771,13 @@ def _decode_gathers_tokens(path, spec, fsdp: set) -> bool:
     activations, not the weight."""
     return (len(spec) >= 2 and bool(_axes_of(spec[-1]))
             and set(_axes_of(spec[-1])) <= fsdp
-            and path[-1] in ("wo", "w_down"))
+            and path[-1] in ("wo", "w_down") and "moe" not in path)
+
+
+def _head_keeps_shard(path, spec, tied: bool) -> bool:
+    """The LM head at decode when its vocabulary dimension is replicated
+    (the tied ``embed`` (vocab, d), FSDP on d)."""
+    return tied and path[1:] == ("embed",) and spec[0] is None
 
 
 def param_collectives(cell, tree=None) -> dict:
@@ -562,15 +789,27 @@ def param_collectives(cell, tree=None) -> dict:
     n_pos = int(cell.mesh.devices.size)
     items = list(leaves(cell, tree))
     passes = cell.model_passes
+    tied = not any("lm_head" in p for p, _, _ in items)
     if cell.kind == "train":
         batch_sharded = any(_ways(s, shape) > 1 for p, _, s in items
                             if p[0] == 1)
         batch_axes = set().union(*(_spec_axes(s) for p, _, s in items
                                    if p[0] == 1))
+        seq = _prod(_axes_of(cell.rules.get("seq")), shape) > 1
+        ffn_ways = _prod(_axes_of(logical_to_spec(
+            ("batch", "expert", None, "ffn"), cell.rules)[3]), shape)
         for p, t, s in items:
             if p[:2] != (0, "params"):
                 continue
             b, ways = _wire(t), _ways(s, shape)
+            if seq and p[2:] == ("embed",):
+                # the token lookup under a sharded sequence gathers the
+                # table and reduces its gradient over the sequence's axes,
+                # then the batch's; a tied table's head gathers and
+                # reduces once more
+                out["all-gather"] += b * (2 if tied else 1)
+                out["all-reduce"] += 2 * b * (3 if tied else 2)
+                continue
             if _row_table(p):
                 if ways < n_pos:        # shard replicas reduce the gradient
                     out["all-reduce"] += 2 * b / ways
@@ -578,9 +817,12 @@ def param_collectives(cell, tree=None) -> dict:
                     out["reduce-scatter"] += b
                 continue
             if ways > 1:
-                out["all-gather"] += (_gathered(b, s, _spec_axes(s), shape)
-                                      * passes
-                                      * (2 if "layers" in p else 1))
+                g = _gathered(b, s, _spec_axes(s), shape)
+                if p[-2:] in (("moe", "w_gate"), ("moe", "w_up")):
+                    # their ffn dimension stays split where the experts'
+                    # ffn axis is
+                    g /= ffn_ways
+                out["all-gather"] += g * passes * (2 if "layers" in p else 1)
                 if cell.grads_pinned:
                     out["reduce-scatter"] += b * passes
                 else:
@@ -604,6 +846,15 @@ def param_collectives(cell, tree=None) -> dict:
             continue
         gathered = _spec_axes(s) & batch
         if _prod(gathered, shape) <= 1:
+            continue
+        if tokens is not None and _head_keeps_shard(p, s, tied):
+            # a head whose vocabulary is replicated keeps its FSDP
+            # shard: the shard moves to the tokens and the logits
+            # reduce over the FSDP axis
+            vocab = t.shape[0]
+            out["collective-permute"] += _wire(t) / _ways(s, shape)
+            out["all-reduce"] += 2.0 * tokens / _prod(batch, shape) \
+                * vocab * 4
             continue
         local = _gathered(_wire(t), s, gathered, shape)
         if tokens is not None and _decode_gathers_tokens(p, s, fsdp):

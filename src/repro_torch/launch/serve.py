@@ -109,8 +109,8 @@ from repro_torch.serve.loop import ServeLoop
 from repro_torch.serve.retrieval import (RetrievalServer, TokenIndex,
                                          topk_search)
 from repro_torch.serve.routing import RoutingIndex
-from repro_torch.sharding import (PlacementPlan, axis_rules, note_topk,
-                                 serve_rules)
+from repro_torch.sharding import (PlacementPlan, axis_rules, note_lookup,
+                                  note_topk, serve_rules)
 from repro_torch.train import checkpoint, train_step
 
 ENCODE_BATCH = 512   # docs per encoder forward (bounds attention memory)
@@ -771,7 +771,7 @@ def bert4rec_topk(model, cfg, items, *, k: int = 100,
     _, user = recsys.bert4rec_user_vectors(model, cfg, items,
                                            backend=backend)
     return topk_lowest_index(note_topk(recsys.score_candidates(
-        user, model.embed.weight.to(user.dtype))), k)
+        user, model.embed.weight.to(user.dtype)), "batch", "candidates"), k)
 
 
 @torch.no_grad()
@@ -781,7 +781,8 @@ def bert4rec_pair_scores(model, cfg, items, targets, *,
     embedding of its target item (B,) -> (B,) scores."""
     _, user = recsys.bert4rec_user_vectors(model, cfg, items,
                                            backend=backend)
-    it = model.embed.weight[targets.long()].to(user.dtype)
+    table = model.embed.weight
+    it = table[note_lookup(table, targets).long()].to(user.dtype)
     return (user * it).sum(-1)
 
 

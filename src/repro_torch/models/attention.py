@@ -48,7 +48,7 @@ from repro_torch.core import backend as backend_lib
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.kernels.flash_attention.ref import visible
 from repro_torch.models.common import rope, rounded_einsum
-from repro_torch.sharding.specs import constrain
+from repro_torch.sharding.specs import constrain, note_attention
 
 NEG = -1e30
 
@@ -109,6 +109,7 @@ class Attention(nn.Module):
         q = constrain(q, "batch", "seq", "heads", None)
         k = constrain(k, "batch", "seq", "kv_heads", None)
         v = constrain(v, "batch", "seq", "kv_heads", None)
+        note_attention(q, k, chunk)
         backend = backend_lib.resolve_backend(
             backend, allow=backend_lib.SERVING, device=x.device)
         if backend == backend_lib.FUSED and attn_mask is None:

@@ -122,7 +122,7 @@ def route(p: MoE, xt, top_k: int):
     order, renormalised gates (nb, tb, k) fp32)."""
     logits = xt.float() @ p.router
     probs = torch.softmax(logits, dim=-1)
-    expert_ids = top_k_ids(note_topk(probs), top_k)
+    expert_ids = top_k_ids(note_topk(probs, "batch", None, None), top_k)
     gates = probs.gather(-1, expert_ids)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     return logits, probs, expert_ids, gates

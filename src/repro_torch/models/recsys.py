@@ -62,7 +62,8 @@ from repro_torch.kernels.embedding_bag.ref import (bag_reduce, gather_rows,
 from repro_torch.kernels.maxsim_topk.ref import topk_lowest_index
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import dense_init
-from repro_torch.sharding.specs import constrain, current_rules, note_topk
+from repro_torch.sharding.specs import (constrain, current_rules, note_lookup,
+                                        note_topk)
 
 __all__ = [
     "A2APlan", "Bert4RecConfig", "DCN", "DCNConfig", "DLRM", "DLRMConfig",
@@ -707,7 +708,7 @@ def bert4rec_sampled_logits(model: tfm.Transformer, cfg: Bert4RecConfig,
     rows = torch.arange(B, device=h.device)[:, None] * S + mask_idx.long()
     hm = take_rows(h.reshape(B * S, D), rows)                   # (B, M, D)
     table = model.embed.weight.to(h.dtype)                      # (V, D)
-    pos_emb = take_rows(table, labels.long())                   # (B, M, D)
+    pos_emb = take_rows(table, note_lookup(table, labels).long())  # (B,M,D)
     neg_emb = take_rows(table, negatives.long())                # (N, D)
     pos_logit = (hm * pos_emb).sum(-1)                          # (B, M)
     neg_logits = hm @ neg_emb.T                                 # (B, M, N)
@@ -759,4 +760,5 @@ def retrieve_topk(model: nn.Module, dense, sparse_ids, *, k: int = 100,
     ties to the lowest id (``lax.top_k``'s rule)."""
     u = user_tower(model, dense, sparse_ids, backend=backend)
     items = model.tables[:model.cfg.table_rows]
-    return topk_lowest_index(note_topk(score_candidates(u, items)), k)
+    return topk_lowest_index(
+        note_topk(score_candidates(u, items), "batch", "candidates"), k)

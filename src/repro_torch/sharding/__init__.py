@@ -10,7 +10,8 @@ from repro_torch.sharding.specs import (axis_rules, constrain, counting,
                                         grid_axes_for, lm_decode_rules,
                                         lm_prefill_rules, lm_rules_ep_moe,
                                         lm_train_rules, logical_to_spec,
-                                        mesh_axes_for, note_topk,
+                                        mesh_axes_for, note_attention,
+                                        note_lookup, note_topk,
                                         recsys_rules,
                                         recsys_rules_rowsharded, serve_rules,
                                         spec_for)
@@ -20,5 +21,6 @@ __all__ = ["PLACEMENT_FORMAT", "PlacementPlan", "axis_rules",
            "data_mesh_for",
            "gnn_rules", "grid_axes_for", "lm_decode_rules",
            "lm_prefill_rules", "lm_rules_ep_moe", "lm_train_rules",
-           "logical_to_spec", "mesh_axes_for", "note_topk", "recsys_rules",
+           "logical_to_spec", "mesh_axes_for", "note_attention", "note_lookup",
+           "note_topk", "recsys_rules",
            "recsys_rules_rowsharded", "serve_rules", "spec_for"]

@@ -19,9 +19,11 @@ which copy each shard onto its device.  The models call it at the
 reference's constraint points with the same logical axes, so that the
 dry run's collective counter (``launch.roofline.Collectives``, active
 under :func:`counting`) reads each constrained tensor's spec there;
-:func:`note_topk` marks the top-ks it counts.  The LM, GNN and recsys rule sets
-(:func:`lm_train_rules` and the six after it) are plain dicts equal to
-the reference's; they feed the cells' specs and the dry run's counts
+:func:`note_topk`, :func:`note_attention` and :func:`note_lookup` mark
+the top-ks, attentions and catalog lookups it counts.  The LM, GNN and
+recsys rule sets (:func:`lm_train_rules` and the six after it) are
+plain dicts equal to the reference's; they feed the cells' specs and
+the dry run's counts
 (``launch.steps``, ``launch.roofline``), and no code places tensors by
 them: placing a model over several cards is ROADMAP item 7c.
 """
@@ -35,7 +37,8 @@ __all__ = ["axis_rules", "constrain", "counting", "current_rules",
            "data_mesh_for",
            "gnn_rules", "grid_axes_for", "lm_decode_rules",
            "lm_prefill_rules", "lm_rules_ep_moe", "lm_train_rules",
-           "logical_to_spec", "mesh_axes_for", "note_topk", "recsys_rules",
+           "logical_to_spec", "mesh_axes_for", "note_attention",
+           "note_lookup", "note_topk", "recsys_rules",
            "recsys_rules_rowsharded", "serve_rules", "spec_for"]
 
 _state = threading.local()
@@ -92,19 +95,37 @@ def constrain(x, *logical_axes, ids=None):
     return x
 
 
-def note_topk(x):
-    """Mark a top-k over the last axis of ``x`` for the active counter
-    (the identity otherwise)."""
+def note_topk(x, *logical_axes):
+    """Mark a top-k over the last axis of ``x``, whose logical axes are
+    ``logical_axes``, for the active counter (the identity otherwise)."""
     counter = getattr(_state, "counter", None)
     if counter is not None:
-        counter.topk(x)
+        counter.topk(x, logical_axes)
     return x
+
+
+def note_attention(q, k, chunk):
+    """Mark attention of queries ``q`` (B, S, heads, hd) over keys ``k``
+    (B, S, kv_heads, hd) in query chunks of ``chunk`` rows (``None``:
+    one chunk) for the active counter (a no-op otherwise)."""
+    counter = getattr(_state, "counter", None)
+    if counter is not None:
+        counter.attention(q, k, chunk)
+
+
+def note_lookup(table, ids):
+    """Mark a read of ``table``'s rows (a catalog parameter) at ``ids``
+    for the active counter; returns ``ids``."""
+    counter = getattr(_state, "counter", None)
+    if counter is not None:
+        counter.lookup(table, ids)
+    return ids
 
 
 @contextmanager
 def counting(counter):
-    """Route this thread's :func:`constrain` and :func:`note_topk` calls
-    to ``counter`` for the enclosed region."""
+    """Route this thread's :func:`constrain` and ``note_*`` calls to
+    ``counter`` for the enclosed region."""
     prev = getattr(_state, "counter", None)
     _state.counter = counter
     try:

@@ -236,7 +236,9 @@ def test_a2a_records_count_the_exchange():
     convention, and the tables' gradients: an all-reduce of the shard
     over ``data`` (a2a_lookup), none (a2a_zero); no table all-gather.
     The retrieval cell's user tower reads the row-sharded tables in
-    place: one all-reduce of its 26 looked-up rows over ``model``."""
+    place: one all-reduce of its 26 looked-up rows over ``model``; its
+    top-k gathers the candidate scores, split over ``model``, whole
+    (XLA's TopK is not partitioned)."""
     m = _meta_mesh()
     cfg = configs.get("dlrm-rm2").config
     table = 26 * cfg.table_rows * 64 * 4
@@ -261,7 +263,8 @@ def test_a2a_records_count_the_exchange():
                                         mesh=m)
         got = roofline.collectives(retrieval, costs)
         assert got["all-reduce"] == 2 * 26 * 64 * 4
-        assert sum(got.values()) == got["all-reduce"]
+        assert got["all-gather"] == cfg.table_rows * 4
+        assert sum(got.values()) == got["all-reduce"] + got["all-gather"]
 
 
 def test_attn_remat_counts_the_recomputed_chunks():
