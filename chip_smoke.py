@@ -470,7 +470,32 @@ passed — any failure exits non-zero):
    CPU-only child process started after the build and run beside the
    card's phases; gate: every ratio within 25 %.  The phase's seconds
    and the script's so far are printed.
-11f. The examples (``[examples]``, ``examples/*_torch.py``) on the card
+11f. Placed training (``[placed]``, ``sharding.placed``): LM train
+   cells stepped over a ``data x model`` = 2 x 4 mesh of eight card
+   positions by their specs, from one controller, the gathered states
+   held against one-device steps; no kernel of the port launches
+   (counted).  (a) ``tests/test_sharded_exec.py``'s config (2 layers,
+   d_model 32, fp32; AdamW lr 1e-3, no warm-up) on numpy tokens (8, 16),
+   parameters replicated: 3 steps bit-equal to the one-device
+   ``accum=8`` step (loss, norm, every parameter and moment), the first
+   loss within 1e-4 of ``accum=1``.  (b) minitron-4b ``train_4k`` at
+   full width cut to ``PL_LAYERS`` of 32 layers and ``PL_BATCH`` x 4,096
+   (one row a position) by its FSDP specs: 4 steps bit-equal to
+   ``accum=8``; ``accum=1`` at ``PL_ROWS`` rows (cut: its fp32 logits)
+   against the placed step of its rows on 1 x ``PL_ROWS`` positions,
+   loss within 1e-4 (gap logged).  (c) granite-moe-3b-a800m
+   ``train_4k`` at the same cut as its baseline cell builds it (two
+   dispatch blocks a position, the expert counts summed over the
+   positions): loss within 1e-4 of ``accum=1``, routings (the placed
+   step's routing pass against the one-device forward) equal past
+   ``ROUTE_GAP`` as in ``[moe]``.  (d) ``ep_moe``: 10 of 40 experts a
+   ``model`` position, routings equal to (c)'s, loss within 1e-4 of it,
+   every leaf's bit-equality (or the largest gap and its leaf) after 4
+   steps.  Printed a leg: step ms (median of 3 after a warm-up) of the
+   placed step and of the one-device steps, peak GB, bytes of state a
+   position (and of expert pieces), beside the card's name and power
+   limit.
+11g. The examples (``[examples]``, ``examples/*_torch.py``) on the card
    through their ``main``: ``quickstart_torch`` and
    ``prune_and_serve_torch`` at the originals' sizes, and
    ``train_colbert_torch --full --steps 5`` into a fresh temporary
@@ -712,6 +737,10 @@ GNN_BLOCK_FILL = 0.95
 # block's first CELL_PRUNE_DOCS docs; decode_32k runs CELL_DEC_STEPS steps
 # from position CELL_DEC_POS of its 32,768-slot cache
 CELL_PRUNE_DOCS, CELL_DEC_POS, CELL_DEC_STEPS = 128, 32_000, 8
+# [placed]: minitron-4b and granite train_4k at full width cut to PL_LAYERS
+# of 32 layers and PL_BATCH x 4,096 (one row a position of the 2 x 4
+# mesh); minitron's accum=1 step at PL_ROWS rows (its fp32 logits)
+PL_LAYERS, PL_BATCH, PL_ROWS = 4, 8, 2
 
 
 def log(*a):
@@ -848,7 +877,7 @@ class RouteLog:
     router logit (nb, tb) by MoE module, in call order; or, in replay
     mode, routes to ids a function gives (the call's module and input ->
     ids) with the run's own gates over them.  Recording adds one top-k
-    over each call's logits."""
+    over each call's logits (under autograd too: training steps)."""
 
     def __init__(self, moe_lib):
         self.lib, self.orig = moe_lib, moe_lib.route
@@ -867,7 +896,9 @@ class RouteLog:
             ids = self.replay(p, xt)
             gates = probs.gather(-1, ids)
             gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
-        top = logits.topk(k + 1, dim=-1).values
+        # detached: under autograd a kept gap would hold its layer's
+        # graph (and a remat frame's recomputed tensors) past the backward
+        top = logits.detach().topk(k + 1, dim=-1).values
         self.calls.setdefault(p, []).append((ids, top[..., k - 1]
                                              - top[..., k]))
         return logits, probs, ids, gates
@@ -5354,7 +5385,7 @@ def main() -> int:
                    f"reference's")
 
     def examples_phase():
-        """Phase 11f, ``[examples]``: the three example counterparts on
+        """Phase 11g, ``[examples]``: the three example counterparts on
         the card (module docstring)."""
         sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
         import prune_and_serve_torch
@@ -5441,6 +5472,311 @@ def main() -> int:
         log(f"[examples] phase {took:.2f} s (the examples {run_s:.2f} s), "
             f"the script so far {time.perf_counter() - script_t:.2f} s")
         expect(took <= EXAMPLES_S, f"[examples] took {took:.1f} s")
+
+    def placed_phase():
+        """Phase 11f, ``[placed]``: LM train cells run placed over a
+        2 x 4 ``data x model`` mesh of the card's positions by
+        ``sharding.placed`` (module docstring)."""
+        from repro_torch import sharding
+        from repro_torch.launch import steps
+        from repro_torch.launch.mesh import Mesh
+        phase_t = time.perf_counter()
+        dev = torch.device("cuda")
+        grid = Mesh([torch.device("cuda", 0)] * 8, ("data", "model"), (2, 4))
+        every = (maxsim_top2_op, maxsim_topk_op,
+                 cm_ops.colbert_maxsim_multi_op,
+                 cm_ops.colbert_maxsim_rerank_op,
+                 cm_ops.colbert_maxsim_residual_multi_op,
+                 cm_ops.colbert_maxsim_residual_rerank_op,
+                 fa_ops.flash_attention_op, embedding_bag_op)
+        n0 = sum(op.launches for op in every)
+
+        def cell_of(arch, cfg, batch, seq, mesh, variant="baseline"):
+            """``arch``'s train_4k cell at ``cfg`` and batch x seq (the
+            registry's entry swapped while it is built)."""
+            entry = configs_base._REGISTRY[arch]
+            shape = dataclasses.replace(
+                entry.shapes["train_4k"],
+                dims={"seq_len": seq, "global_batch": batch})
+            configs_base._REGISTRY[arch] = dataclasses.replace(
+                entry, config=cfg, shapes={**entry.shapes,
+                                           "train_4k": shape})
+            try:
+                return steps.build_cell(arch, "train_4k", mesh,
+                                        variant=variant)
+            finally:
+                configs_base._REGISTRY[arch] = entry
+
+        def held(placed, names=None):
+            """(the largest bytes of parameters and moments a position
+            holds, the bytes on the card: each shared piece once)."""
+            ps = [t for group in (placed["params"], placed["opt"].m,
+                                  placed["opt"].v)
+                  for n, t in group.items() if names is None or n in names]
+            per = max(sum(nbytes(p.pieces[i]) for p in ps)
+                      for i in range(len(ps[0].pieces)))
+            distinct = {id(x): x for p in ps for x in p.pieces}
+            return per, sum(nbytes(x) for x in distinct.values())
+
+        def steps_of(fn, state, batch, n=4):
+            """``n`` steps from ``state``: (state, metrics a step, seconds
+            a step, peak GB)."""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            metrics, secs = [], []
+            for _ in range(n):
+                t = time.perf_counter()
+                state, m = fn(state, batch)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+                metrics.append(m)
+            return (state, metrics, secs,
+                    torch.cuda.max_memory_allocated() / 1e9)
+
+        def ms(secs):
+            return (f"{statistics.median(secs[1:]) * 1e3:.1f} ms (median of "
+                    f"3 after a warm-up; {[round(s * 1e3, 1) for s in secs]})")
+
+        def leaf_gap(a, b):
+            """(every parameter and moment of train states ``a`` and ``b``
+            bit-equal, the largest |difference|, its leaf)."""
+            pa = dict(a["params"].named_parameters())
+            pb = dict(b["params"].named_parameters())
+            worst, equal = (0.0, None), True
+            for n in pb:
+                for kind, x, y in (("param", pa[n], pb[n]),
+                                   ("m", a["opt"].m[n], b["opt"].m[n]),
+                                   ("v", a["opt"].v[n], b["opt"].v[n])):
+                    if not torch.equal(x, y):
+                        equal = False
+                        gap = (x.float() - y.float()).abs().max().item()
+                        worst = max(worst, (gap, f"{kind} {n}"))
+            return equal, worst[0], worst[1]
+
+        def losses(metrics):
+            return [float(m["loss"]) for m in metrics]
+
+        @contextlib.contextmanager
+        def coupled_calls():
+            """Counts of the placed step's MoE ``ce`` calls that take the
+            expert counts summed over the positions, in a forward and
+            in a backward (remat's recomputation): a recomputation that
+            lost the step's hook takes its position's own counts and
+            adds none to ``backward``."""
+            from repro_torch.sharding import placed as placed_lib
+            calls = {"forward": 0, "backward": 0}
+            ce = placed_lib._Coupling.ce
+
+            def counting(hook, layer, counts, slots):
+                if not hook.record:
+                    calls["forward" if torch._C._current_graph_task_id()
+                          == -1 else "backward"] += 1
+                return ce(hook, layer, counts, slots)
+            placed_lib._Coupling.ce = counting
+            try:
+                yield calls
+            finally:
+                placed_lib._Coupling.ce = ce
+
+        # part 1: tests/test_sharded_exec.py's config, parameters
+        # replicated, numpy tokens one row a position
+        cfg = tfm.LMConfig(name="t", n_layers=2, d_model=32, n_heads=4,
+                           n_kv_heads=2, d_ff=64, vocab=64,
+                           param_dtype=torch.float32,
+                           compute_dtype=torch.float32, remat=False)
+        opt = optimizer.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+        cell = cell_of("minitron-4b", cfg, 8, 16, grid)
+        state = steps.materialize(
+            cell, dev, torch.Generator(device=dev).manual_seed(0)).args[0]
+        batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, (8, 16), dtype=np.int32), device=dev)}
+        sspec, bspec = sharding.placed_specs(cell)
+        placed = sharding.place_state(state, steps._replicated(sspec), grid)
+        pbatch = sharding.place(batch, bspec, grid)
+        one = sharding.gather_state(placed)
+        placed, pm, _, _ = steps_of(sharding.placed_step(cell, opt_cfg=opt),
+                                    placed, pbatch, 3)
+        state, am, _, _ = steps_of(train_step.lm_train_step(cfg, opt,
+                                                            accum=8),
+                                   state, batch, 3)
+        one, m1 = train_step.lm_train_step(cfg, opt)(one, batch)
+        equal = leaf_gap(sharding.gather_state(placed), state)[0] and all(
+            torch.equal(p[k], a[k]) for p, a in zip(pm, am)
+            for k in ("loss", "grad_norm"))
+        gap = abs(float(pm[0]["loss"]) - float(m1["loss"]))
+        log(f"[placed] smoke step (2 layers, d_model 32, fp32; 8 x 16 "
+            f"tokens, parameters replicated) on the 2 x 4 positions: losses "
+            f"{losses(pm)}; bit-equal to the one-device accum=8 step over 3 "
+            f"steps (loss, norm, every parameter and moment): {equal}; first "
+            f"loss against accum=1 {float(m1['loss']):.7f}: gap {gap:.3e}")
+        expect(equal, "[placed] the smoke step differs from accum=8")
+        expect(gap <= 1e-4, f"[placed] smoke loss {gap:.2e} off accum=1")
+        del state, placed, one, pbatch, batch
+
+        # part 2: minitron-4b train_4k by its FSDP specs, 4 of 32 layers;
+        # first accum=1 on PL_ROWS rows against those rows placed on
+        # 1 x PL_ROWS positions, each leg from seed 0
+        cfg = dataclasses.replace(minitron_4b.CONFIG, n_layers=PL_LAYERS)
+        log(f"[placed] minitron-4b train_4k: cut to {PL_LAYERS} of 32 layers "
+            f"and batch {PL_BATCH} x 4,096 of 256 x 4,096 (one row a "
+            f"position); accum=1 at {PL_ROWS} x 4,096, against the placed "
+            f"step of its rows on 1 x {PL_ROWS} positions (at {PL_BATCH} x "
+            f"4,096 its (B, 4,095, 256,000) fp32 logits alone are 33.5 GB)")
+        pair = Mesh([torch.device("cuda", 0)] * PL_ROWS, ("data", "model"),
+                    (1, PL_ROWS))
+        small = cell_of("minitron-4b", cfg, PL_ROWS, 4096, pair)
+        state, batch = steps.materialize(
+            small, dev, torch.Generator(device=dev).manual_seed(0)).args
+        sspec, bspec = sharding.placed_specs(small)
+        placed = sharding.place_state(state, sspec, pair)
+        placed, sm = sharding.placed_step(small)(
+            placed, sharding.place(batch, bspec, pair))
+        del placed
+        gc.collect()
+        torch.cuda.empty_cache()
+        state, om, o_s, o_peak = steps_of(train_step.lm_train_step(
+            cfg, optimizer.CELL_CONFIG), state, batch)
+        accum1_gap = abs(float(sm["loss"]) - float(om[0]["loss"]))
+        del state, batch, om
+        gc.collect()
+        torch.cuda.empty_cache()
+        cell = cell_of("minitron-4b", cfg, PL_BATCH, 4096, grid)
+        state, batch = steps.materialize(
+            cell, dev, torch.Generator(device=dev).manual_seed(0)).args
+        sspec, bspec = sharding.placed_specs(cell)
+        placed = sharding.place_state(state, sspec, grid)
+        pbatch = sharding.place(batch, bspec, grid)
+        per, distinct = held(placed)
+        placed, pm, p_s, p_peak = steps_of(
+            sharding.placed_step(cell), placed, pbatch)
+        state, am, a_s, a_peak = steps_of(
+            train_step.lm_train_step(cfg, optimizer.CELL_CONFIG,
+                                     accum=PL_BATCH),
+            state, batch)
+        equal, worst, where = leaf_gap(sharding.gather_state(placed), state)
+        equal = equal and all(torch.equal(p[k], a[k]) for p, a in zip(pm, am)
+                              for k in ("loss", "grad_norm"))
+        log(f"[placed] minitron-4b train_4k ({PL_LAYERS} layers, full width, "
+            f"bf16, remat; FSDP specs over the 2 x 4 positions): placed step "
+            f"{ms(p_s)}, peak {p_peak:.3f} GB, losses {losses(pm)}; "
+            f"one-device accum={PL_BATCH} {ms(a_s)}, peak {a_peak:.3f} GB; accum=1 at "
+            f"{PL_ROWS} x 4,096 {ms(o_s)}, peak {o_peak:.3f} GB; state a "
+            f"position {per / 1e9:.3f} GB ({distinct / 1e9:.3f} GB on the "
+            f"card); bit-equal to accum={PL_BATCH} over 4 steps: {equal} "
+            f"(largest gap {worst:.3e} at {where}); the placed loss of the "
+            f"{PL_ROWS} rows {float(sm['loss']):.7f} against accum=1's: gap "
+            f"{accum1_gap:.3e} ({smi})")
+        expect(equal, "[placed] minitron-4b differs from accum=8")
+        expect(accum1_gap <= 1e-4, f"[placed] minitron-4b loss "
+                                   f"{accum1_gap:.2e} off accum=1")
+        del state, batch, placed, pbatch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # parts 3 and 4: granite-moe-3b-a800m train_4k, baseline and
+        # ep_moe, 4 of 32 layers; routings recorded on each first step
+        cfg = dataclasses.replace(granite_moe_3b_a800m.CONFIG,
+                                  n_layers=PL_LAYERS)
+        cells = {v: cell_of("granite-moe-3b-a800m", cfg, PL_BATCH, 4096,
+                            grid, v) for v in ("baseline", "ep_moe")}
+        state, batch = steps.materialize(
+            cells["baseline"], dev,
+            torch.Generator(device=dev).manual_seed(0)).args
+        pbatch = sharding.place(batch, cells["baseline"].in_specs[1], grid)
+        legs = {}
+        for v, c in cells.items():
+            placed = sharding.place_state(state, sharding.placed_specs(c)[0],
+                                          grid)
+            experts = {n for n in placed["params"]
+                       if n.rsplit(".", 1)[-1] in ("w_gate", "w_up",
+                                                   "w_down")}
+            bytes_ = held(placed), held(placed, experts)
+            mods = [layer.moe for layer in placed["model"].layers]
+            rt = RouteLog(moe_lib)
+            t = time.perf_counter()
+            try:
+                with coupled_calls() as calls:
+                    placed, m = sharding.placed_step(c)(placed, pbatch)
+            finally:
+                rt.uninstall()
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t
+            want_calls = {"forward": PL_LAYERS * PL_BATCH,
+                          "backward": PL_LAYERS * PL_BATCH}
+            log(f"[placed] granite {v}: the first step's MoE layers took the "
+                f"summed expert counts {calls} times (want {want_calls}: "
+                f"one a layer and position in the forward and in remat's "
+                f"recomputation in the backward)")
+            expect(calls == want_calls,
+                   f"[placed] granite {v}: a forward or backward took its "
+                   f"position's own expert counts ({calls})")
+            # the routing pass: one call a position and layer, in order
+            route = [[(torch.cat([ids for ids, _ in calls[:8]]),
+                       torch.cat([g for _, g in calls[:8]]))]
+                     for calls in rt.take(mods)]
+            placed, rest, secs, peak = steps_of(sharding.placed_step(c),
+                                                placed, pbatch, 3)
+            legs[v] = (sharding.gather_state(placed), [m] + rest, route,
+                       peak, bytes_)
+            del placed
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"[placed] granite {v} placed step "
+                f"{ms([first] + secs)}, the first routings recorded; peak "
+                f"{peak:.3f} GB; state a position {bytes_[0][0] / 1e9:.3f} GB "
+                f"({bytes_[0][1] / 1e9:.3f} GB on the card), of which the "
+                f"experts {bytes_[1][0] / 1e9:.3f} GB; losses "
+                f"{losses([m] + rest)}")
+        rt = RouteLog(moe_lib)
+        mods = [layer.moe for layer in state["params"].layers]
+        t = time.perf_counter()
+        try:
+            state, m1 = train_step.lm_train_step(
+                cfg, optimizer.CELL_CONFIG)(state, batch)
+        finally:
+            rt.uninstall()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t
+        want = [c[:1] for c in rt.take(mods)]
+        state, rest, o_s, o_peak = steps_of(train_step.lm_train_step(
+            cfg, optimizer.CELL_CONFIG), state, batch, 3)
+        base_state, bm, b_route = legs["baseline"][:3]
+        flip, bad_route, bad_slot, held_n = routing_diff(
+            b_route, want, moe_lib, cfg, PL_BATCH, 4096)
+        gap = abs(float(bm[0]["loss"]) - float(m1["loss"]))
+        log(f"[placed] granite train_4k ({PL_LAYERS} layers, full width, "
+            f"bf16, remat; 40 experts top-8, 16 dispatch blocks of 2,048, "
+            f"two a position) baseline against the one-device accum=1 "
+            f"step ({ms([first] + o_s)}, peak {o_peak:.3f} GB): loss "
+            f"{float(bm[0]['loss']):.7f} against {float(m1['loss']):.7f}, "
+            f"gap {gap:.3e}; routings differing {int(flip.sum())} of "
+            f"{flip.numel()} (token, layer), past the {ROUTE_GAP} gap where "
+            f"no earlier change reached {bad_route} (held "
+            f"{held_n.tolist()} a layer), slots differing before their "
+            f"block's first change {bad_slot}")
+        expect(gap <= 1e-4, f"[placed] granite loss {gap:.2e} off accum=1")
+        expect(bad_route == 0 and bad_slot == 0,
+               f"[placed] granite routing differs from accum=1 past the gap "
+               f"({bad_route} routings, {bad_slot} slots)")
+        ep_state, em, e_route = legs["ep_moe"][:3]
+        same_route = all(torch.equal(a[0][0], b[0][0])
+                         for a, b in zip(e_route, b_route))
+        equal, worst, where = leaf_gap(ep_state, base_state)
+        gap = abs(float(em[0]["loss"]) - float(bm[0]["loss"]))
+        log(f"[placed] granite ep_moe (10 of 40 experts a model position) "
+            f"against the placed baseline: routings equal {same_route}; loss "
+            f"gap {gap:.3e}; every leaf bit-equal after 4 steps: {equal} "
+            f"(largest gap {worst:.3e} at {where}); expert pieces a position "
+            f"{legs['ep_moe'][4][1][0] / 1e9:.3f} GB ({smi})")
+        expect(same_route, "[placed] ep_moe routed otherwise than baseline")
+        expect(gap <= 1e-4, f"[placed] ep_moe loss {gap:.2e} off baseline")
+        expect(sum(op.launches for op in every) == n0,
+               "[placed] a kernel launched during training")
+        del state, batch, pbatch, legs, base_state, ep_state
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[placed] phase {time.perf_counter() - phase_t:.2f} s, the "
+            f"script so far {time.perf_counter() - script_t:.2f} s")
 
     def a2a_phase(run, grid, on_meta, axis_rules):
         """Phase 11e's a2a legs (``[cells]``): dlrm-rm2 ``train_batch`` at
@@ -5553,6 +5889,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cells_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    placed_phase()
     gc.collect()
     torch.cuda.empty_cache()
     examples_phase()

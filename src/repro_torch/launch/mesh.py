@@ -8,7 +8,10 @@ device of it (the reference's single controller): each shard's work is
 launched on its own device, and a shard's results are copied to the
 root device.  A mesh may repeat a device — the counterpart of the
 reference's ``--xla_force_host_platform_device_count``, used by the
-tests (four CPU positions) and by ``chip_smoke.py`` on one card.
+tests (four or eight CPU positions) and by ``chip_smoke.py`` on one
+card.  The steps that run over a mesh's positions are the a2a lookup
+(``models.recsys.alltoall_lookup``) and the placed LM train step
+(``sharding.placed.placed_step``).
 
 The CLI builds its meshes from :func:`local_devices` alone, which never
 repeats a device; the ``devices=`` argument of the mesh functions is for

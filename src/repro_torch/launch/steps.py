@@ -8,7 +8,9 @@ on the ``meta`` device (modules and train states built under
 the production mesh, the rule set and the step's model FLOPs.  The dry
 run (``launch.dryrun``) counts a cell's work on those meta arguments;
 :func:`materialize` draws real ones on a device, where the same ``fn``
-runs.
+runs.  A train cell of the LM family also runs placed over its mesh by
+its specs: ``sharding.placed`` cuts its state and batch over the mesh's
+positions and steps them from one controller (``placed_step``).
 
 Specs live on the reference's tree.  ``in_specs`` holds one spec tree an
 argument, each in the layout :func:`cell_tree` writes the argument in:
@@ -246,11 +248,6 @@ def _state_specs(param_specs):
             "step": ()}
 
 
-def _opt_cfg():
-    return optimizer.AdamWConfig(lr=3e-4, warmup_steps=100,
-                                 total_steps=10_000)
-
-
 def _meta(cls, *a):
     with torch.device("meta"):
         return cls(*a)
@@ -293,7 +290,7 @@ def _lm_cell(entry, shape, mesh, multi_pod, variant, backend):
         pfsdp = lm_param_specs_fsdp(train_step.param_tree(model), multi_pod)
         sspec = _state_specs(pfsdp)
         batch_spec = {"tokens": logical_to_spec(("batch", "seq"), rules)}
-        step = train_step.lm_train_step(cfg, _opt_cfg())
+        step = train_step.lm_train_step(cfg, optimizer.CELL_CONFIG)
         return Cell(entry.arch_id, shape.shape_id, "train",
                     _with_rules(rules, step),
                     (state, {"tokens": _meta_t((B, S), I32)}),
@@ -391,7 +388,7 @@ def _gnn_cell(entry, shape, mesh, multi_pod, variant, backend):
     if graph_ids:
         batch["graph_ids"] = _meta_t((n_nodes,), I32)
         bspec["graph_ids"] = ()
-    step = train_step.gin_train_step(cfg, _opt_cfg(), task=task)
+    step = train_step.gin_train_step(cfg, optimizer.CELL_CONFIG, task=task)
     # per-edge gather+add ~ 2*d_hidden flops x layers + node MLPs
     mf = (2.0 * e_pad * cfg.d_hidden * cfg.n_layers
           + 2.0 * n_nodes * cfg.param_count())
@@ -486,7 +483,8 @@ def _recsys_cell(entry, shape, mesh, multi_pod, variant, backend):
         batch, bspec = _ctr_batch_specs(entry.arch_id, cfg, B, rules)
         batch["labels"] = _meta_t((B,), F32)
         bspec["labels"] = logical_to_spec(("batch",), rules)
-        step = train_step.ctr_train_step(recsys_lib.ctr_forward, _opt_cfg())
+        step = train_step.ctr_train_step(recsys_lib.ctr_forward,
+                                         optimizer.CELL_CONFIG)
         return Cell(entry.arch_id, shape.shape_id, "train",
                     _with_rules(rules, step), (train_step.make_train_state(model), batch),
                     (sspec, bspec), (sspec, None), mesh, rules,
@@ -545,7 +543,8 @@ def _bert4rec_cell(entry, shape, mesh, multi_pod, variant, backend):
         bsp = logical_to_spec(("batch", None), rules)
         bspec = {"items": bsp, "mask_idx": bsp, "labels": bsp,
                  "negatives": ()}
-        step = train_step.bert4rec_sampled_train_step(cfg, _opt_cfg())
+        step = train_step.bert4rec_sampled_train_step(cfg,
+                                                      optimizer.CELL_CONFIG)
         return Cell(entry.arch_id, shape.shape_id, "train",
                     _with_rules(rules, step), (train_step.make_train_state(model), batch),
                     (sspec, bspec), (sspec, None), mesh, rules,
@@ -609,8 +608,8 @@ def _colbert_cell(entry, shape, mesh, multi_pod, variant, backend):
     if shape.shape_id == "train_contrastive":
         B = dims["batch"]
         sspec = _state_specs(pspecs)
-        step = train_step.colbert_train_step(cfg, _opt_cfg(), reg="sim",
-                                             alpha=0.1)
+        step = train_step.colbert_train_step(cfg, optimizer.CELL_CONFIG,
+                                             reg="sim", alpha=0.1)
         batch = {"query_ids": _meta_t((B, dims["query_len"]), I32),
                  "doc_ids": _meta_t((B, dims["doc_len"]), I32)}
         bsp = logical_to_spec(("batch", None), rules)

@@ -31,11 +31,19 @@ their backward adds a row's repeats (a token sent to k experts) in a
 fixed order, and the sum over a token's k terms is a fixed sequence of
 adds, never ``index_add_``'s atomics: serving and a resumed training
 run are bit-equal from run to run on the card.
+
+A placed step (``sharding.placed``) runs the layer once a position, on
+that position's rows, under :func:`coupled`: its hook gives each
+layer's load-balance loss the expert counts of every position, and may
+compute the experts' SwiGLU on the positions that own them.  A remat
+recomputation runs under the same hook (:func:`remat_context`).
 """
 
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager, nullcontext
 
 import torch
 from torch import nn
@@ -43,6 +51,52 @@ from torch import nn
 from repro_torch.core.segment import take_rows
 from repro_torch.models.common import dense_init, rounded_einsum
 from repro_torch.sharding.specs import constrain, note_topk
+
+BLOCK_TOKENS = 2048          # a dispatch block's tokens (``Block`` keeps it)
+
+
+class Local:
+    """The hook of an MoE layer outside :func:`coupled`: ``ce(layer,
+    counts, slots)`` gives the load-balance loss's expert shares from
+    the call's own expert counts (E,) and its ``T * top_k`` slots, and
+    ``experts(layer, buf, swiglu)`` the experts' outputs on the dispatch
+    buffer, computed by ``swiglu`` (:func:`expert_swiglu`) where the
+    layer runs.  ``layer`` is the :class:`MoE` module."""
+
+    def ce(self, layer, counts, slots):
+        return counts.float() / slots
+
+    def experts(self, layer, buf, swiglu):
+        return swiglu(buf, layer.w_gate, layer.w_up, layer.w_down)
+
+
+LOCAL = Local()
+_hook = threading.local()
+
+
+def _current() -> Local:
+    return getattr(_hook, "value", LOCAL)
+
+
+@contextmanager
+def coupled(hook):
+    """Route every MoE layer of this thread through ``hook`` (a
+    :class:`Local` that overrides what it couples) for the enclosed
+    region."""
+    prev = _current()
+    _hook.value = hook
+    try:
+        yield hook
+    finally:
+        _hook.value = prev
+
+
+def remat_context():
+    """``torch.utils.checkpoint``'s ``context_fn``: the recomputation of
+    a checkpointed block runs under the hook its forward ran under (on
+    the card the backward, and so the recomputation, runs on autograd's
+    device thread, which starts with no hook)."""
+    return nullcontext(), coupled(_current())
 
 
 class MoE(nn.Module):
@@ -65,7 +119,7 @@ class MoE(nn.Module):
                                                **kw))
 
     def forward(self, x, *, top_k: int, capacity_factor: float = 1.25,
-                block_tokens: int = 2048, aux: bool = True):
+                block_tokens: int = BLOCK_TOKENS, aux: bool = True):
         return moe_ffn(self, x, top_k=top_k, capacity_factor=capacity_factor,
                        block_tokens=block_tokens, aux=aux)
 
@@ -152,8 +206,18 @@ def dispatch(expert_ids, n_experts: int, cap: int):
     return cell_tok, cell_ok, slot.reshape(nb, tb, k), counts
 
 
+def expert_swiglu(buf, w_gate, w_up, w_down):
+    """The experts' SwiGLU on a dispatch buffer (nb, E, cap, D) with
+    their (E, ...) weights, batched over blocks and experts."""
+    g = rounded_einsum("becd,edf->becf", buf, w_gate)
+    u = rounded_einsum("becd,edf->becf", buf, w_up)
+    h = constrain(silu(g) * u, "batch", "expert", None, "ffn")
+    return constrain(rounded_einsum("becf,efd->becd", h, w_down),
+                     "batch", "expert", None, "embed")
+
+
 def moe_ffn(p: MoE, x, *, top_k: int, capacity_factor: float = 1.25,
-            block_tokens: int = 2048, aux: bool = True):
+            block_tokens: int = BLOCK_TOKENS, aux: bool = True):
     """x (B, S, D) -> (y (B, S, D) in x's dtype, aux {"load_balance",
     "router_z"} 0-d fp32, or None when not ``aux``), the reference's
     ``moe_ffn`` (module docstring)."""
@@ -166,12 +230,13 @@ def moe_ffn(p: MoE, x, *, top_k: int, capacity_factor: float = 1.25,
     xt = constrain(x.reshape(nb, tb, D), "batch", None, "embed")
     logits, probs, expert_ids, gates = route(p, xt, top_k)
     cell_tok, cell_ok, slot, counts = dispatch(expert_ids, E, cap)
+    hook = _current()
 
     # ---- aux losses ----
     losses = None
     if aux:
         me = probs.mean(dim=(0, 1))                             # (E,)
-        ce = counts.sum(0).float() / (T * top_k)
+        ce = hook.ce(p, counts.sum(0), T * top_k)
         losses = {"load_balance": E * torch.sum(me * ce),
                   "router_z": torch.logsumexp(logits, dim=-1).square().mean()}
 
@@ -182,11 +247,7 @@ def moe_ffn(p: MoE, x, *, top_k: int, capacity_factor: float = 1.25,
                     "batch", "expert", None, "embed")
 
     # ---- expert FFN (SwiGLU), batched over blocks ----
-    g = rounded_einsum("becd,edf->becf", buf, p.w_gate)
-    u = rounded_einsum("becd,edf->becf", buf, p.w_up)
-    h = constrain(silu(g) * u, "batch", "expert", None, "ffn")
-    out_buf = constrain(rounded_einsum("becf,efd->becd", h, p.w_down),
-                        "batch", "expert", None, "embed")
+    out_buf = hook.experts(p, buf, expert_swiglu)
 
     # ---- combine: a token's kept outputs, expert-ascending ----
     ex, r = torch.sort(expert_ids, dim=-1)                      # (nb, tb, k)

@@ -17,7 +17,8 @@ The full-sequence attention of every layer takes a ``backend``
 (neither package has a B7 backward).  Decode is plain torch and updates
 the stacked KV cache in place.  With ``remat`` each block runs under
 ``torch.utils.checkpoint`` while autograd records (the reference's
-``jax.checkpoint``), so a training step keeps one block's activations
+``jax.checkpoint``; its recomputation under the MoE hook of its forward,
+``moe.remat_context``), so a training step keeps one block's activations
 at a time; with ``remat_attn_chunk`` each query chunk of the blocked
 plain attention is recomputed too, inside its block's recomputation
 (``Attention.forward``'s ``remat_chunk``).
@@ -34,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import Attention, KVCache, decode_attention
 from repro_torch.models.common import dense_init, embed_init, rms_norm, swiglu
-from repro_torch.models.moe import MoE, init_moe_
+from repro_torch.models.moe import MoE, init_moe_, remat_context
 from repro_torch.sharding.specs import constrain
 
 
@@ -173,7 +174,8 @@ class Transformer(nn.Module):
         for layer in self.layers:
             if remat:
                 x, aux = checkpoint(layer, x, attn_mask, window, backend,
-                                    use_reentrant=False)
+                                    use_reentrant=False,
+                                    context_fn=remat_context)
             else:
                 x, aux = layer(x, attn_mask, window, backend)
             if aux is not None:

@@ -23,9 +23,10 @@ under :func:`counting`) reads each constrained tensor's spec there;
 the top-ks, attentions and catalog lookups it counts.  The LM, GNN and
 recsys rule sets (:func:`lm_train_rules` and the six after it) are
 plain dicts equal to the reference's; they feed the cells' specs and
-the dry run's counts
-(``launch.steps``, ``launch.roofline``), and no code places tensors by
-them: placing a model over several cards is ROADMAP item 7c.
+the dry run's counts (``launch.steps``, ``launch.roofline``).  An LM
+train cell's tensors are placed by its specs, and its step run over its
+mesh, by ``sharding.placed``; the GNN and recsys rule sets place
+nothing.
 """
 
 from __future__ import annotations

@@ -90,17 +90,26 @@ def global_norm(tensors) -> torch.Tensor:
                                    for x in tensors]).sum())
 
 
+# the AdamW of every train cell's step (``launch.steps``)
+CELL_CONFIG = AdamWConfig(lr=3e-4, warmup_steps=100, total_steps=10_000)
+
+
 @torch.no_grad()
 def apply(cfg: AdamWConfig, params: dict[str, torch.Tensor],
           grads: dict[str, torch.Tensor], state: AdamWState, *,
-          ranks: dict[str, int] | None = None):
+          ranks: dict[str, int] | None = None,
+          gnorm: torch.Tensor | None = None):
     """One AdamW update, in place, of parameters on one device.
     ``ranks`` gives each parameter's rank in the reference's tree
-    (default: its own ``ndim``); rank >= 2 is decayed.  Returns (params,
-    new_state, stats) with ``stats`` {"grad_norm" (before the clip),
-    "lr"} as 0-d fp32 tensors."""
+    (default: its own ``ndim``); rank >= 2 is decayed.  ``gnorm`` is the
+    clip's norm, on the parameters' device; by default the
+    :func:`global_norm` of ``grads`` (a placed step passes the norm of
+    the whole gradients, of which ``grads`` are pieces).  Returns
+    (params, new_state, stats) with ``stats`` {"grad_norm" (before the
+    clip), "lr"} as 0-d fp32 tensors."""
     names = list(params)
-    gnorm = global_norm([grads[n] for n in names])
+    if gnorm is None:
+        gnorm = global_norm([grads[n] for n in names])
     if cfg.grad_clip:
         scale = torch.clamp(cfg.grad_clip / gnorm.clamp_min(1e-9), max=1.0)
     else:
